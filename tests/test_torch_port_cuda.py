@@ -1,0 +1,65 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Every test here is marked ``cuda`` and skips where there is no card. The file
+imports no JAX, so on a machine without JAX it runs with
+``python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from dskd_tpu_torch.ops.msda import ms_deform_attn_core
+from dskd_tpu_torch.ops.mxu_gather import gather_weighted, \
+    gather_weighted_plain
+from dskd_tpu_torch.ops.pack_kernel import pack_corners, pack_corners_plain
+
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_match_twins(cuda_device, dtype):
+    rng = np.random.RandomState(3)
+    B, H, D, (h, w), Q, P = 2, 8, 32, (20, 24), 300, 4
+    value = torch.from_numpy(rng.randn(B, 50 + h * w, H, D)
+                             .astype(np.float32)).to(cuda_device)
+    v = value.to(_TORCH[dtype])[:, 50:]            # a level slice, in place
+    table = pack_corners(v, h, w)
+    assert torch.equal(table, pack_corners_plain(v, h, w))
+    S = table.shape[1]
+    # indices outside [0, S) must contribute zero and never be read
+    idx = torch.from_numpy(rng.randint(-2, S + 2, (B, Q, H, P))
+                           .astype(np.int32)).to(cuda_device)
+    cw = torch.from_numpy(rng.rand(B, Q, H, P, 4).astype(np.float32)
+                          ).to(cuda_device)
+    got = gather_weighted(table, idx, cw)
+    want = gather_weighted_plain(table.float(), idx, cw).to(got.dtype)
+    torch.cuda.synchronize()
+    # f32: summation order only; bf16: one rounding of the f32 sum
+    tol = 1e-5 if dtype == "float32" else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_msda_on_card_matches_cpu(cuda_device):
+    rng = np.random.RandomState(4)
+    shapes = [(20, 24), (10, 12), (5, 6)]
+    B, H, D, Q, P = 2, 8, 32, 120, 4
+    S = sum(h * w for h, w in shapes)
+    value = torch.from_numpy(rng.randn(B, S, H, D).astype(np.float32))
+    locs = torch.from_numpy((rng.rand(B, Q, H, len(shapes), P, 2) * 1.3
+                             - 0.15).astype(np.float32))
+    weights = torch.from_numpy(rng.rand(B, Q, H, len(shapes), P)
+                               .astype(np.float32))
+    want = ms_deform_attn_core(value, shapes, locs, weights)
+    got = ms_deform_attn_core(value.to(cuda_device), shapes,
+                              locs.to(cuda_device), weights.to(cuda_device))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
