@@ -1,6 +1,10 @@
 """Detector assembly (port of dskd_tpu/models/detector.py
 ``GFLDeformableDETR`` and its registry ``build``): ResNet -> ChannelMapper
--> GFL Deformable-DETR head, eval-only.
+-> GFL Deformable-DETR head.
+
+``model.train()`` turns on the transformer's dropout (its masks come from the
+generator passed to ``forward``); the backbone's BatchNorm stays frozen in
+both modes and ``frozen_stages`` detaches the stem and layer1.
 
 Images enter NHWC, as in the JAX package; the backbone and neck run NCHW and
 ``neck_feats`` are returned NHWC.
@@ -29,10 +33,12 @@ class GFLDeformableDETR(nn.Module):
 
     def __init__(self, device, num_classes=80, num_query=300, reg_max=16,
                  depth=50, embed_dims=256, num_encoder_layers=6,
-                 num_decoder_layers=6, num_levels=4):
+                 num_decoder_layers=6, num_levels=4, frozen_stages=1,
+                 dropout=0.1):
         super().__init__()
         self.reg_max = reg_max
-        self.backbone = ResNet(depth, device, out_indices=(1, 2, 3))
+        self.backbone = ResNet(depth, device, out_indices=(1, 2, 3),
+                               frozen_stages=frozen_stages)
         self.neck = ChannelMapper(self.backbone.out_channels[1:], device,
                                   out_channels=embed_dims,
                                   num_outs=num_levels)
@@ -40,15 +46,17 @@ class GFLDeformableDETR(nn.Module):
             device, num_classes=num_classes, num_query=num_query,
             embed_dims=embed_dims, reg_max=reg_max,
             num_encoder_layers=num_encoder_layers,
-            num_decoder_layers=num_decoder_layers, num_levels=num_levels)
+            num_decoder_layers=num_decoder_layers, num_levels=num_levels,
+            dropout=dropout)
 
-    def forward(self, images: torch.Tensor, img_hw: torch.Tensor
-                ) -> DetectorOutputs:
-        """images (B, H, W, 3) normalized NHWC; img_hw (B, 2) valid (h, w)."""
+    def forward(self, images: torch.Tensor, img_hw: torch.Tensor,
+                generator=None) -> DetectorOutputs:
+        """images (B, H, W, 3) normalized NHWC; img_hw (B, 2) valid (h, w);
+        ``generator`` draws the dropout masks in training mode."""
         batch_input_shape = (images.shape[1], images.shape[2])
         feats = self.backbone(images.permute(0, 3, 1, 2))
         neck = self.neck(feats)
-        head = self.bbox_head(neck, img_hw, batch_input_shape)
+        head = self.bbox_head(neck, img_hw, batch_input_shape, generator)
         return DetectorOutputs(head, tuple(f.permute(0, 2, 3, 1)
                                            for f in neck))
 
@@ -66,7 +74,8 @@ def build_detector(model_cfg, device) -> GFLDeformableDETR:
         device, num_classes=m.num_classes, num_query=m.num_query,
         reg_max=m.reg_max, depth=m.depth, embed_dims=m.embed_dims,
         num_encoder_layers=m.num_encoder_layers,
-        num_decoder_layers=m.num_decoder_layers, num_levels=m.num_levels)
+        num_decoder_layers=m.num_decoder_layers, num_levels=m.num_levels,
+        frozen_stages=m.frozen_stages, dropout=m.dropout)
 
 
 @torch.no_grad()

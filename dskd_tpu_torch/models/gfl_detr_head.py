@@ -41,7 +41,7 @@ class GFLDeformableDETRHead(nn.Module):
     def __init__(self, device, num_classes=80, num_query=300, embed_dims=256,
                  reg_max=16, num_encoder_layers=6, num_decoder_layers=6,
                  num_heads=8, num_levels=4, num_points=4,
-                 feedforward_channels=1024):
+                 feedforward_channels=1024, dropout=0.1):
         super().__init__()
         C = embed_dims
         self.query_embedding = nn.Embedding(num_query, 2 * C, device=device)
@@ -49,7 +49,7 @@ class GFLDeformableDETRHead(nn.Module):
         self.prototype = nn.Embedding(num_classes, C, device=device)
         self.transformer = DeformableDetrTransformer(
             device, C, num_heads, num_levels, num_points, num_encoder_layers,
-            num_decoder_layers, feedforward_channels)
+            num_decoder_layers, feedforward_channels, dropout)
         self.cls_branches = nn.ModuleList([nn.Linear(C, num_classes,
                                                      device=device)])
         self.reg_branches = nn.ModuleList([nn.Sequential(
@@ -57,10 +57,11 @@ class GFLDeformableDETRHead(nn.Module):
             nn.Linear(C, C, device=device), nn.ReLU(),
             nn.Linear(C, 2 + 4 * (reg_max + 1), device=device))])
 
-    def forward(self, mlvl_feats, img_hw, batch_input_shape) -> HeadOutputs:
+    def forward(self, mlvl_feats, img_hw, batch_input_shape,
+                generator=None) -> HeadOutputs:
         hs, init_ref, inter_refs, memory, mask_flat = self.transformer(
             mlvl_feats, img_hw, batch_input_shape,
-            self.query_embedding.weight)
+            self.query_embedding.weight, generator)
         tmp = self.reg_branches[0](hs)
         # layer l uses init_ref for l=0 and inter_refs[l-1] after
         refs = torch.cat([init_ref[None], inter_refs[:-1]], 0)

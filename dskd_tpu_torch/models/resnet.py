@@ -1,9 +1,13 @@
 """ResNet backbone with frozen BatchNorm (port of dskd_tpu/models/resnet.py
 ``FrozenBatchNorm``, ``BasicBlock``, ``Bottleneck``, ``ResNet``).
 
-Eval-only: BN runs on its stored statistics, as the flagship's ``norm_eval``
-does. Convolutions run NCHW; padding is symmetric ``k // 2`` like the JAX
-module's explicit padding, and the stem max-pool pads with -inf. Parameter
+BN runs on its stored statistics in training too, as the flagship's
+``norm_eval`` does; its affine parameters still get gradients, which the
+optimizer leaves out (``train/optim.py``). ``frozen_stages`` detaches the
+features after the stem and after each stage ``<= frozen_stages``, as the
+JAX module's ``stop_gradient`` does, so those weights get no gradient.
+Convolutions run NCHW; padding is symmetric ``k // 2`` like the JAX module's
+explicit padding, and the stem max-pool pads with -inf. Parameter
 names are torchvision's (``conv1``, ``bn1``, ``layerS.B.convC``,
 ``downsample.0/1``), the names the mmdet checkpoints use. The dcn, gcb,
 gen_attn and gn variants are not ported.
@@ -99,11 +103,12 @@ class ResNet(nn.Module):
     gives C3, C4, C5) as NCHW tensors."""
 
     def __init__(self, depth: int, device, out_indices: Sequence[int] = (
-            1, 2, 3), base_channels: int = 64):
+            1, 2, 3), base_channels: int = 64, frozen_stages: int = 1):
         super().__init__()
         kind, stage_blocks = ARCH_SETTINGS[depth]
         block = Bottleneck if kind == "bottleneck" else BasicBlock
         self.out_indices = tuple(out_indices)
+        self.frozen_stages = frozen_stages
         self.conv1 = _conv(3, base_channels, 7, 2, device)
         self.bn1 = FrozenBatchNorm(base_channels, device)
         inplanes = base_channels
@@ -124,10 +129,14 @@ class ResNet(nn.Module):
 
     def forward(self, x) -> Tuple[torch.Tensor, ...]:
         x = F.relu(self.bn1(self.conv1(x)))
+        if self.frozen_stages >= 0:
+            x = x.detach()
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
         for i in range(len(self.out_channels)):
             x = getattr(self, f"layer{i + 1}")(x)
+            if self.frozen_stages >= i + 1:
+                x = x.detach()
             if i in self.out_indices:
                 outs.append(x)
         return tuple(outs)

@@ -1,4 +1,4 @@
-"""Deformable-DETR transformer, eval-only (port of
+"""Deformable-DETR transformer (port of
 dskd_tpu/models/transformer.py ``inverse_sigmoid``, ``MSDeformAttention``,
 ``MultiheadAttention``, ``FFN``, ``EncoderLayer``, ``DecoderLayer``,
 ``encoder_reference_points``, ``level_masks_and_ratios`` and
@@ -7,8 +7,14 @@ dskd_tpu/models/transformer.py ``inverse_sigmoid``, ``MSDeformAttention``,
 Tensors are batch-first (B, S, C). Parameter names follow mmdet/mmcv
 (``encoder.layers.i.attentions.0.sampling_offsets``, ``ffns.0.layers.0.0``,
 ``norms.k``, ``attentions.0.attn.in_proj_weight``, ...). Not ported: the
-premap decoder branch, box refinement, two-stage, remat and dropout (eval has
-none).
+premap decoder branch, box refinement, two-stage and remat.
+
+Dropout sits where the JAX layers put it: after MSDA's output projection, on
+the attention weights of ``MultiheadAttention`` and after its output, and
+twice in the FFN. Its masks come from the ``torch.Generator`` passed into the
+forward, the port's counterpart of the train step's ``dropout_rng``, never
+from the global RNG. It is active in training mode at p > 0, where a
+forward without a generator raises; eval mode and p = 0 turn it off.
 """
 from __future__ import annotations
 
@@ -21,6 +27,20 @@ import torch.nn.functional as F
 
 from ..ops.msda import ms_deform_attn_core
 from .positional import sine_positional_encoding
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1-p, scale kept values by
+    1/(1-p). Off in eval and at p = 0; otherwise ``generator`` (on ``x``'s
+    device) draws the mask and must be given."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode at p > 0 needs a "
+                         "torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 def inverse_sigmoid(x, eps=1e-5):
@@ -44,10 +64,11 @@ class MSDeformAttention(nn.Module):
     """Multi-scale deformable attention over flattened level tokens."""
 
     def __init__(self, device, embed_dims=256, num_heads=8, num_levels=4,
-                 num_points=4):
+                 num_points=4, dropout=0.1):
         super().__init__()
         self.num_heads, self.num_levels, self.num_points = (
             num_heads, num_levels, num_points)
+        self.dropout = dropout
         hlp = num_heads * num_levels * num_points
         self.sampling_offsets = nn.Linear(embed_dims, hlp * 2, device=device)
         self.attention_weights = nn.Linear(embed_dims, hlp, device=device)
@@ -55,7 +76,7 @@ class MSDeformAttention(nn.Module):
         self.output_proj = nn.Linear(embed_dims, embed_dims, device=device)
 
     def forward(self, query, value, query_pos, reference_points,
-                spatial_shapes, key_padding_mask=None):
+                spatial_shapes, key_padding_mask=None, generator=None):
         """query (B, Q, C); value (B, S, C); reference_points (B, Q, L, 2)
         normalized; key_padding_mask (B, S), True at padding."""
         B, Q, C = query.shape
@@ -75,7 +96,8 @@ class MSDeformAttention(nn.Module):
         locs = (reference_points[:, :, None, :, None, :]
                 + offsets / norm[None, None, None, :, None, :])
         out = ms_deform_attn_core(v, spatial_shapes, locs, weights)
-        return identity + self.output_proj(out)
+        return identity + dropout(self.output_proj(out), self.dropout,
+                                  self.training, generator)
 
 
 class _InOutProj(nn.Module):
@@ -95,12 +117,13 @@ class MultiheadAttention(nn.Module):
     """Dot-product MHA with DETR-style positions (q = k = x + pos, v = x),
     written out as projections, matmul and softmax."""
 
-    def __init__(self, device, embed_dims=256, num_heads=8):
+    def __init__(self, device, embed_dims=256, num_heads=8, dropout=0.1):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.attn = _InOutProj(embed_dims, device)
 
-    def forward(self, query, query_pos=None):
+    def forward(self, query, query_pos=None, generator=None):
         B, Q, C = query.shape
         H = self.num_heads
         Dh = C // H
@@ -111,20 +134,28 @@ class MultiheadAttention(nn.Module):
         k = F.linear(qk_in, wk, bk).reshape(B, Q, H, Dh)
         v = F.linear(query, wv, bv).reshape(B, Q, H, Dh)
         attn = torch.einsum("bqhd,bkhd->bhqk", q, k).softmax(-1)
+        attn = dropout(attn, self.dropout, self.training, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, Q, C)
-        return query + self.attn.out_proj(out)
+        return query + dropout(self.attn.out_proj(out), self.dropout,
+                               self.training, generator)
 
 
 class FFN(nn.Module):
-    def __init__(self, device, embed_dims=256, feedforward_channels=1024):
+    def __init__(self, device, embed_dims=256, feedforward_channels=1024,
+                 dropout=0.1):
         super().__init__()
+        self.dropout = dropout
         self.layers = nn.Sequential(
             nn.Sequential(nn.Linear(embed_dims, feedforward_channels,
                                     device=device), nn.ReLU()),
             nn.Linear(feedforward_channels, embed_dims, device=device))
 
-    def forward(self, x):
-        return x + self.layers(x)
+    def forward(self, x, generator=None):
+        y = dropout(self.layers[0](x), self.dropout, self.training,
+                    generator)
+        y = dropout(self.layers[1](y), self.dropout, self.training,
+                    generator)
+        return x + y
 
 
 def _norms(n, embed_dims, device):
@@ -136,44 +167,45 @@ class EncoderLayer(nn.Module):
     """('self_attn', 'norm', 'ffn', 'norm') with MSDeformAttention."""
 
     def __init__(self, device, embed_dims=256, num_heads=8, num_levels=4,
-                 num_points=4, feedforward_channels=1024):
+                 num_points=4, feedforward_channels=1024, dropout=0.1):
         super().__init__()
         self.attentions = nn.ModuleList([MSDeformAttention(
-            device, embed_dims, num_heads, num_levels, num_points)])
+            device, embed_dims, num_heads, num_levels, num_points, dropout)])
         self.ffns = nn.ModuleList([FFN(device, embed_dims,
-                                       feedforward_channels)])
+                                       feedforward_channels, dropout)])
         self.norms = _norms(2, embed_dims, device)
 
     def forward(self, x, pos, reference_points, spatial_shapes,
-                key_padding_mask):
+                key_padding_mask, generator=None):
         x = self.attentions[0](x, x, pos, reference_points, spatial_shapes,
-                               key_padding_mask)
+                               key_padding_mask, generator)
         x = self.norms[0](x)
-        return self.norms[1](self.ffns[0](x))
+        return self.norms[1](self.ffns[0](x, generator))
 
 
 class DecoderLayer(nn.Module):
     """('self_attn', 'norm', 'cross_attn', 'norm', 'ffn', 'norm')."""
 
     def __init__(self, device, embed_dims=256, num_heads=8, num_levels=4,
-                 num_points=4, feedforward_channels=1024):
+                 num_points=4, feedforward_channels=1024, dropout=0.1):
         super().__init__()
         self.attentions = nn.ModuleList([
-            MultiheadAttention(device, embed_dims, num_heads),
+            MultiheadAttention(device, embed_dims, num_heads, dropout),
             MSDeformAttention(device, embed_dims, num_heads, num_levels,
-                              num_points)])
+                              num_points, dropout)])
         self.ffns = nn.ModuleList([FFN(device, embed_dims,
-                                       feedforward_channels)])
+                                       feedforward_channels, dropout)])
         self.norms = _norms(3, embed_dims, device)
 
     def forward(self, query, query_pos, memory, reference_points,
-                spatial_shapes, key_padding_mask):
-        query = self.norms[0](self.attentions[0](query, query_pos))
+                spatial_shapes, key_padding_mask, generator=None):
+        query = self.norms[0](self.attentions[0](query, query_pos,
+                                                 generator))
         query = self.attentions[1](query, memory, query_pos,
                                    reference_points, spatial_shapes,
-                                   key_padding_mask)
+                                   key_padding_mask, generator)
         query = self.norms[1](query)
-        return self.norms[2](self.ffns[0](query))
+        return self.norms[2](self.ffns[0](query, generator))
 
 
 def encoder_reference_points(spatial_shapes, valid_ratios):
@@ -224,10 +256,10 @@ class DeformableDetrTransformer(nn.Module):
 
     def __init__(self, device, embed_dims=256, num_heads=8, num_levels=4,
                  num_points=4, num_encoder_layers=6, num_decoder_layers=6,
-                 feedforward_channels=1024):
+                 feedforward_channels=1024, dropout=0.1):
         super().__init__()
         args = (device, embed_dims, num_heads, num_levels, num_points,
-                feedforward_channels)
+                feedforward_channels, dropout)
         self.level_embeds = nn.Parameter(
             torch.zeros(num_levels, embed_dims, device=device))
         self.encoder = _Layers(EncoderLayer(*args)
@@ -237,9 +269,11 @@ class DeformableDetrTransformer(nn.Module):
         self.reference_points = nn.Linear(embed_dims, 2, device=device)
 
     def forward(self, mlvl_feats: Sequence[torch.Tensor], img_hw,
-                batch_input_shape: Tuple[int, int], query_embed):
+                batch_input_shape: Tuple[int, int], query_embed,
+                generator=None):
         """mlvl_feats: NCHW (B, C, h, w) per level; img_hw (B, 2) valid
-        (h, w); query_embed (num_query, 2C).
+        (h, w); query_embed (num_query, 2C); generator draws the dropout
+        masks in training mode.
 
         Returns (hs (nl, B, Q, C), init_reference (B, Q, 2),
         inter_references (nl, B, Q, 2), memory (B, S, C), mask_flat (B, S)).
@@ -253,7 +287,8 @@ class DeformableDetrTransformer(nn.Module):
             pos = sine_positional_encoding(mask, num_feats=C // 2)
             feat_flat.append(feat.flatten(2).transpose(1, 2))  # raster order
             mask_flat.append(mask.flatten(1))
-            pos_flat.append(pos.flatten(1, 2) + self.level_embeds[lvl])
+            pos_flat.append(pos.flatten(1, 2).to(feat.dtype)
+                            + self.level_embeds[lvl])
         feat_flat = torch.cat(feat_flat, 1)
         mask_flat = torch.cat(mask_flat, 1)
         pos_flat = torch.cat(pos_flat, 1)
@@ -261,7 +296,8 @@ class DeformableDetrTransformer(nn.Module):
         enc_refs = encoder_reference_points(spatial_shapes, valid_ratios)
         x = feat_flat
         for layer in self.encoder.layers:
-            x = layer(x, pos_flat, enc_refs, spatial_shapes, mask_flat)
+            x = layer(x, pos_flat, enc_refs, spatial_shapes, mask_flat,
+                      generator)
         memory = x
 
         query_pos, query = query_embed.split(C, dim=1)
@@ -272,7 +308,7 @@ class DeformableDetrTransformer(nn.Module):
         states = []
         for layer in self.decoder.layers:
             query = layer(query, query_pos, memory, ref_input,
-                          spatial_shapes, mask_flat)
+                          spatial_shapes, mask_flat, generator)
             states.append(query)
         hs = torch.stack(states, 0)
         # no box refinement: every layer keeps the initial references

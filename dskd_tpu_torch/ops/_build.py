@@ -35,6 +35,39 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _so_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    key = hashlib.sha256(src.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{key}.so"
+
+
+def build(names: Sequence[str]) -> None:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built yet,
+    one ``nvcc`` process per source, all started together."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    procs = []
+    for name in names:
+        so = _so_path(name)
+        if so.exists():
+            continue
+        tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, so, tmp, time.perf_counter(),
+                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, so, tmp, t0, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{out}{err}")
+            continue
+        os.replace(tmp, so)
+        BUILD_LOG[name] = (time.perf_counter() - t0, err.strip())
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed, load it, and declare each entry
     point of ``signatures`` (C function name -> ctypes argument types; every
@@ -42,22 +75,8 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"{name}-{key}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = BUILD_DIR / f"{name}-{key}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(src)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-        BUILD_LOG[name] = (time.perf_counter() - t0, proc.stderr.strip())
-    lib = ctypes.CDLL(str(so))
+    build([name])
+    lib = ctypes.CDLL(str(_so_path(name)))
     for fn_name, argtypes in signatures.items():
         fn = getattr(lib, fn_name)
         fn.argtypes = list(argtypes)

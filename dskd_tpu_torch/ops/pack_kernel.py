@@ -8,6 +8,12 @@
 the map. On a CUDA tensor it launches ``csrc/pack_corners.cu``; on a CPU
 tensor it runs ``pack_corners_plain``, the same function in plain PyTorch.
 
+``PackCorners`` makes it differentiable in ``v``: its backward,
+``pack_corners_bwd``, is the port of ``_pack_bwd``. Every v[y, x] was copied
+to four table cells, so its cotangent is the sum of four shifted slices of
+the table's. The JAX package computes this VJP in XLA, not in Pallas, so it
+stays plain PyTorch on both devices.
+
 Unlike the Pallas kernel, which rounds the table up to whole 8-line tiles and
 leaves the tail rows as garbage, the port allocates exactly (h+2)*(w+2) rows.
 """
@@ -39,14 +45,46 @@ def pack_corners_plain(v: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return packed.reshape(B, (h + 2) * (w + 2), H, 4 * D)
 
 
+def pack_corners_bwd(g: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Cotangent of the (B, (h+2)*(w+2), H, 4D) table -> that of the
+    (B, h*w, H, D) level features: table[yp, xp, :, c] = v[yp+dy-1, xp+dx-1]
+    for corner c = (dy, dx), so v[y, x] receives table[y+1-dy, x+1-dx, :, c].
+    """
+    B, _, H, D4 = g.shape
+    D = D4 // 4
+    gt = g.reshape(B, h + 2, w + 2, H, D4)
+    dv = None
+    for c, (dy, dx) in enumerate(CORNERS):
+        sl = gt[:, 1 - dy:1 - dy + h, 1 - dx:1 - dx + w, :, c * D:(c + 1) * D]
+        dv = sl if dv is None else dv + sl
+    return dv.reshape(B, h * w, H, D)
+
+
+class PackCorners(torch.autograd.Function):
+    """``pack_corners`` with the ``_pack_bwd`` backward."""
+
+    @staticmethod
+    def forward(ctx, v, h, w):
+        ctx.hw = (h, w)
+        if v.device.type == "cpu":
+            return pack_corners_plain(v, h, w)
+        return _pack_corners_cuda(v, h, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return pack_corners_bwd(g, *ctx.hw), None, None
+
+
 def pack_corners(v: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(B, h*w, H, D) level features -> (B, (h+2)*(w+2), H, 4D) table.
 
     ``v`` may be a slice along the token axis of a contiguous (B, S, H, D)
     tensor: the kernel takes its batch stride and reads it in place.
     """
-    if v.device.type == "cpu":
-        return pack_corners_plain(v, h, w)
+    return PackCorners.apply(v, h, w)
+
+
+def _pack_corners_cuda(v: torch.Tensor, h: int, w: int) -> torch.Tensor:
     if v.device.type != "cuda":
         raise ValueError(f"pack_corners: unsupported device {v.device}")
     B, S, H, D = v.shape

@@ -1,6 +1,7 @@
-"""dskd_tpu_torch runs its serving slice without importing JAX or Flax: a
-fresh interpreter imports the port, runs init_detector + inference_detector
-on a tiny configuration, and reports which modules it loaded."""
+"""dskd_tpu_torch runs its serving and training slices without importing JAX
+or Flax: a fresh interpreter imports the port, runs init_detector +
+inference_detector and one incremental train step on a tiny configuration,
+and reports which modules it loaded."""
 import json
 import os
 import subprocess
@@ -23,7 +24,26 @@ rng = np.random.RandomState(0)
 imgs = [rng.randint(0, 256, (100, 128, 3)).astype(np.uint8),
         rng.randint(0, 256, (128, 90, 3)).astype(np.uint8)]
 res = inference_detector(model, cfg, imgs)
+
+from dskd_tpu_torch.data.batch import Batch
+from dskd_tpu_torch.distill.losses import DistillConfig
+from dskd_tpu_torch.models.gfl_detr_loss import DetLossConfig
+from dskd_tpu_torch.train.optim import make_optimizer
+from dskd_tpu_torch.train.schedule import step_lr_schedule
+from dskd_tpu_torch.train.state import TrainState, frozen_copy
+from dskd_tpu_torch.train.step import make_train_step
+state = TrainState.create(model, make_optimizer(model, step_lr_schedule(
+    2e-4)), seed=0)
+step = make_train_step(DetLossConfig(num_classes=7), DistillConfig.from_flags(
+    cates_distill="hard + teacher-first",
+    feats_distill="corr + fg_info + decode_v1", num_prev=3))
+batch = Batch(torch.randn(2, 128, 128, 3), torch.tensor([[128, 100],
+                                                         [96, 128]]),
+              torch.tensor([[[10., 10., 60., 50.]] * 2] * 2),
+              torch.tensor([[1, 2]] * 2), torch.tensor([[True, False]] * 2))
+state, losses = step(state, batch, frozen_copy(model))
 print(json.dumps({
+    "trained": bool(torch.isfinite(losses["loss"])),
     "n_images": len(res), "n_classes": len(res[0]),
     "shapes_ok": all(r.ndim == 2 and r.shape[1] == 5 for per in res
                      for r in per),
@@ -43,4 +63,4 @@ def test_port_slice_imports_no_jax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["loaded"] == []
     assert report["n_images"] == 2 and report["n_classes"] == 7
-    assert report["shapes_ok"] and report["finite"]
+    assert report["shapes_ok"] and report["finite"] and report["trained"]

@@ -57,7 +57,7 @@ def test_slice_matches_jax():
                           jnp.asarray(img_hw), jnp.asarray(sf), reg_max=16,
                           score_thr=0.0, max_per_img=100, rescale=True)
 
-    model = GFLDeformableDETR("cpu", **TINY)
+    model = GFLDeformableDETR("cpu", **TINY).eval()
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     with torch.inference_mode():
         out = model(torch.from_numpy(images), torch.from_numpy(img_hw))
