@@ -11,14 +11,15 @@ Phases; the first failure raises and the script exits non-zero:
   1. device: requires torch.cuda, prints the card's name and power limit,
      turns TF32 off for matmuls and convolutions (every comparison and time
      below is full f32 unless it says bf16);
-  2. build: compiles the three CUDA kernels from dskd_tpu_torch/csrc, one
-     nvcc per source, all started together;
+  2. build: compiles the five CUDA sources from dskd_tpu_torch/csrc (seven
+     kernels), one nvcc per source, all started together;
   3. kernels: each kernel against its plain PyTorch twin on the card at the
-     flagship's shapes (B=2, H=8, D=32, P=4; the four levels of the 640x640
+     flagship's shapes (B=2, H=8, D=32, P=4; the levels of the 640x640
      serving canvas with Q=8500 encoder and Q=300 decoder queries, and of
-     the 640x480 training canvas with Q=6380), f32 and bf16, indices
-     outside [0, S) included; and the gradients of ms_deform_attn_core in
-     value, locations and attention on the card against the plain twins;
+     the 640x480 training canvas with Q=6380), f32 and bf16, indices and
+     taps outside [0, S) included; and the gradients of ms_deform_attn_core
+     in value, locations and attention on the card against the plain twins,
+     on the default branch and under each sampling switch;
   4. serve: the flagship config with seeded weights through init_detector
      and inference_detector on three synthetic images; every kernel must be
      launched the number of times the design implies, outputs must be finite
@@ -29,13 +30,26 @@ Phases; the first failure raises and the script exits non-zero:
      padded to 32: a few f32 steps with dropout 0.1 and checked launch
      counts, one step at 2+2 layers held against the CPU (every loss key and
      the gradients of named parameters), and a few bf16 steps;
-  6. times: kernels against twins with CUDA events, the serving slice in
-     ms/image, the train step in ms/step and img/s, and profiler tables of
-     one serving forward and one bf16 train step.
-The last two lines are the kernel report and the result, as JSON.
+  6. switches: the MSDA sampling variants of the JAX package's environment
+     switches, DSKD_WGATHER=0 (levels 1-3 through mxu_gather) and
+     DSKD_FUSED_ROWS (levels 1-3 through fused_msda_sample): for each, one
+     serving call with checked launches and its head outputs held against
+     the default path on the card; a few f32 training steps and one bf16
+     step with checked launches; and one full-width f32 step whose losses
+     and named gradients are held against the default path on the card
+     (same weights, batch, dropout generator, teacher and assignment);
+  7. times: kernels against twins (and against one PyTorch library call
+     where one computes the same function) with CUDA events, beside the
+     least time the card could take (bytes over 3.35 TB/s or f32 operations
+     over 67 TFLOP/s), the serving slice in ms/image, the train step in
+     ms/step and img/s, and profiler tables of one serving forward and one
+     bf16 train step.
+The last three lines are the card, the kernel report as JSON and the result
+as JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -68,6 +82,27 @@ LOSS_TOL = dict(rtol=1e-3, atol=1e-4)    # one f32 step, card vs CPU
 # gradients, card vs CPU: ||g_card - g_cpu|| / ||g_cpu||
 GRAD_REL_TOL = 1e-3
 MSDA_WEIGHT_STD = 0.02
+# the sampling switches of ms_deform_attn_core (DSKD_FUSED_ROWS sends the
+# levels of 1200 and fewer pixels: levels 1-3 of the 640x480 canvas, and
+# with 1600 those of the 640x640 canvas)
+SWITCH_VARS = ("DSKD_WGATHER", "DSKD_FUSED_ROWS", "DSKD_MXU_GATHER_ROWS")
+TRAIN_SWITCHES = {"wgather0": {"DSKD_WGATHER": "0"},
+                  "fused": {"DSKD_FUSED_ROWS": "1200"}}
+SERVE_SWITCHES = {"wgather0": {"DSKD_WGATHER": "0"},
+                  "fused": {"DSKD_FUSED_ROWS": "1600"}}
+# forward launches of each kernel in one MSDA call (four levels), by switch
+PER_CALL = {
+    "default": {"pack_corners": 4, "gather_weighted": 4},
+    "wgather0": {"pack_corners": 4, "gather_weighted": 1, "mxu_gather": 3},
+    "fused": {"pack_corners": 1, "gather_weighted": 1, "fused_sample": 3}}
+BACKWARD = {"gather_weighted": "gather_weighted_bwd",
+            "mxu_gather": "mxu_gather_bwd",
+            "fused_sample": "fused_sample_bwd"}
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+# bytes/s and f32 FLOP/s outside the tensor cores, where these kernels'
+# arithmetic runs whatever the table's type
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 GRAD_PARAMS = (
     "bbox_head.transformer.encoder.layers.0.attentions.0."
     "sampling_offsets.weight",
@@ -97,11 +132,54 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
 
 
 def counters():
+    from dskd_tpu_torch.ops.fused_sample import fused_msda_sample, \
+        fused_msda_sample_bwd
     from dskd_tpu_torch.ops.mxu_gather import gather_weighted, \
-        gather_weighted_bwd
+        gather_weighted_bwd, mxu_gather, mxu_gather_bwd
     from dskd_tpu_torch.ops.pack_kernel import pack_corners
     return {"pack_corners": pack_corners, "gather_weighted": gather_weighted,
-            "gather_weighted_bwd": gather_weighted_bwd}
+            "gather_weighted_bwd": gather_weighted_bwd,
+            "mxu_gather": mxu_gather, "mxu_gather_bwd": mxu_gather_bwd,
+            "fused_sample": fused_msda_sample,
+            "fused_sample_bwd": fused_msda_sample_bwd}
+
+
+def expected_launches(switch, msda_calls, backward_calls=0):
+    """Launches of every kernel for ``msda_calls`` forward MSDA calls, of
+    which ``backward_calls`` are differentiated, under ``switch``."""
+    want = dict.fromkeys(counters(), 0)
+    for name, n in PER_CALL[switch].items():
+        want[name] += n * msda_calls
+        if name in BACKWARD:
+            want[BACKWARD[name]] += n * backward_calls
+    return want
+
+
+@contextlib.contextmanager
+def switched(env):
+    """Set the environment of a sampling switch; restore it on exit."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bound(n_bytes, flops):
+    """The least time in ms the card could take for the work: the larger of
+    the bytes over its memory rate and the f32 operations over its peak."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def reset_counts() -> None:
@@ -184,9 +262,7 @@ def check_kernels(gen):
     table = pack_corners(value[:, :h * w], h, w)
     flat, cw = corner_index_and_weights(loc, attn, h, w, torch.float32)
     S = table.shape[1]
-    wild = torch.randint(0, 4, flat.shape, generator=gen).to(flat.device)
-    flat = torch.where(wild == 0, flat - 10 ** 6,
-                       torch.where(wild == 1, flat + S, flat)).to(torch.int32)
+    flat = wild_indices(gen, flat, S)
     got = gather_weighted(table, flat, cw)
     want = gather_weighted_plain(table, flat, cw)
     dout = torch.randn(got.shape, generator=gen).to(got.device)
@@ -201,9 +277,102 @@ def check_kernels(gen):
     return err
 
 
+def wild_indices(gen, idx, S, share=4):
+    """``idx`` with about 1/``share`` of it each moved far below 0 and past
+    the table: those must read nothing, add nothing and get dw = 0."""
+    wild = torch.randint(0, share, idx.shape, generator=gen).to(idx.device)
+    return torch.where(wild == 0, idx - 10 ** 6,
+                       torch.where(wild == 1, idx + S + 10, idx)
+                       ).to(torch.int32)
+
+
+def check_sampling_kernels(gen):
+    """mxu_gather and fused_msda_sample, forward and backward, against their
+    plain twins at the levels the switches send them (1-3 of each canvas),
+    f32 and bf16, indices and taps outside [0, S) included."""
+    from dskd_tpu_torch.ops.fused_sample import fused_msda_sample, \
+        fused_msda_sample_bwd, fused_msda_sample_bwd_plain, \
+        fused_msda_sample_plain
+    from dskd_tpu_torch.ops.msda import corner_index_and_weights, \
+        fused_index_and_weights
+    from dskd_tpu_torch.ops.mxu_gather import mxu_gather, mxu_gather_bwd, \
+        mxu_gather_bwd_plain, mxu_gather_plain
+    from dskd_tpu_torch.ops.pack_kernel import pack_corners
+
+    err = {}
+
+    def note(key, got, want):
+        err[key] = max(err.get(key, 0.0), _max_err(got, want))
+
+    n_wrapped = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        sfx = "" if dtype == torch.float32 else "_bf16"
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        dtol = DTABLE_TOL if dtype == torch.float32 else DTABLE_BF16_TOL
+        for levels, Q in ((LEVELS, Q_ENC), (LEVELS, Q_DEC),
+                          (TRAIN_LEVELS, Q_TRAIN)):
+            value, per_level = level_inputs(gen, dtype, Q, levels)
+            start = levels[0][0] * levels[0][1]
+            for (h, w), (loc, attn) in zip(levels[1:], per_level[1:]):
+                v = value[:, start:start + h * w]
+                start += h * w
+                # B3: mxu_gather on the packed table, read in place
+                table = pack_corners(v, h, w)
+                S = table.shape[1]
+                flat, _ = corner_index_and_weights(loc, attn, h, w, dtype)
+                idx = wild_indices(gen, flat, S, share=8)
+                got = mxu_gather(table, idx)
+                want = mxu_gather_plain(table, idx)
+                g = torch.randn(got.shape, generator=gen).to(got.device,
+                                                              dtype)
+                dt = mxu_gather_bwd(idx, g, S)
+                want_dt = mxu_gather_bwd_plain(idx, g.float(), S)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"mxu_gather differs at {h}x{w} "
+                                         f"{dtype}")
+                bad = (idx < 0) | (idx >= S)
+                if got[bad].any():
+                    raise AssertionError("mxu_gather: an index outside "
+                                         "[0, S) gave a nonzero row")
+                torch.testing.assert_close(dt.float(), want_dt, **dtol)
+                note("mxu_gather" + sfx, got, want)
+                note("mxu_gather_bwd" + sfx, dt, want_dt)
+                # B4: fused_msda_sample on the raw level slice, in place
+                c00, wts = fused_index_and_weights(loc, attn, h, w, dtype)
+                c00 = wild_indices(gen, c00, h * w, share=16)
+                got = fused_msda_sample(v, c00, wts, w)
+                want = fused_msda_sample_plain(v.float(), c00, wts, w)
+                g = torch.randn(got.shape, generator=gen).to(got.device,
+                                                              dtype)
+                dt, dw = fused_msda_sample_bwd(v, c00, wts, g, w)
+                want_dt, want_dw = fused_msda_sample_bwd_plain(
+                    v.float(), c00, wts, g.float(), w)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want, **tol)
+                torch.testing.assert_close(dt.float(), want_dt, **dtol)
+                torch.testing.assert_close(dw, want_dw, **F32_TOL)
+                rows = c00[..., None].long() + torch.tensor(
+                    [0, 1, w, w + 1], device=c00.device)
+                inside = (rows >= 0) & (rows < h * w)
+                if dw[~inside].any():
+                    raise AssertionError("fused_sample_bwd: a tap outside "
+                                         "[0, S) got dw != 0")
+                # a tap in range with weight 0 (a wrapped or gated corner)
+                # still gets its dot, as the Pallas backward gives it
+                n_wrapped += int((inside & (wts == 0) & (dw != 0)).sum())
+                note("fused_sample" + sfx, got, want)
+                note("fused_sample_bwd" + sfx, dt, want_dt)
+                note("fused_sample_dw" + sfx, dw, want_dw)
+    if not n_wrapped:
+        raise AssertionError("no zero-weight tap in range got its dw")
+    return err
+
+
 def check_msda_grads(gen):
-    """R1: autograd reaches value, locations and attention through both
-    kernels on the card; the gradients match the plain twins (CPU)."""
+    """R1: autograd reaches value, locations and attention through the
+    kernels on the card, on the default branch and under each sampling
+    switch; the gradients match the plain twins (CPU)."""
     from dskd_tpu_torch.ops.msda import ms_deform_attn_core
 
     value, per_level = level_inputs(gen, torch.float32, Q_DEC)
@@ -218,34 +387,45 @@ def check_msda_grads(gen):
         return [g.cpu() for g in torch.autograd.grad(out, args, cot.to(dev))]
 
     errs = {}
-    for name, got, want in zip(("value", "locations", "attention"),
-                               grads(DEVICE), grads("cpu")):
-        if not got.abs().max() > 0:
-            raise AssertionError(f"no gradient reaches {name} on the card")
-        torch.testing.assert_close(got, want, **MSDA_GRAD_TOL, msg=name)
-        errs[name] = _max_err(got, want)
+    for switch, env in (("default", {}), *SERVE_SWITCHES.items()):
+        with switched(env):
+            reset_counts()
+            card = grads(DEVICE)
+            launches = read_counts()
+            want = expected_launches(switch, 1, 1)
+            if launches != want:
+                raise AssertionError(f"msda grads {switch}: launches "
+                                     f"{launches}, expected {want}")
+            for name, got, ref in zip(("value", "locations", "attention"),
+                                      card, grads("cpu")):
+                if not got.abs().max() > 0:
+                    raise AssertionError(f"no gradient reaches {name} on "
+                                         f"the card ({switch})")
+                torch.testing.assert_close(got, ref, **MSDA_GRAD_TOL,
+                                           msg=f"{name} ({switch})")
+                errs[f"{name} {switch}"] = _max_err(got, ref)
     return errs
+
+
+def msda_calls(cfg) -> int:
+    """MSDA calls in one forward of the model: one per deformable layer."""
+    return cfg.model.num_encoder_layers + cfg.model.num_decoder_layers
 
 
 def check_slice(imgs):
     from dskd_tpu_torch.apis.inference import (inference_detector,
                                                init_detector, prepare_batch)
 
-    model, cfg = init_detector(CONFIG, device="cuda", seed=0)
-    m = cfg.model
+    model, cfg = init_detector(CONFIG, device=DEVICE, seed=0)
     # one launch of each kernel per level of every MSDA call of a forward
-    n_expected = (m.num_encoder_layers + m.num_decoder_layers) * m.num_levels
+    want = expected_launches("default", msda_calls(cfg))
     reset_counts()
     results = inference_detector(model, cfg, imgs)
     launches = read_counts()
     print(f"serve: launches in one inference_detector call over "
-          f"{len(imgs)} images: {launches} (expected {n_expected} of each "
-          f"forward kernel, no backward)")
-    for name, n in launches.items():
-        want = 0 if name == "gather_weighted_bwd" else n_expected
-        if n != want:
-            raise AssertionError(f"{name} launched {n} times, expected "
-                                 f"{want}")
+          f"{len(imgs)} images: {launches}")
+    if launches != want:
+        raise AssertionError(f"serve: launches {launches}, expected {want}")
     n_det = []
     for per_class in results:
         if len(per_class) != cfg.model.num_classes:
@@ -259,7 +439,7 @@ def check_slice(imgs):
     print(f"serve: detections per image {n_det}, all finite")
 
     # the head outputs against the same weights on the CPU (plain twins)
-    images, img_hw, _ = prepare_batch(cfg, imgs, torch.device("cuda"))
+    images, img_hw, _ = prepare_batch(cfg, imgs, DEVICE)
     cpu_model, _ = init_detector(cfg, device="cpu", seed=0)
     with torch.inference_mode():
         out = model(images, img_hw).head
@@ -344,17 +524,16 @@ def train_setup(cfg, student, compute_dtype):
     return state, step, det_cfg, dcfg
 
 
-def run_train(cfg, compute_dtype, n_steps, tag):
-    """A few full-width steps; checks finite losses, launch counts per step
+def run_train(cfg, compute_dtype, n_steps, tag, switch="default"):
+    """A few full-width steps under the sampling ``switch`` whose
+    environment the caller set; checks finite losses, launch counts per step
     and which parameter groups move. Returns (state, step, teacher, batch,
     launches of the whole run)."""
     student, teacher = build_models(cfg, DEVICE)
     state, step, _, _ = train_setup(cfg, student, compute_dtype)
     batch = train_batch(DEVICE)
-    m = cfg.model
-    per_fwd = (m.num_encoder_layers + m.num_decoder_layers) * m.num_levels
-    expected = {"pack_corners": 2 * per_fwd, "gather_weighted": 2 * per_fwd,
-                "gather_weighted_bwd": per_fwd}
+    # teacher and student forwards, the student's backward
+    expected = expected_launches(switch, 2 * msda_calls(cfg), msda_calls(cfg))
     before = {n: p.detach().clone() for n, p in student.named_parameters()}
     total = dict.fromkeys(expected, 0)
     reset_counts()
@@ -486,16 +665,106 @@ def check_train_card_vs_cpu(cfg):
     return loss_err, grad_err
 
 
+# --- switches ----------------------------------------------------------------
+
+def check_serve_switch(model, cfg, imgs, switch):
+    """One inference_detector call under a sampling switch (launches
+    checked), and the model's head outputs under it against the default
+    path's on the card."""
+    from dskd_tpu_torch.apis.inference import inference_detector, \
+        prepare_batch
+
+    images, img_hw, _ = prepare_batch(cfg, imgs, DEVICE)
+    with torch.inference_mode():
+        ref = model(images, img_hw).head
+    with switched(SERVE_SWITCHES[switch]):
+        reset_counts()
+        results = inference_detector(model, cfg, imgs)
+        launches = read_counts()
+        with torch.inference_mode():
+            out = model(images, img_hw).head
+    want = expected_launches(switch, msda_calls(cfg))
+    if launches != want:
+        raise AssertionError(f"serve {switch}: launches {launches}, "
+                             f"expected {want}")
+    if not all(np.isfinite(r).all() for per in results for r in per):
+        raise AssertionError(f"serve {switch}: non-finite detections")
+    errs = {}
+    for name in ("cls_scores", "bbox_preds"):
+        got, ref_t = getattr(out, name)[-1], getattr(ref, name)[-1]
+        torch.testing.assert_close(got, ref_t, **HEAD_TOL)
+        errs[name] = _max_err(got, ref_t)
+    print(f"serve {switch} {SERVE_SWITCHES[switch]}: launches {launches}; "
+          f"head outputs vs the default path on the card, max abs err "
+          f"{errs} (tolerance {HEAD_TOL})")
+    return errs
+
+
+def check_train_switch_vs_default(cfg, switch):
+    """One full-width f32 step of the student (6+6 layers, dropout 0.1)
+    under a sampling switch against the default path on the card: the same
+    weights, batch, dropout generator seed, teacher detections and
+    assignment; every loss key within LOSS_TOL and each named gradient
+    within GRAD_REL_TOL relative L2."""
+    from dskd_tpu_torch.train.step import compute_losses, parse_losses, \
+        teacher_info
+
+    student, teacher = build_models(cfg, DEVICE)
+    random_msda_kernels(student, seed=3)
+    _, _, det_cfg, dcfg = train_setup(cfg, student, torch.float32)
+    batch = train_batch(DEVICE)
+    tinfo = teacher_info(teacher, batch, det_cfg,
+                         cfg.distill.teacher_score_thr,
+                         cfg.distill.teacher_max_per_img)
+
+    def run(assigned=None):
+        student.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=DEVICE).manual_seed(5)
+        losses, targets = compute_losses(student.train(), batch, det_cfg,
+                                         tinfo, dcfg, gen, assigned=assigned)
+        parse_losses(losses).backward()
+        params = dict(student.named_parameters())
+        return (targets, {k: v.detach() for k, v in losses.items()},
+                {n: params[n].grad.detach().clone() for n in GRAD_PARAMS})
+
+    targets, losses, grads = run()
+    with switched(TRAIN_SWITCHES[switch]):
+        reset_counts()
+        _, s_losses, s_grads = run((targets, losses["auction_fallback"]))
+        launches = read_counts()
+    want = expected_launches(switch, msda_calls(cfg), msda_calls(cfg))
+    if launches != want:
+        raise AssertionError(f"train {switch} vs default: launches "
+                             f"{launches}, expected {want}")
+    for k, v in losses.items():
+        torch.testing.assert_close(s_losses[k], v, **LOSS_TOL, msg=k)
+    loss_err = max(float((s_losses[k] - v).abs()) for k, v in losses.items())
+    grad_err = {}
+    for n in GRAD_PARAMS:
+        rel = float((s_grads[n] - grads[n]).norm() / grads[n].norm())
+        grad_err[n] = rel
+        if not rel <= GRAD_REL_TOL:
+            raise AssertionError(f"train {switch}: grad {n} differs from "
+                                 f"the default path: rel L2 {rel:.3e}")
+    print(f"train {switch} vs default on the card (6+6 layers, f32, "
+          f"dropout 0.1, one assignment): {len(losses)} loss keys, largest "
+          f"abs err {loss_err:.3e} (tolerance {LOSS_TOL}); named gradients "
+          f"rel L2 err {grad_err} (tolerance {GRAD_REL_TOL})")
+    return loss_err, grad_err
+
+
 # --- times -------------------------------------------------------------------
 
 def time_kernels(gen):
+    """Kernel and plain-twin ms of the three default-path kernels, and the
+    bound (ms, what bounds it) of the f32 timings the report names."""
     from dskd_tpu_torch.ops.msda import corner_index_and_weights
     from dskd_tpu_torch.ops.mxu_gather import gather_weighted, \
         gather_weighted_bwd, gather_weighted_bwd_plain, gather_weighted_plain
     from dskd_tpu_torch.ops.pack_kernel import pack_corners, \
         pack_corners_plain
 
-    times = {}
+    times, bounds = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
         for levels, Q, canvas in ((LEVELS, Q_ENC, "640x640"),
@@ -513,9 +782,18 @@ def time_kernels(gen):
                 tables.append(pack_corners(v, h, w))
                 args.append(corner_index_and_weights(loc, attn, h, w, dtype))
                 douts.append(torch.randn(B, Q, HEADS, 4 * D, generator=gen)
-                             .to("cuda", dtype))
+                             .to(DEVICE, dtype))
+            n_rows = sum(f.numel() for f, _ in args)   # all in range
+            row = 4 * D
             if canvas == "640x640":
+                bounds[f"gather_weighted {tag} Q={Q}"] = bound(
+                    sum(nbytes(t, f, c) for t, (f, c) in zip(tables, args))
+                    + len(levels) * B * Q * HEADS * row * value.element_size(),
+                    2 * row * n_rows)
                 if Q == Q_ENC:
+                    bounds[f"pack_corners {tag}"] = bound(
+                        sum(nbytes(v, t) for (v, _, _), t in zip(slices,
+                                                                 tables)), 0)
                     times[f"pack_corners {tag}"] = (
                         cuda_ms(lambda: [pack_corners(*a) for a in slices]),
                         cuda_ms(lambda: [pack_corners_plain(*a)
@@ -527,6 +805,11 @@ def time_kernels(gen):
                                      for t, (f, c) in zip(tables, args)],
                             iters=5))
             key = f"gather_weighted_bwd {tag} Q={Q} {canvas}"
+            # reads table, idx, w and dout; writes dtable and dw
+            bounds[key] = bound(
+                sum(2 * nbytes(t) + nbytes(f, g) + 2 * nbytes(c)
+                    for t, (f, c), g in zip(tables, args, douts)),
+                4 * row * n_rows)
             times[key] = (
                 cuda_ms(lambda: [gather_weighted_bwd(t, f, c, g) for
                                  t, (f, c), g in zip(tables, args, douts)],
@@ -544,7 +827,107 @@ def time_kernels(gen):
                         cuda_ms(lambda: gather_weighted_bwd_plain(t, f, c,
                                                                   g),
                                 iters=3, warmup=1))
-    return times
+    return times, bounds
+
+
+def time_sampling_kernels(gen):
+    """mxu_gather and fused_msda_sample, forward and backward, at the shapes
+    the switches give them in the training step's encoder: levels 1-3 of
+    the 640x480 canvas, Q=6380, one MSDA call. Returns {name: (kernel ms,
+    plain ms, library ms or None, (bound ms, bound by))}, f32 and bf16, and
+    the backward kernels per level."""
+    from dskd_tpu_torch.ops.fused_sample import fused_msda_sample, \
+        fused_msda_sample_bwd, fused_msda_sample_bwd_plain, \
+        fused_msda_sample_plain
+    from dskd_tpu_torch.ops.msda import corner_index_and_weights, \
+        fused_index_and_weights
+    from dskd_tpu_torch.ops.mxu_gather import mxu_gather, mxu_gather_bwd, \
+        mxu_gather_bwd_plain, mxu_gather_plain
+    from dskd_tpu_torch.ops.pack_kernel import pack_corners
+
+    out = {}
+    levels, Q = TRAIN_LEVELS, Q_TRAIN
+    hd = torch.arange(HEADS, device=DEVICE)[None, None, :, None]
+    bi = torch.arange(B, device=DEVICE)[:, None, None, None]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        es = torch.empty((), dtype=dtype).element_size()
+        value, per_level = level_inputs(gen, dtype, Q, levels)
+        mg, fs = [], []
+        start = levels[0][0] * levels[0][1]
+        for (h, w), (loc, attn) in zip(levels[1:], per_level[1:]):
+            v = value[:, start:start + h * w]
+            start += h * w
+            table = pack_corners(v, h, w)
+            S = table.shape[1]
+            flat, _ = corner_index_and_weights(loc, attn, h, w, dtype)
+            g = torch.randn(B, Q, HEADS, P, 4 * D, generator=gen).to(DEVICE,
+                                                                     dtype)
+            # the same gather as one library call: rows of the flattened
+            # (B*S*H, 4D) table at the linear row of each index
+            lin = ((bi * S + flat.long()) * HEADS + hd).reshape(-1)
+            mg.append((table, flat, g, S, lin))
+            c00, wts = fused_index_and_weights(loc, attn, h, w, dtype)
+            rows = c00[..., None].long() + torch.tensor([0, 1, w, w + 1],
+                                                        device=DEVICE)
+            taps = int(((rows >= 0) & (rows < h * w)).sum())
+            gq = torch.randn(B, Q, HEADS, D, generator=gen).to(DEVICE, dtype)
+            fs.append((v, c00, wts, gq, w, taps))
+        n_idx = sum(f.numel() for _, f, _, _, _ in mg)
+        zeros = [torch.zeros_like(t).view(-1, 4 * D) for t, *_ in mg]
+        out[f"mxu_gather {tag}"] = (
+            cuda_ms(lambda: [mxu_gather(t, f) for t, f, _, _, _ in mg]),
+            cuda_ms(lambda: [mxu_gather_plain(t, f) for t, f, _, _, _ in mg],
+                    iters=5),
+            cuda_ms(lambda: [torch.index_select(t.view(-1, 4 * D), 0, lin)
+                             for t, _, _, _, lin in mg]),
+            bound(sum(nbytes(t, f, g) for t, f, g, _, _ in mg), 0))
+        out[f"mxu_gather_bwd {tag}"] = (
+            cuda_ms(lambda: [mxu_gather_bwd(f, g, S)
+                             for _, f, g, S, _ in mg], iters=10),
+            cuda_ms(lambda: [mxu_gather_bwd_plain(f, g, S)
+                             for _, f, g, S, _ in mg], iters=3, warmup=1),
+            cuda_ms(lambda: [torch.index_add(z, 0, lin, g.view(-1, 4 * D))
+                             for z, (_, _, g, _, lin) in zip(zeros, mg)],
+                    iters=10),
+            bound(sum(nbytes(f, g, t) for t, f, g, _, _ in mg),
+                  n_idx * 4 * D))
+        out[f"fused_sample {tag}"] = (
+            cuda_ms(lambda: [fused_msda_sample(v, c, wt, w)
+                             for v, c, wt, _, w, _ in fs]),
+            cuda_ms(lambda: [fused_msda_sample_plain(v, c, wt, w)
+                             for v, c, wt, _, w, _ in fs], iters=5),
+            None,
+            bound(sum(nbytes(v, c, wt, gq) for v, c, wt, gq, _, _ in fs),
+                  sum(2 * D * taps for *_, taps in fs)))
+        out[f"fused_sample_bwd {tag}"] = (
+            cuda_ms(lambda: [fused_msda_sample_bwd(v, c, wt, gq, w)
+                             for v, c, wt, gq, w, _ in fs], iters=10),
+            cuda_ms(lambda: [fused_msda_sample_bwd_plain(v, c, wt, gq, w)
+                             for v, c, wt, gq, w, _ in fs], iters=3,
+                    warmup=1),
+            None,
+            # reads table, idx, w and g; writes dtable and dw
+            bound(sum(2 * nbytes(v) + nbytes(c, gq) + 2 * nbytes(wt)
+                      for v, c, wt, gq, _, _ in fs),
+                  sum(4 * D * taps for *_, taps in fs)))
+        for lvl, ((h, w), (_, f, g, S, _), (v, c, wt, gq, _, taps)) in \
+                enumerate(zip(levels[1:], mg, fs), start=1):
+            out[f"mxu_gather_bwd {tag} level {lvl} ({h}x{w}, {S} rows)"] = (
+                cuda_ms(lambda: mxu_gather_bwd(f, g, S), iters=10),
+                cuda_ms(lambda: mxu_gather_bwd_plain(f, g, S), iters=3,
+                        warmup=1), None,
+                bound(nbytes(f, g) + B * S * HEADS * 4 * D * es,
+                      f.numel() * 4 * D))
+            out[f"fused_sample_bwd {tag} level {lvl} ({h}x{w}, {h * w} "
+                f"rows)"] = (
+                cuda_ms(lambda: fused_msda_sample_bwd(v, c, wt, gq, w),
+                        iters=10),
+                cuda_ms(lambda: fused_msda_sample_bwd_plain(v, c, wt, gq, w),
+                        iters=3, warmup=1), None,
+                bound(2 * nbytes(v) + nbytes(c, gq) + 2 * nbytes(wt),
+                      4 * D * taps))
+    return out
 
 
 def time_slice(model, cfg, imgs_by_batch):
@@ -562,7 +945,7 @@ def time_slice(model, cfg, imgs_by_batch):
             inference_detector(model, cfg, imgs)
         torch.cuda.synchronize()
         e2e = (time.perf_counter() - t0) / iters / bsz * 1e3
-        images, img_hw, _ = prepare_batch(cfg, imgs, torch.device("cuda"))
+        images, img_hw, _ = prepare_batch(cfg, imgs, DEVICE)
         with torch.inference_mode():
             fwd = cuda_ms(lambda: model(images, img_hw), iters=iters,
                           warmup=1) / bsz
@@ -625,15 +1008,24 @@ def main() -> int:
     print("TF32 off for matmuls and convolutions: every f32 comparison and "
           "time below is full f32")
 
+    for k in SWITCH_VARS:
+        if os.environ.pop(k, None) is not None:
+            print(f"{k} was set; unset it: the default path comes first")
+
     from dskd_tpu_torch.apis.inference import prepare_batch
     from dskd_tpu_torch.ops import _build
-    from dskd_tpu_torch.ops import mxu_gather, pack_kernel
+    from dskd_tpu_torch.ops import fused_sample, mxu_gather, pack_kernel
     t0 = time.perf_counter()
-    _build.build(["pack_corners", "gather_weighted", "gather_weighted_bwd"])
-    _build.load("pack_corners", pack_kernel._SIGNATURES)
-    _build.load("gather_weighted", mxu_gather._SIGNATURES)
-    _build.load("gather_weighted_bwd", mxu_gather._BWD_SIGNATURES)
-    print(f"build: three kernels in {time.perf_counter() - t0:.2f} s")
+    sources = {"pack_corners": pack_kernel._SIGNATURES,
+               "gather_weighted": mxu_gather._SIGNATURES,
+               "gather_weighted_bwd": mxu_gather._BWD_SIGNATURES,
+               "mxu_gather": mxu_gather.MXU_GATHER_SIGNATURES,
+               "fused_sample": fused_sample.SIGNATURES}
+    _build.build(list(sources))
+    for name, signatures in sources.items():
+        _build.load(name, signatures)
+    print(f"build: {len(sources)} sources in {time.perf_counter() - t0:.2f} "
+          f"s")
     for name, (secs, log) in _build.BUILD_LOG.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"build: {name} nvcc {secs:.2f} s; {'; '.join(regs)}")
@@ -643,6 +1035,10 @@ def main() -> int:
     print(f"kernels: match their twins on the card (f32 {F32_TOL}, bf16 "
           f"{BF16_TOL}, dtable {DTABLE_TOL} / {DTABLE_BF16_TOL}); max abs "
           f"err {err}")
+    serr = check_sampling_kernels(gen)
+    print(f"kernels: mxu_gather (bit for bit) and fused_sample match their "
+          f"twins on the card, forward and backward, with the same "
+          f"tolerances; max abs err {serr}")
     gerr = check_msda_grads(gen)
     print(f"kernels: ms_deform_attn_core gradients on the card vs the plain "
           f"twins, max abs err {gerr} (tolerance {MSDA_GRAD_TOL})")
@@ -652,6 +1048,8 @@ def main() -> int:
     imgs = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
             for h, w in shapes]
     model, cfg = check_slice(imgs[:3])
+    for switch in SERVE_SWITCHES:
+        check_serve_switch(model, cfg, imgs[:3], switch)
 
     state32, step32, teacher32, batch, launches = run_train(
         cfg, torch.float32, 3, "f32")
@@ -659,12 +1057,34 @@ def main() -> int:
     check_train_card_vs_cpu(cfg)
     state16, step16, teacher16, _, _ = run_train(cfg, torch.bfloat16, 3,
                                                  "bf16")
+    switch_states = {}
+    for switch, env in TRAIN_SWITCHES.items():
+        with switched(env):
+            st, sp, tch, _, n = run_train(cfg, torch.float32, 2,
+                                          f"f32 {switch}", switch)
+            switch_states[switch] = (st, sp, tch)
+            print(f"train f32 {switch} {env}: launches over the 2 steps {n}")
+            for k in ("mxu_gather", "mxu_gather_bwd", "fused_sample",
+                      "fused_sample_bwd"):
+                launches[k] = launches.get(k, 0) + n[k]
+            # two steps: after one bf16 step from the init, some head
+            # parameters still have a zero gradient and have not moved
+            run_train(cfg, torch.bfloat16, 2, f"bf16 {switch}", switch)
+        check_train_switch_vs_default(cfg, switch)
 
     print(f"times on {card}:")
-    ktimes = time_kernels(gen)
+    ktimes, kbounds = time_kernels(gen)
     for name, (k_ms, p_ms) in ktimes.items():
+        b_ms = kbounds.get(name)
         print(f"  {name}: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms "
-              f"(B={B})")
+              f"(B={B})" + (f", bound {b_ms[0]:.4f} ms ({b_ms[1]})"
+                            if b_ms else ""))
+    sampling = time_sampling_kernels(gen)
+    for name, (k_ms, p_ms, l_ms, (b_ms, by)) in sampling.items():
+        lib = "" if l_ms is None else f", library call {l_ms:.4f} ms"
+        print(f"  {name} (640x480, Q={Q_TRAIN}, B={B}): kernel {k_ms:.4f} "
+              f"ms, plain twin {p_ms:.4f} ms{lib}, bound {b_ms:.4f} ms "
+              f"({by})")
     stimes = time_slice(model, cfg, {1: imgs[:1], 4: imgs})
     for bsz, (e2e, fwd) in stimes.items():
         print(f"  serve B={bsz}: inference_detector {e2e:.3f} ms/image, "
@@ -674,36 +1094,56 @@ def main() -> int:
         ms, img_s = time_train(st, sp, tch, batch)
         print(f"  train {tag} B={B} {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
               f"{ms:.3f} ms/step, {img_s:.3f} img/s")
-    images, img_hw, _ = prepare_batch(cfg, imgs, torch.device(DEVICE))
+    for switch, (st, sp, tch) in switch_states.items():
+        with switched(TRAIN_SWITCHES[switch]):
+            ms, img_s = time_train(st, sp, tch, batch)
+        print(f"  train f32 {switch} {TRAIN_SWITCHES[switch]} B={B} "
+              f"{TRAIN_HW[0]}x{TRAIN_HW[1]}: {ms:.3f} ms/step, {img_s:.3f} "
+              f"img/s")
+    images, img_hw, _ = prepare_batch(cfg, imgs, DEVICE)
     with torch.inference_mode():
         profile(lambda: model(images, img_hw),
                 f"one B={len(imgs)} serving forward (f32)")
     profile(lambda: step16(state16, batch, teacher16),
             f"one B={B} bf16 train step")
 
-    bwd_key = (f"gather_weighted_bwd f32 Q="
-               f"{sum(h * w for h, w in TRAIN_LEVELS)} 640x480")
+    bwd_key = f"gather_weighted_bwd f32 Q={Q_TRAIN} 640x480"
+    gw_key = f"gather_weighted f32 Q={Q_ENC}"
+
+    def entry(name, source, replaces, max_abs_err, ms, plain_ms, bound_ms,
+              library_ms=None):
+        return {"name": name, "route": "cuda",
+                "source": f"dskd_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms[0], "bound_by": bound_ms[1],
+                "library_ms": library_ms}
+
+    def sampled(name, source, replaces, max_abs_err):
+        k_ms, p_ms, l_ms, b = sampling[f"{name} f32"]
+        return entry(name, source, replaces, max_abs_err, k_ms, p_ms, b,
+                     l_ms)
+
     report = {"kernels": [
-        {"name": "pack_corners", "route": "cuda",
-         "source": "dskd_tpu_torch/csrc/pack_corners.cu",
-         "replaces": "dskd_tpu/ops/pack_kernel.py:74",
-         "launches": launches["pack_corners"],
-         "max_abs_err": err["pack_corners"],
-         "ms": ktimes["pack_corners f32"][0],
-         "plain_ms": ktimes["pack_corners f32"][1]},
-        {"name": "gather_weighted", "route": "cuda",
-         "source": "dskd_tpu_torch/csrc/gather_weighted.cu",
-         "replaces": "dskd_tpu/ops/mxu_gather.py:140",
-         "launches": launches["gather_weighted"],
-         "max_abs_err": err["gather_weighted"],
-         "ms": ktimes[f"gather_weighted f32 Q={Q_ENC}"][0],
-         "plain_ms": ktimes[f"gather_weighted f32 Q={Q_ENC}"][1]},
-        {"name": "gather_weighted_bwd", "route": "cuda",
-         "source": "dskd_tpu_torch/csrc/gather_weighted_bwd.cu",
-         "replaces": "dskd_tpu/ops/mxu_gather.py:155",
-         "launches": launches["gather_weighted_bwd"],
-         "max_abs_err": max(err["dtable"], err["dw"]),
-         "ms": ktimes[bwd_key][0], "plain_ms": ktimes[bwd_key][1]}]}
+        entry("pack_corners", "pack_corners.cu",
+              "dskd_tpu/ops/pack_kernel.py:45", err["pack_corners"],
+              *ktimes["pack_corners f32"], kbounds["pack_corners f32"]),
+        entry("gather_weighted", "gather_weighted.cu",
+              "dskd_tpu/ops/mxu_gather.py:140", err["gather_weighted"],
+              *ktimes[gw_key], kbounds[gw_key]),
+        entry("gather_weighted_bwd", "gather_weighted_bwd.cu",
+              "dskd_tpu/ops/mxu_gather.py:155",
+              max(err["dtable"], err["dw"]), *ktimes[bwd_key],
+              kbounds[bwd_key]),
+        sampled("mxu_gather", "mxu_gather.cu",
+                "dskd_tpu/ops/mxu_gather.py:25", serr["mxu_gather"]),
+        sampled("mxu_gather_bwd", "mxu_gather.cu",
+                "dskd_tpu/ops/mxu_gather.py:36", serr["mxu_gather_bwd"]),
+        sampled("fused_sample", "fused_sample.cu",
+                "dskd_tpu/ops/fused_sample.py:29", serr["fused_sample"]),
+        sampled("fused_sample_bwd", "fused_sample.cu",
+                "dskd_tpu/ops/fused_sample.py:45",
+                max(serr["fused_sample_bwd"], serr["fused_sample_dw"]))]}
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps(report))

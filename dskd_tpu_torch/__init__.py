@@ -2,9 +2,10 @@
 
 Layout mirrors ``dskd_tpu/`` file for file; every module names the JAX module
 and functions it ports. The JAX package stays the reference: this package
-imports ``torch`` and never ``jax``. It reuses only the JAX package's modules
-that import no JAX (``dskd_tpu/utils/config.py`` and the configuration
-dataclasses and constants of ``dskd_tpu/data/pipeline.py``).
+imports ``torch`` and never ``jax``, and nothing of the JAX package either.
+It keeps its own copy of what it needs from it (``utils/config.py``, the
+``PipelineConfig`` of ``data/pipeline.py``); ``utils.config.load_config``
+reads the repository's config files without importing the JAX package.
 
 Two paths are ported: serving (``apis.inference.init_detector`` /
 ``inference_detector``) and the flagship incremental training step
@@ -12,7 +13,8 @@ Two paths are ported: serving (``apis.inference.init_detector`` /
 matching, detection and distill losses, clipped AdamW). Both run
 GFL-Deformable-DETR on the card, with the Pallas kernels of multi-scale
 deformable attention, forward and backward, replaced by the CUDA kernels in
-``csrc/``.
+``csrc/``: the default sampling path and the ``DSKD_WGATHER=0`` and
+``DSKD_FUSED_ROWS`` variants (``ops/msda.py``).
 """
 
 __version__ = "0.1.0"

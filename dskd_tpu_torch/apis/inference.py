@@ -1,8 +1,9 @@
 """Inference API (port of dskd_tpu/apis/inference.py ``init_detector`` and
 ``inference_detector``).
 
-``init_detector`` builds the flagship detector on a given device with either
-JAX-layout variables or seeded random weights; ``inference_detector`` takes
+``init_detector`` builds the flagship detector on the card (or on the device
+the caller names, ``device="cpu"`` in the tests) with either JAX-layout
+variables or seeded random weights; ``inference_detector`` takes
 raw RGB images through the test pipeline on that device and returns, per
 image, the reference's ``bbox2result`` format: one (n, 5)
 [x1 y1 x2 y2 score] numpy array per class.
@@ -14,18 +15,17 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from dskd_tpu.data.pipeline import PipelineConfig
-from dskd_tpu.utils.config import ExperimentConfig, load_config
-
-from ..data.pipeline import preprocess
+from ..data.pipeline import PipelineConfig, preprocess
 from ..models.detector import GFLDeformableDETR, build_detector, init_weights
 from ..models.gfl_detr_head import get_bboxes
+from ..utils.config import ExperimentConfig, load_config
 from ..utils.weights import state_dict_from_jax
 
 
 def init_detector(config: Union[str, ExperimentConfig],
-                  variables: Optional[Dict[str, Any]] = None, *, device,
-                  checkpoint: Optional[str] = None, seed: int = 0):
+                  variables: Optional[Dict[str, Any]] = None, *,
+                  device="cuda", checkpoint: Optional[str] = None,
+                  seed: int = 0):
     """Build the detector on ``device``; returns (model, cfg).
 
     ``variables``: the JAX package's ``{"params", "batch_stats"}`` tree, or
@@ -44,7 +44,7 @@ def init_detector(config: Union[str, ExperimentConfig],
     return model.eval(), cfg
 
 
-def prepare_batch(cfg: ExperimentConfig, imgs: Sequence, device):
+def prepare_batch(cfg: ExperimentConfig, imgs: Sequence, device="cuda"):
     """Raw RGB images -> (images (B, H, W, 3), img_hw (B, 2),
     scale_factor (B, 4)) on ``device``."""
     pipe = PipelineConfig(img_scale=cfg.data.img_scale, flip_ratio=0.0,

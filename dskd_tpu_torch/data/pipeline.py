@@ -1,5 +1,6 @@
 """Test-time image preprocessing on the device (port of the test path of
-dskd_tpu/data/pipeline.py ``preprocess``).
+dskd_tpu/data/pipeline.py ``preprocess``, with the port's own copies of its
+``PipelineConfig`` and ``rescale_size``).
 
 Rescale to ``img_scale`` keeping the aspect ratio (``rescale_size``),
 bilinear resize, normalize with the COCO mean/std, pad into the static
@@ -12,13 +13,55 @@ grey level of this.
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dskd_tpu.data.pipeline import PipelineConfig, rescale_size
+IMAGENET_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
+IMAGENET_STD = np.array([58.395, 57.12, 57.375], np.float32)
+
+
+@dataclass
+class PipelineConfig:
+    """The port's copy of dskd_tpu/data/pipeline.py ``PipelineConfig``
+    (same fields and defaults); the test path reads ``img_scale``, ``mean``,
+    ``std`` and ``bucket``."""
+    img_scale: Tuple[int, int] = (640, 640)   # (max_long, max_short) bucket
+    multi_scales: Optional[Tuple[Tuple[int, int], ...]] = None
+    keep_ratio: bool = True
+    flip_ratio: float = 0.5
+    mean: np.ndarray = field(default_factory=lambda: IMAGENET_MEAN.copy())
+    std: np.ndarray = field(default_factory=lambda: IMAGENET_STD.copy())
+    max_gt: int = 100
+    bucket: Tuple[int, int] = (640, 640)      # static padded canvas (H, W)
+    photo_metric_distortion: bool = False
+    mosaic: bool = False
+    mosaic_center_ratio: Tuple[float, float] = (0.5, 1.5)
+    mixup: bool = False
+    mixup_ratio_range: Tuple[float, float] = (0.5, 1.5)
+    expand: bool = False
+    expand_ratio_range: Tuple[float, float] = (1.0, 4.0)
+    min_iou_crop: bool = False
+    min_ious: Tuple[float, ...] = (0.1, 0.3, 0.5, 0.7, 0.9)
+    min_crop_size: float = 0.3
+    resize_ratio_range: Optional[Tuple[float, float]] = None
+    random_crop: Optional[Tuple[int, int]] = None   # (h, w) crop_size
+    corruption: Optional[Tuple[str, int]] = None
+    auto_augment: object = False
+    with_mask: bool = False
+    mask_stride: int = 4
+    with_semantic: bool = False
+
+
+def rescale_size(h: int, w: int, scale: Tuple[int, int]
+                 ) -> Tuple[int, int, float]:
+    """mmdet Resize keep_ratio semantics: fit (h, w) into ``scale``."""
+    max_long, max_short = max(scale), min(scale)
+    f = min(max_long / max(h, w), max_short / min(h, w))
+    return int(h * f + 0.5), int(w * f + 0.5), f
 
 
 def resize_bilinear(img: torch.Tensor, new_h: int, new_w: int
@@ -33,7 +76,7 @@ def resize_bilinear(img: torch.Tensor, new_h: int, new_w: int
 
 
 def preprocess(img: Union[np.ndarray, torch.Tensor], cfg: PipelineConfig,
-               device) -> Dict[str, torch.Tensor]:
+               device="cuda") -> Dict[str, torch.Tensor]:
     """One RGB (h0, w0, 3) image -> dict(image (H, W, 3) f32 normalized and
     zero-padded, img_hw (2,) int32 valid size, scale_factor (4,) f32), all on
     ``device``."""

@@ -61,7 +61,7 @@ class GFLDeformableDETR(nn.Module):
                                            for f in neck))
 
 
-def build_detector(model_cfg, device) -> GFLDeformableDETR:
+def build_detector(model_cfg, device="cuda") -> GFLDeformableDETR:
     """``ModelConfig`` -> detector; raises on options the port lacks."""
     m = model_cfg
     if m.arch not in ("gfl_deformable_detr", "deformable_detr_il"):

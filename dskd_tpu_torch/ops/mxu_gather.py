@@ -1,6 +1,7 @@
-"""Weighted gather of packed corner rows, forward and backward (port of
+"""Gathers of packed corner rows, forward and backward (port of
 dskd_tpu/ops/mxu_gather.py ``mxu_gather_weighted``: ``_fwd_w_kernel`` and
-``_bwd_w_kernel``).
+``_bwd_w_kernel``, and of ``mxu_gather``: ``_fwd_kernel`` and
+``_bwd_kernel``; the second half of this module, below).
 
 ``gather_weighted(table, idx, w)`` computes
 ``out[..., q, :] = sum_p table[row idx[..., q, p]] * expand(w[..., q, p, 0:4])``
@@ -27,7 +28,9 @@ On CUDA tensors the forward launches ``csrc/gather_weighted.cu`` and the
 backward ``csrc/gather_weighted_bwd.cu``; on CPU tensors they run
 ``gather_weighted_plain`` and ``gather_weighted_bwd_plain``. The TPU needed a
 one-hot matmul because its gather is a scalar loop; the GPU gathers rows
-directly, so the port has no ``mxu_gather_max_rows`` cutoff.
+directly, so these kernels take a table of any size: MSDA's
+``mxu_gather_max_rows`` only chooses between the variants the JAX package
+switches with it.
 """
 from __future__ import annotations
 
@@ -46,14 +49,19 @@ _BWD_SIGNATURES = {"gather_weighted_bwd_f32": _BWD_ARGS,
 _DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+def _head_index(B, H, device):
+    """Batch and head indices that broadcast against (B, Q, H, P)."""
+    return (torch.arange(B, device=device)[:, None, None, None],
+            torch.arange(H, device=device)[None, None, :, None])
+
+
 def gather_weighted_plain(table: torch.Tensor, idx: torch.Tensor,
                           w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the forward (MSDA layout), on any device."""
     B, S, H, D4 = table.shape
     valid = (idx >= 0) & (idx < S)
     rows = idx.clamp(0, S - 1).long()
-    bi = torch.arange(B, device=table.device)[:, None, None, None]
-    hi = torch.arange(H, device=table.device)[None, None, :, None]
+    bi, hi = _head_index(B, H, table.device)
     g = table[bi, rows, hi].float()                  # (B, Q, H, P, 4D)
     wx = (w.float() * valid[..., None]).repeat_interleave(D4 // 4, dim=-1)
     return (g * wx).sum(dim=3).to(table.dtype)
@@ -69,8 +77,7 @@ def gather_weighted_bwd_plain(table: torch.Tensor, idx: torch.Tensor,
     D = D4 // 4
     valid = (idx >= 0) & (idx < S)
     rows = idx.clamp(0, S - 1).long()
-    bi = torch.arange(B, device=table.device)[:, None, None, None]
-    hi = torch.arange(H, device=table.device)[None, None, :, None]
+    bi, hi = _head_index(B, H, table.device)
     g = dout.float()[:, :, :, None, :]               # (B, Q, H, 1, 4D)
     wx = (w.float() * valid[..., None]).repeat_interleave(D, dim=-1)
     dtable = torch.zeros((B * S * H, D4), dtype=torch.float32,
@@ -184,3 +191,143 @@ def gather_weighted(table: torch.Tensor, idx: torch.Tensor,
 
 
 gather_weighted.launches = 0
+
+
+# --- mxu_gather: the plain row gather --------------------------------------
+#
+# Port of ``mxu_gather`` (``_fwd_kernel`` and ``_bwd_kernel``):
+# ``out[n, m] = table[n, idx[n, m]]`` for table (N, S, D) and idx (N, M); an
+# index outside [0, S) gives a zero row, as the TPU one-hot does. The
+# backward scatter-adds ``g`` into ``dtable`` (nothing for an index outside
+# [0, S)) and gives no gradient for ``idx``. MSDA calls it in its own layout,
+# table (B, S, H, D) with the head axis in the middle and idx (B, Q, H, P),
+# -> (B, Q, H, P, D): the kernels take the table's strides and read
+# ``pack_corners``' output in place. On CUDA tensors the forward and the
+# backward launch ``csrc/mxu_gather.cu``; on CPU tensors they run
+# ``mxu_gather_plain`` and ``mxu_gather_bwd_plain``. ``dtable`` is summed in
+# f32 and cast once to the table's type (the TPU kernel sums in the table's
+# type).
+
+_MG_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int64,) * 9 + (ctypes.c_void_p,)
+_MG_BWD_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int64,) * 6 + (
+    ctypes.c_void_p,)
+MXU_GATHER_SIGNATURES = {
+    "mxu_gather_f32": _MG_ARGS, "mxu_gather_bf16": _MG_ARGS,
+    "mxu_gather_bwd_f32": _MG_BWD_ARGS, "mxu_gather_bwd_bf16": _MG_BWD_ARGS}
+
+
+def mxu_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the forward (MSDA layout), on any device."""
+    B, S, H, _ = table.shape
+    valid = (idx >= 0) & (idx < S)
+    bi, hi = _head_index(B, H, table.device)
+    rows = table[bi, idx.clamp(0, S - 1).long(), hi]    # (B, Q, H, P, D)
+    return torch.where(valid[..., None], rows, rows.new_zeros(()))
+
+
+def mxu_gather_bwd_plain(idx: torch.Tensor, g: torch.Tensor,
+                         table_rows: int) -> torch.Tensor:
+    """Plain PyTorch version of the backward (MSDA layout), on any device:
+    an f32 ``index_add_`` of ``g`` (B, Q, H, P, D) into the (B, S, H, D)
+    ``dtable``, returned in ``g``'s type."""
+    B, _, H, _, D = g.shape
+    S = table_rows
+    valid = (idx >= 0) & (idx < S)
+    bi, hi = _head_index(B, H, g.device)
+    dest = ((bi * S + idx.clamp(0, S - 1).long()) * H + hi).reshape(-1)
+    dtable = torch.zeros((B * S * H, D), dtype=torch.float32, device=g.device)
+    dtable.index_add_(0, dest, (g.float() * valid[..., None]).reshape(-1, D))
+    return dtable.reshape(B, S, H, D).to(g.dtype)
+
+
+def _check_idx(name, idx, B, H, device):
+    if idx.dim() != 4 or idx.shape[0] != B or idx.shape[2] != H:
+        raise ValueError(f"{name}: idx {tuple(idx.shape)} is not (B={B}, Q, "
+                         f"H={H}, P)")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"{name}: idx must be int32")
+    if idx.device != device:
+        raise ValueError(f"{name}: tensors on different devices")
+
+
+def _mxu_gather_cuda(table, idx):
+    if table.device.type != "cuda":
+        raise ValueError(f"mxu_gather: unsupported device {table.device}")
+    B, S, H, D = table.shape
+    _check_idx("mxu_gather", idx, B, H, table.device)
+    if table.dtype not in _DTYPE_TAG:
+        raise TypeError(f"mxu_gather: unsupported dtype {table.dtype}")
+    if table.stride(3) != 1:
+        raise ValueError("mxu_gather: table rows must be contiguous")
+    Q, P = idx.shape[1], idx.shape[3]
+    idx = idx.contiguous()
+    out = torch.empty((B, Q, H, P, D), dtype=table.dtype, device=table.device)
+    lib = _build.load("mxu_gather", MXU_GATHER_SIGNATURES)
+    fn = getattr(lib, f"mxu_gather_{_DTYPE_TAG[table.dtype]}")
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    _build.check(fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), B, Q, H,
+                    P, S, D, table.stride(0), table.stride(1),
+                    table.stride(2), stream), "mxu_gather")
+    mxu_gather.launches += 1
+    return out
+
+
+def mxu_gather_bwd(idx: torch.Tensor, g: torch.Tensor,
+                   table_rows: int) -> torch.Tensor:
+    """``dtable`` (B, S, H, D) of ``mxu_gather`` for the cotangent ``g``
+    (B, Q, H, P, D), in ``g``'s type. Launches ``csrc/mxu_gather.cu`` on
+    CUDA tensors and runs ``mxu_gather_bwd_plain`` on CPU tensors."""
+    if g.device.type == "cpu":
+        return mxu_gather_bwd_plain(idx, g, table_rows)
+    if g.device.type != "cuda":
+        raise ValueError(f"mxu_gather_bwd: unsupported device {g.device}")
+    B, Q, H, P, D = g.shape
+    _check_idx("mxu_gather_bwd", idx, B, H, g.device)
+    if idx.shape != (B, Q, H, P):
+        raise ValueError(f"mxu_gather_bwd: idx {tuple(idx.shape)}, g "
+                         f"{tuple(g.shape)}")
+    if g.dtype not in _DTYPE_TAG:
+        raise TypeError(f"mxu_gather_bwd: unsupported dtype {g.dtype}")
+    idx, g = idx.contiguous(), g.contiguous()
+    dtable = torch.zeros((B, table_rows, H, D), dtype=torch.float32,
+                         device=g.device)
+    lib = _build.load("mxu_gather", MXU_GATHER_SIGNATURES)
+    fn = getattr(lib, f"mxu_gather_bwd_{_DTYPE_TAG[g.dtype]}")
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    _build.check(fn(idx.data_ptr(), g.data_ptr(), dtable.data_ptr(), B, Q, H,
+                    P, table_rows, D, stream), "mxu_gather_bwd")
+    mxu_gather_bwd.launches += 1
+    return dtable.to(g.dtype)
+
+
+mxu_gather_bwd.launches = 0
+
+
+class MxuGather(torch.autograd.Function):
+    """``mxu_gather`` (MSDA layout) with its backward; the CUDA kernels on
+    CUDA tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_rows, ctx.dtype = table.shape[1], table.dtype
+        if table.device.type == "cpu":
+            return mxu_gather_plain(table, idx)
+        return _mxu_gather_cuda(table, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        return mxu_gather_bwd(idx, g.to(ctx.dtype), ctx.table_rows), None
+
+
+def mxu_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row gather: table (N, S, D), idx (N, M) -> (N, M, D), or in MSDA's
+    layout table (B, S, H, D), idx (B, Q, H, P) -> (B, Q, H, P, D)."""
+    if table.dim() == 3:                             # (N, S, D) layout
+        return MxuGather.apply(table[:, :, None],
+                               idx[:, :, None, None])[:, :, 0, 0]
+    return MxuGather.apply(table, idx)
+
+
+mxu_gather.launches = 0

@@ -1,0 +1,102 @@
+"""The port's own configuration (dskd_tpu_torch/utils/config.py and the
+``PipelineConfig`` / ``rescale_size`` of dskd_tpu_torch/data/pipeline.py)
+against the JAX package's: the same fields and defaults, every config file
+of the repository loaded to the same values, and ``load_config`` refusing a
+config file's other imports of the JAX package."""
+import dataclasses
+import glob
+import os
+
+import numpy as np
+import pytest
+
+from dskd_tpu_torch.data import pipeline as port_pipeline
+from dskd_tpu_torch.utils import config as port_config
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CLASSES = ("ModelConfig", "DataConfig", "TrainConfig", "DistillFlags",
+           "ExperimentConfig")
+
+
+def _fields(cls):
+    return [(f.name, f.type) for f in dataclasses.fields(cls)]
+
+
+def test_config_classes_match_jax():
+    from dskd_tpu.utils import config as jax_config
+
+    for name in CLASSES:
+        ours, theirs = getattr(port_config, name), getattr(jax_config, name)
+        assert _fields(ours) == _fields(theirs), name
+        assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs()), \
+            name
+    assert dataclasses.asdict(port_config.dskd_flagship_config(
+        (40, 20))) == dataclasses.asdict(jax_config.dskd_flagship_config(
+            (40, 20)))
+
+
+def test_pipeline_config_matches_jax():
+    from dskd_tpu.data import pipeline as jax_pipeline
+
+    ours, theirs = port_pipeline.PipelineConfig, jax_pipeline.PipelineConfig
+    assert _fields(ours) == _fields(theirs)
+    a, b = dataclasses.asdict(ours()), dataclasses.asdict(theirs())
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    for h, w, scale in ((480, 640, (640, 640)), (427, 640, (1333, 800)),
+                        (100, 37, (128, 96))):
+        assert port_pipeline.rescale_size(h, w, scale) == \
+            jax_pipeline.rescale_size(h, w, scale)
+
+
+def test_every_config_file_loads_as_in_jax(monkeypatch):
+    """Each config file of the repository that imports only the JAX
+    package's config module loads through the port to the values the JAX
+    package's ``load_config`` gives; the others are refused."""
+    from dskd_tpu.utils.config import load_config as jax_load_config
+
+    monkeypatch.setenv("DSKD_DATASETS", "/datasets")
+    paths = sorted(glob.glob(os.path.join(ROOT, "configs", "*.py")))
+    refused = []
+    for path in paths:
+        try:
+            ours = port_config.load_config(path)
+        except ImportError as e:
+            assert "dskd_tpu." in str(e), path
+            refused.append(os.path.basename(path))
+            continue
+        assert dataclasses.asdict(ours) == dataclasses.asdict(
+            jax_load_config(path)), path
+        assert ours.data.train_ann.startswith("/datasets/"), path
+    assert len(paths) > 90 and len(refused) < 5, refused
+
+
+@pytest.mark.parametrize("line", [
+    "from dskd_tpu.data.deepfashion import DEEPFASHION_CLASSES",
+    "import dskd_tpu.utils.config",
+    "from dskd_tpu import utils",
+    "import dskd_tpu"])
+def test_load_config_refuses_other_jax_package_imports(tmp_path, line):
+    path = tmp_path / "cfg.py"
+    path.write_text(f"{line}\n"
+                    "from dskd_tpu.utils.config import ExperimentConfig\n"
+                    "def get_config():\n"
+                    "    return ExperimentConfig()\n")
+    with pytest.raises(ImportError, match="imports 'dskd_tpu"):
+        port_config.load_config(str(path))
+
+
+def test_load_config_resolves_the_config_module(tmp_path):
+    path = tmp_path / "cfg.py"
+    path.write_text("import dataclasses\n"
+                    "from dskd_tpu.utils.config import (ExperimentConfig,\n"
+                    "                                   ModelConfig)\n"
+                    "def get_config():\n"
+                    "    from dskd_tpu.utils.config import TrainConfig\n"
+                    "    return ExperimentConfig(\n"
+                    "        model=ModelConfig(depth=18),\n"
+                    "        train=TrainConfig(base_lr=1e-3))\n")
+    cfg = port_config.load_config(str(path))
+    assert isinstance(cfg, port_config.ExperimentConfig)
+    assert cfg.model.depth == 18 and cfg.train.base_lr == 1e-3

@@ -1,24 +1,29 @@
-"""dskd_tpu_torch runs its serving and training slices without importing JAX
-or Flax: a fresh interpreter imports the port, runs init_detector +
-inference_detector and one incremental train step on a tiny configuration,
-and reports which modules it loaded."""
+"""dskd_tpu_torch runs its serving and training slices without importing JAX,
+Flax or the JAX package: a fresh interpreter loads the flagship config file
+through the port's ``load_config``, builds a tiny model from the port's own
+config classes, runs init_detector + inference_detector and one incremental
+train step, and reports which modules it loaded."""
 import json
 import os
 import subprocess
 import sys
 
 _SCRIPT = r"""
-import json, sys
+import dataclasses, json, sys
 import numpy as np
 import torch
 torch.set_num_threads(1)
-from dskd_tpu.utils.config import DataConfig, ExperimentConfig, ModelConfig
 from dskd_tpu_torch.apis.inference import init_detector, inference_detector
+from dskd_tpu_torch.utils.config import load_config
 
-cfg = ExperimentConfig(
-    model=ModelConfig(num_classes=7, num_query=12, depth=18,
-                      num_encoder_layers=1, num_decoder_layers=2),
-    data=DataConfig(bucket=(128, 128), img_scale=(128, 128)))
+flagship = load_config("configs/gfl_deformable_detr_40_40_il.py")
+cfg = dataclasses.replace(
+    flagship,
+    model=dataclasses.replace(flagship.model, num_classes=7, num_query=12,
+                              depth=18, num_encoder_layers=1,
+                              num_decoder_layers=2),
+    data=dataclasses.replace(flagship.data, bucket=(128, 128),
+                             img_scale=(128, 128)))
 model, cfg = init_detector(cfg, device="cpu", seed=0)
 rng = np.random.RandomState(0)
 imgs = [rng.randint(0, 256, (100, 128, 3)).astype(np.uint8),
@@ -48,8 +53,11 @@ print(json.dumps({
     "shapes_ok": all(r.ndim == 2 and r.shape[1] == 5 for per in res
                      for r in per),
     "finite": all(bool(np.isfinite(r).all()) for per in res for r in per),
+    "flagship": [flagship.model.depth, flagship.distill.feats_distill,
+                 list(flagship.data.aspect_buckets[0])],
     "loaded": sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))}))
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                            "dskd_tpu"))}))
 """
 
 
@@ -62,5 +70,7 @@ def test_port_slice_imports_no_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["loaded"] == []
+    assert report["flagship"] == [50, "corr + fg_info + decode_v1",
+                                  [640, 480]]
     assert report["n_images"] == 2 and report["n_classes"] == 7
     assert report["shapes_ok"] and report["finite"] and report["trained"]

@@ -33,9 +33,9 @@ FLAGS = dict(cates_distill="hard + teacher-first",
 SCORE_THR, MAX_PER_IMG = 0.3, 20
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """One JAX value_and_grad of the step's loss, shared by the file."""
+def jax_step_run():
+    """One JAX value_and_grad of the step's loss at the tiny configuration:
+    the weights, batch, losses and gradients the port is held against."""
     from dskd_tpu.distill.losses import DistillConfig as JDistill
     from dskd_tpu.models.detector import GFLDeformableDETR as JaxDETR
     from dskd_tpu.models.gfl_detr_loss import DetLossConfig as JDet
@@ -65,6 +65,12 @@ def jax_run():
                 grads=grads)
 
 
+@pytest.fixture(scope="module")
+def jax_run():
+    """One JAX value_and_grad of the step's loss, shared by the file."""
+    return jax_step_run()
+
+
 def _port_losses(run):
     model = port_model(run["student"], dropout=0.0).train()
     teacher = frozen_copy(port_model(run["teacher"]))
@@ -75,9 +81,10 @@ def _port_losses(run):
     return model, losses
 
 
-def test_compute_losses_match_jax(jax_run):
-    _, losses = _port_losses(jax_run)
-    want = jax_run["losses"]
+def assert_losses_match(run):
+    """Every loss key of the port's ``compute_losses`` against JAX's."""
+    _, losses = _port_losses(run)
+    want = run["losses"]
     assert set(losses) == set(want)
     assert want["loss_corr"] > 0 and want["loss_fg_feature"] > 0
     for k, v in want.items():
@@ -86,11 +93,12 @@ def test_compute_losses_match_jax(jax_run):
                                    atol=1e-6, err_msg=k)
 
 
-def test_gradients_match_jax(jax_run):
-    model, losses = _port_losses(jax_run)
+def assert_gradients_match(run):
+    """The gradient of every parameter against ``jax.grad``."""
+    model, losses = _port_losses(run)
     parse_losses(losses).backward()
-    want = state_dict_from_jax({"params": jax_run["grads"],
-                                "batch_stats": jax_run["student"][
+    want = state_dict_from_jax({"params": run["grads"],
+                                "batch_stats": run["student"][
                                     "batch_stats"]})
     frozen = ("backbone.conv1.", "backbone.bn1.", "backbone.layer1.")
     for name, p in model.named_parameters():
@@ -104,6 +112,14 @@ def test_gradients_match_jax(jax_run):
         scale = max(np.abs(ref).max(), 1e-6)
         np.testing.assert_allclose(got, ref, rtol=0, atol=1e-3 * scale,
                                    err_msg=name)
+
+
+def test_compute_losses_match_jax(jax_run):
+    assert_losses_match(jax_run)
+
+
+def test_gradients_match_jax(jax_run):
+    assert_gradients_match(jax_run)
 
 
 def test_optimizer_matches_optax_chain():
