@@ -11,15 +11,21 @@ Phases; the first failure raises and the script exits non-zero:
   1. device: requires torch.cuda, prints the card's name and power limit,
      turns TF32 off for matmuls and convolutions (every comparison and time
      below is full f32 unless it says bf16);
-  2. build: compiles the five CUDA sources from dskd_tpu_torch/csrc (seven
+  2. build: compiles the six CUDA sources from dskd_tpu_torch/csrc (eleven
      kernels), one nvcc per source, all started together;
   3. kernels: each kernel against its plain PyTorch twin on the card at the
      flagship's shapes (B=2, H=8, D=32, P=4; the levels of the 640x640
      serving canvas with Q=8500 encoder and Q=300 decoder queries, and of
      the 640x480 training canvas with Q=6380), f32 and bf16, indices and
-     taps outside [0, S) included; and the gradients of ms_deform_attn_core
-     in value, locations and attention on the card against the plain twins,
-     on the default branch and under each sampling switch;
+     taps outside [0, S) included; the windowed kernels at level 0's windows
+     on the main paths (640x640: window_gather at 1024 rows, fused_window
+     at 1232-3200; 640x480: fused_window and the windowed backward at 992
+     and 1376), once with every sample in its window (escape counts 0) and
+     once with some sent far away (counts > 0, the same results); and the
+     gradients of ms_deform_attn_core in value, locations and attention on
+     the card against the plain twins, on the default branch and under each
+     sampling switch (the windowed ones for the encoder's raster queries of
+     the 512x512 canvas);
   4. serve: the flagship config with seeded weights through init_detector
      and inference_detector on three synthetic images; every kernel must be
      launched the number of times the design implies, outputs must be finite
@@ -31,19 +37,23 @@ Phases; the first failure raises and the script exits non-zero:
      counts, one step at 2+2 layers held against the CPU (every loss key and
      the gradients of named parameters), and a few bf16 steps;
   6. switches: the MSDA sampling variants of the JAX package's environment
-     switches, DSKD_WGATHER=0 (levels 1-3 through mxu_gather) and
-     DSKD_FUSED_ROWS (levels 1-3 through fused_msda_sample): for each, one
-     serving call with checked launches and its head outputs held against
-     the default path on the card; a few f32 training steps and one bf16
-     step with checked launches; and one full-width f32 step whose losses
-     and named gradients are held against the default path on the card
-     (same weights, batch, dropout generator, teacher and assignment);
+     switches, DSKD_WGATHER=0 (levels 1-3 through mxu_gather),
+     DSKD_FUSED_ROWS (levels 1-3 through fused_msda_sample) and the
+     windowed ones on the encoder's level 0, DSKD_WINBWD=1 and DSKD_FWIN=1
+     (segments through the windowed backward, or fused_window and it) and
+     DSKD_WINDOW_ROWS=1024 (window_gather; on a 640x640 batch in training):
+     one serving call each (the first two, DSKD_WINDOW_ROWS and DSKD_FWIN)
+     with checked launches and its head outputs held against the default
+     path on the card; a few f32 and bf16 training steps with checked
+     launches; and one full-width f32 step whose losses and named gradients
+     are held against the default path on the card (same weights, batch,
+     dropout generator, teacher and assignment);
   7. times: kernels against twins (and against one PyTorch library call
      where one computes the same function) with CUDA events, beside the
      least time the card could take (bytes over 3.35 TB/s or f32 operations
      over 67 TFLOP/s), the serving slice in ms/image, the train step in
-     ms/step and img/s, and profiler tables of one serving forward and one
-     bf16 train step.
+     ms/step and img/s under each switch, and profiler tables of one serving
+     forward and one bf16 train step.
 The last three lines are the card, the kernel report as JSON and the result
 as JSON.
 """
@@ -77,6 +87,13 @@ BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)  # one bf16 rounding of the f32 sum
 DTABLE_TOL = dict(rtol=1e-5, atol=5e-5)
 DTABLE_BF16_TOL = dict(rtol=2 ** -7, atol=5e-5)
 HEAD_TOL = dict(rtol=1e-3, atol=1e-3)    # whole model, f32, TF32 off
+# a windowed switch against the default path on the card: DSKD_WINBWD's and
+# DSKD_FWIN's forwards sum each row in the default kernel's order, and
+# DSKD_WINDOW_ROWS's copies rows and weights them in another order (f32);
+# the earlier switches are held to HEAD_TOL, LOSS_TOL and GRAD_REL_TOL
+WINDOW_HEAD_TOL = dict(rtol=1e-5, atol=1e-5)
+WINDOW_LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
+WINDOW_GRAD_REL_TOL = 1e-4
 MSDA_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 LOSS_TOL = dict(rtol=1e-3, atol=1e-4)    # one f32 step, card vs CPU
 # gradients, card vs CPU: ||g_card - g_cpu|| / ||g_cpu||
@@ -84,20 +101,51 @@ GRAD_REL_TOL = 1e-3
 MSDA_WEIGHT_STD = 0.02
 # the sampling switches of ms_deform_attn_core (DSKD_FUSED_ROWS sends the
 # levels of 1200 and fewer pixels: levels 1-3 of the 640x480 canvas, and
-# with 1600 those of the 640x640 canvas)
-SWITCH_VARS = ("DSKD_WGATHER", "DSKD_FUSED_ROWS", "DSKD_MXU_GATHER_ROWS")
+# with 1600 those of the 640x640 canvas; the windowed switches act on the
+# encoder's level 0, DSKD_WINDOW_ROWS only where its pixels fill whole
+# 128-query tiles: 6400 of the 640x640 canvas, not 4800 of the 640x480)
+SWITCH_VARS = ("DSKD_WGATHER", "DSKD_FUSED_ROWS", "DSKD_MXU_GATHER_ROWS",
+               "DSKD_WINDOW_ROWS", "DSKD_FWIN", "DSKD_FWIN_MARGIN",
+               "DSKD_WINBWD")
 TRAIN_SWITCHES = {"wgather0": {"DSKD_WGATHER": "0"},
-                  "fused": {"DSKD_FUSED_ROWS": "1200"}}
+                  "fused": {"DSKD_FUSED_ROWS": "1200"},
+                  "winbwd": {"DSKD_WINBWD": "1"},
+                  "fwin": {"DSKD_FWIN": "1"},
+                  "window_rows": {"DSKD_WINDOW_ROWS": "1024"}}
+TRAIN_CANVAS = {"window_rows": (640, 640)}      # the others: TRAIN_HW
 SERVE_SWITCHES = {"wgather0": {"DSKD_WGATHER": "0"},
-                  "fused": {"DSKD_FUSED_ROWS": "1600"}}
-# forward launches of each kernel in one MSDA call (four levels), by switch
-PER_CALL = {
-    "default": {"pack_corners": 4, "gather_weighted": 4},
-    "wgather0": {"pack_corners": 4, "gather_weighted": 1, "mxu_gather": 3},
-    "fused": {"pack_corners": 1, "gather_weighted": 1, "fused_sample": 3}}
-BACKWARD = {"gather_weighted": "gather_weighted_bwd",
-            "mxu_gather": "mxu_gather_bwd",
-            "fused_sample": "fused_sample_bwd"}
+                  "fused": {"DSKD_FUSED_ROWS": "1600"},
+                  "window_rows": {"DSKD_WINDOW_ROWS": "1024"},
+                  "fwin640": {"DSKD_FWIN": "1"}}
+# launches of each kernel in one MSDA call (four levels), forward and in
+# the backward of a differentiated call, by switch; a windowed switch
+# changes the encoder's calls only (the decoder's queries are not the
+# raster tokens), so CALL gives the decoder's under it
+CALL = {
+    "default": ({"pack_corners": 4, "gather_weighted": 4},
+                {"gather_weighted_bwd": 4}),
+    "wgather0": ({"pack_corners": 4, "gather_weighted": 1, "mxu_gather": 3},
+                 {"gather_weighted_bwd": 1, "mxu_gather_bwd": 3}),
+    "fused": ({"pack_corners": 1, "gather_weighted": 1, "fused_sample": 3},
+              {"gather_weighted_bwd": 1, "fused_sample_bwd": 3})}
+ENCODER_CALL = {
+    # 640x480 (and 512x512): level 0 in segments of source levels 0-3; the
+    # windows of 0 and 1 fit (992 and 1376 rows of 640x480's 5084, of 5456
+    # for JAX's table), those of 2 (2976) and 3 (80 queries) do not
+    "winbwd": ({"pack_corners": 4, "gather_weighted": 7},
+               {"window_weighted_bwd": 2, "gather_weighted_bwd": 5}),
+    "fwin": ({"pack_corners": 4, "gather_weighted": 5, "fused_window": 2},
+             {"window_weighted_bwd": 2, "gather_weighted_bwd": 5}),
+    # 640x640: the windows of source levels 0-2 fit (1232, 1648 and 3200
+    # rows of 6724); level 3 has 100 queries
+    "fwin640": ({"pack_corners": 4, "gather_weighted": 4,
+                 "fused_window": 3},
+                {"window_weighted_bwd": 3, "gather_weighted_bwd": 4}),
+    # 640x640 (and 512x512): level 0's raster queries through
+    # window_gather, the other queries and levels 1-3 gather_weighted
+    "window_rows": ({"pack_corners": 4, "gather_weighted": 4,
+                     "window_gather": 1},
+                    {"window_gather_bwd": 1, "gather_weighted_bwd": 4})}
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 # bytes/s and f32 FLOP/s outside the tensor cores, where these kernels'
 # arithmetic runs whatever the table's type
@@ -134,25 +182,49 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
 def counters():
     from dskd_tpu_torch.ops.fused_sample import fused_msda_sample, \
         fused_msda_sample_bwd
+    from dskd_tpu_torch.ops.fused_window import fused_window_sample, \
+        windowed_weighted_bwd
     from dskd_tpu_torch.ops.mxu_gather import gather_weighted, \
         gather_weighted_bwd, mxu_gather, mxu_gather_bwd
     from dskd_tpu_torch.ops.pack_kernel import pack_corners
+    from dskd_tpu_torch.ops.window_gather import window_gather, \
+        window_gather_bwd
     return {"pack_corners": pack_corners, "gather_weighted": gather_weighted,
             "gather_weighted_bwd": gather_weighted_bwd,
             "mxu_gather": mxu_gather, "mxu_gather_bwd": mxu_gather_bwd,
             "fused_sample": fused_msda_sample,
-            "fused_sample_bwd": fused_msda_sample_bwd}
+            "fused_sample_bwd": fused_msda_sample_bwd,
+            "window_gather": window_gather,
+            "window_gather_bwd": window_gather_bwd,
+            "fused_window": fused_window_sample,
+            "window_weighted_bwd": windowed_weighted_bwd}
 
 
-def expected_launches(switch, msda_calls, backward_calls=0):
-    """Launches of every kernel for ``msda_calls`` forward MSDA calls, of
-    which ``backward_calls`` are differentiated, under ``switch``."""
+WINDOW_KERNELS = ("window_gather", "window_gather_bwd", "fused_window",
+                  "window_weighted_bwd")
+
+
+def expected_launches(switch, enc, dec, enc_bwd=0, dec_bwd=0):
+    """Launches of every kernel under ``switch`` for ``enc`` encoder and
+    ``dec`` decoder MSDA calls, of which ``enc_bwd`` and ``dec_bwd`` are
+    differentiated."""
     want = dict.fromkeys(counters(), 0)
-    for name, n in PER_CALL[switch].items():
-        want[name] += n * msda_calls
-        if name in BACKWARD:
-            want[BACKWARD[name]] += n * backward_calls
+    enc_call = ENCODER_CALL.get(switch) or CALL[switch]
+    dec_call = CALL.get(switch, CALL["default"])
+    for n, calls in ((enc, enc_call[0]), (dec, dec_call[0]),
+                     (enc_bwd, enc_call[1]), (dec_bwd, dec_call[1])):
+        for name, k in calls.items():
+            want[name] += k * n
     return want
+
+
+def model_launches(switch, cfg, forwards, backwards=0):
+    """Launches of every kernel in ``forwards`` forwards of the model, of
+    which ``backwards`` are differentiated, under ``switch``."""
+    n_enc = cfg.model.num_encoder_layers
+    n_dec = cfg.model.num_decoder_layers
+    return expected_launches(switch, forwards * n_enc, forwards * n_dec,
+                             backwards * n_enc, backwards * n_dec)
 
 
 @contextlib.contextmanager
@@ -186,6 +258,15 @@ def reset_counts() -> None:
     torch.cuda.synchronize()
     for fn in counters().values():
         fn.launches = 0
+    for name in WINDOW_KERNELS:
+        counters()[name].escapes = None
+
+
+def read_escapes() -> dict:
+    """The escape count of each windowed kernel since the last reset."""
+    torch.cuda.synchronize()
+    return {name: 0 if counters()[name].escapes is None
+            else int(counters()[name].escapes) for name in WINDOW_KERNELS}
 
 
 def read_counts() -> dict:
@@ -387,12 +468,12 @@ def check_msda_grads(gen):
         return [g.cpu() for g in torch.autograd.grad(out, args, cot.to(dev))]
 
     errs = {}
-    for switch, env in (("default", {}), *SERVE_SWITCHES.items()):
-        with switched(env):
+    for switch in CALL:                    # the decoder's queries
+        with switched(SERVE_SWITCHES.get(switch, {})):
             reset_counts()
             card = grads(DEVICE)
             launches = read_counts()
-            want = expected_launches(switch, 1, 1)
+            want = expected_launches(switch, 0, 1, 0, 1)
             if launches != want:
                 raise AssertionError(f"msda grads {switch}: launches "
                                      f"{launches}, expected {want}")
@@ -407,9 +488,327 @@ def check_msda_grads(gen):
     return errs
 
 
-def msda_calls(cfg) -> int:
-    """MSDA calls in one forward of the model: one per deformable layer."""
-    return cfg.model.num_encoder_layers + cfg.model.num_decoder_layers
+# --- the windowed sampling family --------------------------------------------
+
+WIN_TILE_Q, WIN_ROWS = 128, 1024   # the JAX defaults; DSKD_WINDOW_ROWS=1024
+# the 512x512 canvas's levels: level 0 (64x64, 4356 packed rows) takes every
+# windowed branch, as on the 640x480 (DSKD_WINBWD, DSKD_FWIN) and 640x640
+# (DSKD_WINDOW_ROWS) canvases, at a size the plain twins run on the CPU
+GRAD_LEVELS = ((64, 64), (32, 32), (16, 16), (8, 8))
+# card vs CPU, f32 summation order relative to each gradient's scale: the
+# location gradients of 64-pixel maps reach ~2e3 (the default branch's
+# differ by 3.7e-4 there)
+WINDOW_GRAD_TOL = 2e-6
+
+
+def pixel_centres(hw):
+    """(h*w, 2) normalized (x, y) centres of an (h, w) level's pixels, in
+    raster order: where its encoder tokens sit."""
+    h, w = hw
+    ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    return torch.stack([(xs.reshape(-1) + 0.5) / w,
+                        (ys.reshape(-1) + 0.5) / h], -1)
+
+
+def raster_locations(gen, src_hw, hw, noise_px=0.5):
+    """(B, n, H, P, 2) normalized locations at which the n raster tokens of
+    a source level of size ``src_hw`` sample a level of size ``hw``: each
+    at its own pixel's centre plus normal noise of ``noise_px`` pixels of
+    the sampled level, as an encoder's queries sample near themselves."""
+    own = pixel_centres(src_hw)
+    noise = torch.randn(B, own.shape[0], HEADS, P, 2, generator=gen) * (
+        noise_px / torch.tensor([float(hw[1]), float(hw[0])]))
+    return (own[None, :, None, None] + noise).to(DEVICE)
+
+
+def window_cases(gen, dtype):
+    """The windowed kernels' calls on the main paths at the flagship's
+    shapes: (tag, kind, table, flat, cw, starts, window) for level 0 of
+    640x640 through window_gather (K=1024), and for each segment of level 0
+    whose window fits: fused_window at 640x640 (K 1232, 1648, 3200) and
+    640x480 (992, 1376), and windowed_bwd_sample at 640x480 (992, 1376, in
+    JAX's 5456-row table). Each sample is clamped into its tile's window:
+    the last window, clipped to end before the table does and aligned
+    down, leaves the map's last few corner rows outside it."""
+    from dskd_tpu_torch.ops.msda import corner_index_and_weights, \
+        segment_windows
+    from dskd_tpu_torch.ops.pack_kernel import pack_corners
+    from dskd_tpu_torch.ops.window import pallas_pack_rows, \
+        tile_window_starts
+
+    def inside(flat, starts, window):
+        lo = torch.tensor(starts, dtype=torch.int32, device=flat.device)[
+            torch.arange(flat.shape[1], device=flat.device) // WIN_TILE_Q]
+        lo = lo[None, :, None, None]
+        return torch.minimum(torch.maximum(flat, lo), lo + window - 1)
+
+    cases = []
+    for levels, canvas in ((LEVELS, "640x640"), (TRAIN_LEVELS, "640x480")):
+        h, w = levels[0]
+        v = torch.randn(B, h * w, HEADS, D, generator=gen).to(DEVICE, dtype)
+        table = pack_corners(v, h, w)
+        sp = table.shape[1]
+
+        def sampled(src):
+            loc = raster_locations(gen, levels[src], (h, w))
+            attn = torch.rand(B, loc.shape[1], HEADS, P, generator=gen)
+            return corner_index_and_weights(loc, attn.to(DEVICE), h, w,
+                                            dtype)
+
+        if canvas == "640x640":
+            flat, cw = sampled(0)
+            starts = tile_window_starts(h * w, WIN_TILE_Q, w, w + 2, sp,
+                                        WIN_ROWS)
+            cases.append((f"{canvas} level 0 K={WIN_ROWS}", "gather", table,
+                          inside(flat, starts, WIN_ROWS), cw, starts,
+                          WIN_ROWS))
+        kinds = (("fwin", sp), ("winbwd", pallas_pack_rows(h, w)))
+        for kind, s_pad in kinds[:1] if canvas == "640x640" else kinds:
+            for src, (_, _, window, starts) in enumerate(segment_windows(
+                    levels, (h, w), WIN_TILE_Q, 6, s_pad)):
+                if window is not None:
+                    flat, cw = sampled(src)
+                    cases.append((f"{canvas} source level {src} K={window}",
+                                  kind, table, inside(flat, starts, window),
+                                  cw, starts, window))
+    return cases
+
+
+def far_indices(gen, idx, S, share=16):
+    """``idx`` with about 1/``share`` of it moved half the table away."""
+    far = torch.randint(0, share, idx.shape, generator=gen).to(idx.device)
+    return torch.where(far == 0, (idx + S // 2) % S, idx).to(torch.int32)
+
+
+def check_window_kernels(gen):
+    """window_gather, fused_window and the windowed weighted backward
+    against their plain twins at the main paths' shapes, f32 and bf16, with
+    every sample in its window (escape counts 0) and with some sent far
+    away (counts > 0, results still the twins')."""
+    from dskd_tpu_torch.ops.fused_window import fused_window_sample, \
+        fused_window_sample_plain, windowed_weighted_bwd, \
+        windowed_weighted_bwd_plain
+    from dskd_tpu_torch.ops.window import window_escapes
+    from dskd_tpu_torch.ops.window_gather import window_gather, \
+        window_gather_bwd, window_gather_bwd_plain, window_gather_plain
+
+    err, escaped = {}, {}
+
+    def note(key, got, want):
+        err[key] = max(err.get(key, 0.0), _max_err(got, want))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        sfx = "" if dtype == torch.float32 else "_bf16"
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        dtol = DTABLE_TOL if dtype == torch.float32 else DTABLE_BF16_TOL
+        for tag, kind, table, flat, cw, starts, K in window_cases(gen, dtype):
+            S, tq = table.shape[1], WIN_TILE_Q
+            for escape in (False, True):
+                idx = far_indices(gen, flat, S) if escape else flat
+                want_esc = int(window_escapes(idx, starts, tq, K))
+                if (want_esc > 0) != escape:
+                    raise AssertionError(f"{tag}: {want_esc} escapes")
+                reset_counts()
+                if kind == "gather":
+                    got = window_gather(table, idx, starts, tq * P, K)
+                    g = torch.randn(got.shape, generator=gen).to(DEVICE,
+                                                                  dtype)
+                    dt = window_gather_bwd(idx, g, starts, tq, K, S)
+                    counted = ("window_gather", "window_gather_bwd")
+                    esc = read_escapes()
+                    want = window_gather_plain(table, idx, starts, tq, K)
+                    if not torch.equal(got, want):   # a copy: bit for bit
+                        raise AssertionError(f"window_gather differs at "
+                                             f"{tag} {dtype}")
+                    want_dt = window_gather_bwd_plain(idx, g.float(), starts,
+                                                      tq, K, S)
+                    torch.testing.assert_close(dt.float(), want_dt, **dtol)
+                    note("window_gather" + sfx, got, want)
+                    note("window_gather_bwd" + sfx, dt, want_dt)
+                else:
+                    w32 = cw.float()
+                    g = torch.randn(B, idx.shape[1], HEADS, 4 * D,
+                                    generator=gen).to(DEVICE, dtype)
+                    if kind == "fwin":
+                        got = fused_window_sample(table, idx, w32, starts, K,
+                                                  tq)
+                    dt, dw = windowed_weighted_bwd(table, idx, w32, g,
+                                                   starts, K, tq)
+                    counted = (("fused_window",) if kind == "fwin" else ()) \
+                        + ("window_weighted_bwd",)
+                    esc = read_escapes()
+                    if kind == "fwin":
+                        want = fused_window_sample_plain(
+                            table.float(), idx, w32, starts, K, tq)
+                        torch.testing.assert_close(got.float(), want, **tol)
+                        note("fused_window" + sfx, got, want)
+                    want_dt, want_dw = windowed_weighted_bwd_plain(
+                        table.float(), idx, w32, g.float(), starts, K, tq)
+                    torch.testing.assert_close(dt.float(), want_dt, **dtol)
+                    torch.testing.assert_close(dw, want_dw, **F32_TOL)
+                    note("window_weighted_bwd" + sfx, dt, want_dt)
+                    note("window_weighted_bwd_dw" + sfx, dw, want_dw)
+                got_esc = {k: esc[k] for k in counted}
+                if got_esc != dict.fromkeys(counted, want_esc):
+                    raise AssertionError(f"{kind} {tag} {dtype}: escape "
+                                         f"counts {got_esc}, expected "
+                                         f"{want_esc}")
+                if escape:
+                    escaped[f"{kind} {tag}"] = want_esc
+    print(f"kernels: window escapes counted in the escape cases {escaped} "
+          f"(0 in every in-window case)")
+    return err
+
+
+def raster_msda_inputs(gen, levels, noise_px=0.5):
+    """value, locations and attention of an encoder MSDA call on
+    ``levels``: every token a query, each sampling near its own pixel."""
+    S = sum(h * w for h, w in levels)
+    own = torch.cat([pixel_centres(hw) for hw in levels])   # (S, 2)
+    scale = torch.tensor([[1.0 / w, 1.0 / h] for h, w in levels])
+    noise = torch.randn(B, S, HEADS, len(levels), P, 2, generator=gen) * (
+        noise_px * scale[None, None, None, :, None, :])
+    locs = own[:, None, None, None, :] + noise
+    logits = torch.randn(B, S, HEADS, len(levels) * P, generator=gen)
+    attn = logits.softmax(-1).reshape(B, S, HEADS, len(levels), P)
+    value = torch.randn(B, S, HEADS, D, generator=gen)
+    return value, locs, attn
+
+
+def check_window_grads(gen):
+    """The gradients of ms_deform_attn_core in value, locations and
+    attention under each windowed switch, for the encoder's raster queries
+    of the 512x512 canvas: the card (launches checked) against the plain
+    twins on the CPU."""
+    from dskd_tpu_torch.ops.msda import ms_deform_attn_core
+
+    host = raster_msda_inputs(gen, GRAD_LEVELS)
+    cot = torch.randn(B, host[0].shape[1], HEADS * D, generator=gen)
+
+    def grads(dev):
+        args = [t.to(dev).requires_grad_(True) for t in host]
+        out = ms_deform_attn_core(args[0], GRAD_LEVELS, args[1], args[2],
+                                  raster_queries=True)
+        return [out.detach().cpu()] + [g.cpu() for g in torch.autograd.grad(
+            out, args, cot.to(dev))]
+
+    errs = {}
+    for switch in ("winbwd", "fwin", "window_rows"):
+        with switched(TRAIN_SWITCHES[switch]):
+            reset_counts()
+            card = grads(DEVICE)
+            launches, escapes = read_counts(), read_escapes()
+            want = expected_launches(switch, 1, 0, 1, 0)
+            if launches != want:
+                raise AssertionError(f"msda grads {switch}: launches "
+                                     f"{launches}, expected {want}")
+            for name, got, ref in zip(("out", "value", "locations",
+                                       "attention"), card, grads("cpu")):
+                if not got.abs().max() > 0:
+                    raise AssertionError(f"no gradient reaches {name} on "
+                                         f"the card ({switch})")
+                torch.testing.assert_close(
+                    got, ref, rtol=MSDA_GRAD_TOL["rtol"],
+                    atol=WINDOW_GRAD_TOL * float(ref.abs().max()),
+                    msg=f"{name} ({switch})")
+                errs[f"{name} {switch}"] = _max_err(got, ref)
+        print(f"kernels: msda grads {switch} on the 512x512 canvas: "
+              f"launches {launches}, window escapes {escapes}")
+    return errs
+
+
+def time_window_kernels(gen):
+    """The four windowed kernels at the shapes the main paths give them,
+    against their plain twins, a library call where one computes the same
+    function, and their bound: window_gather and its backward at level 0 of
+    640x640 (B5's training canvas, Q=6400), fused_window over the two
+    segments of 640x480 level 0 that take it (one MSDA call), and the
+    windowed weighted backward over the two 640x480 segments of
+    DSKD_WINBWD, beside gather_weighted_bwd on the same inputs. Returns
+    {name: (kernel ms, plain ms, library ms or None, (bound ms, by))}."""
+    from dskd_tpu_torch.ops.fused_window import fused_window_sample, \
+        fused_window_sample_plain, windowed_weighted_bwd, \
+        windowed_weighted_bwd_plain
+    from dskd_tpu_torch.ops.mxu_gather import gather_weighted_bwd
+    from dskd_tpu_torch.ops.window_gather import window_gather, \
+        window_gather_bwd, window_gather_bwd_plain, window_gather_plain
+
+    out = {}
+    tq = WIN_TILE_Q
+    hd = torch.arange(HEADS, device=DEVICE)[None, None, :, None]
+    bi = torch.arange(B, device=DEVICE)[:, None, None, None]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        cases = window_cases(gen, dtype)
+        # B5: window_gather at 640x640 level 0
+        _, _, table, flat, _, starts, K = next(c for c in cases
+                                               if c[1] == "gather")
+        S = table.shape[1]
+        g = torch.randn(B, flat.shape[1], HEADS, P, 4 * D,
+                        generator=gen).to(DEVICE, dtype)
+        rows = table.view(-1, 4 * D)
+        lin = ((bi * S + flat.long()) * HEADS + hd).reshape(-1)
+        zeros = torch.zeros_like(rows)
+        out[f"window_gather {tag}"] = (
+            cuda_ms(lambda: window_gather(table, flat, starts, tq * P, K)),
+            cuda_ms(lambda: window_gather_plain(table, flat, starts, tq, K),
+                    iters=5),
+            cuda_ms(lambda: torch.index_select(rows, 0, lin)),
+            bound(nbytes(table, flat, g), 0))
+        out[f"window_gather_bwd {tag}"] = (
+            cuda_ms(lambda: window_gather_bwd(flat, g, starts, tq, K, S),
+                    iters=10),
+            cuda_ms(lambda: window_gather_bwd_plain(flat, g, starts, tq, K,
+                                                    S), iters=3, warmup=1),
+            cuda_ms(lambda: torch.index_add(zeros, 0, lin,
+                                            g.view(-1, 4 * D)), iters=10),
+            bound(nbytes(flat, g, table), flat.numel() * 4 * D))
+        for kind, name in (("fwin", "fused_window"),
+                           ("winbwd", "window_weighted_bwd")):
+            segs = [(t, f, c.float(), st, k,
+                     torch.randn(B, f.shape[1], HEADS, 4 * D,
+                                 generator=gen).to(DEVICE, dtype))
+                    for tg, kd, t, f, c, st, k in cases
+                    if kd == kind and tg.startswith("640x480")]
+            table = segs[0][0]
+            n_rows = sum(f.numel() for _, f, *_ in segs)
+            row = 4 * D
+            if kind == "fwin":
+                out[f"{name} {tag}"] = (
+                    cuda_ms(lambda: [fused_window_sample(t, f, c, st, k, tq)
+                                     for t, f, c, st, k, _ in segs]),
+                    cuda_ms(lambda: [fused_window_sample_plain(
+                        t, f, c, st, k, tq) for t, f, c, st, k, _ in segs],
+                        iters=5),
+                    None,
+                    # reads the table, idx and w; writes out (g's size)
+                    bound(nbytes(table) + sum(nbytes(f, c, g) for
+                                              _, f, c, _, _, g in segs),
+                          2 * row * n_rows))
+                continue
+            out[f"{name} {tag}"] = (
+                cuda_ms(lambda: [windowed_weighted_bwd(t, f, c, g, st, k, tq)
+                                 for t, f, c, st, k, g in segs], iters=10),
+                cuda_ms(lambda: [windowed_weighted_bwd_plain(
+                    t, f, c, g, st, k, tq) for t, f, c, st, k, g in segs],
+                    iters=3, warmup=1),
+                None,
+                # reads table, idx, w and g; writes dtable and dw
+                bound(2 * nbytes(table) + sum(nbytes(f, g) + 2 * nbytes(c)
+                                              for _, f, c, _, _, g in segs),
+                      4 * row * n_rows))
+            out[f"gather_weighted_bwd on the same segments {tag}"] = (
+                cuda_ms(lambda: [gather_weighted_bwd(t, f, c, g)
+                                 for t, f, c, st, k, g in segs], iters=10),
+                None, None, out[f"{name} {tag}"][3])
+            for t, f, c, st, k, g in segs:
+                out[f"{name} {tag} K={k} ({f.shape[1]} queries)"] = (
+                    cuda_ms(lambda: windowed_weighted_bwd(t, f, c, g, st, k,
+                                                          tq), iters=10),
+                    None, None,
+                    bound(2 * nbytes(t) + nbytes(f, g) + 2 * nbytes(c),
+                          4 * row * f.numel()))
+    return out
 
 
 def check_slice(imgs):
@@ -418,7 +817,7 @@ def check_slice(imgs):
 
     model, cfg = init_detector(CONFIG, device=DEVICE, seed=0)
     # one launch of each kernel per level of every MSDA call of a forward
-    want = expected_launches("default", msda_calls(cfg))
+    want = model_launches("default", cfg, 1)
     reset_counts()
     results = inference_detector(model, cfg, imgs)
     launches = read_counts()
@@ -458,12 +857,13 @@ def check_slice(imgs):
 
 # --- train -------------------------------------------------------------------
 
-def train_batch(device):
-    """bench.py's synthetic batch: B images of the 640x480 canvas, valid
-    widths 375-480, 5-29 valid GT of 32 in classes 40-79."""
+def train_batch(device, hw=TRAIN_HW):
+    """bench.py's synthetic batch: B images of the (H, W) canvas ``hw``
+    (640x480: valid widths 375-480), 5-29 valid GT of 32 in classes
+    40-79."""
     from dskd_tpu_torch.data.batch import Batch
 
-    H, W = TRAIN_HW
+    H, W = hw
     rng = np.random.RandomState(0)
     images = rng.randn(B, H, W, 3).astype(np.float32) * 0.5
     img_hw = np.stack([np.full(B, H), rng.randint(int(W * 0.78125), W + 1,
@@ -531,9 +931,9 @@ def run_train(cfg, compute_dtype, n_steps, tag, switch="default"):
     launches of the whole run)."""
     student, teacher = build_models(cfg, DEVICE)
     state, step, _, _ = train_setup(cfg, student, compute_dtype)
-    batch = train_batch(DEVICE)
+    batch = train_batch(DEVICE, TRAIN_CANVAS.get(switch, TRAIN_HW))
     # teacher and student forwards, the student's backward
-    expected = expected_launches(switch, 2 * msda_calls(cfg), msda_calls(cfg))
+    expected = model_launches(switch, cfg, 2, 1)
     before = {n: p.detach().clone() for n, p in student.named_parameters()}
     total = dict.fromkeys(expected, 0)
     reset_counts()
@@ -680,23 +1080,24 @@ def check_serve_switch(model, cfg, imgs, switch):
     with switched(SERVE_SWITCHES[switch]):
         reset_counts()
         results = inference_detector(model, cfg, imgs)
-        launches = read_counts()
+        launches, escapes = read_counts(), read_escapes()
         with torch.inference_mode():
             out = model(images, img_hw).head
-    want = expected_launches(switch, msda_calls(cfg))
+    want = model_launches(switch, cfg, 1)
     if launches != want:
         raise AssertionError(f"serve {switch}: launches {launches}, "
                              f"expected {want}")
     if not all(np.isfinite(r).all() for per in results for r in per):
         raise AssertionError(f"serve {switch}: non-finite detections")
+    tol = WINDOW_HEAD_TOL if switch in ENCODER_CALL else HEAD_TOL
     errs = {}
     for name in ("cls_scores", "bbox_preds"):
         got, ref_t = getattr(out, name)[-1], getattr(ref, name)[-1]
-        torch.testing.assert_close(got, ref_t, **HEAD_TOL)
+        torch.testing.assert_close(got, ref_t, **tol)
         errs[name] = _max_err(got, ref_t)
     print(f"serve {switch} {SERVE_SWITCHES[switch]}: launches {launches}; "
-          f"head outputs vs the default path on the card, max abs err "
-          f"{errs} (tolerance {HEAD_TOL})")
+          f"window escapes {escapes}; head outputs vs the default path on "
+          f"the card, max abs err {errs} (tolerance {tol})")
     return errs
 
 
@@ -705,14 +1106,15 @@ def check_train_switch_vs_default(cfg, switch):
     under a sampling switch against the default path on the card: the same
     weights, batch, dropout generator seed, teacher detections and
     assignment; every loss key within LOSS_TOL and each named gradient
-    within GRAD_REL_TOL relative L2."""
+    within GRAD_REL_TOL relative L2, or WINDOW_LOSS_TOL and
+    WINDOW_GRAD_REL_TOL under a windowed switch."""
     from dskd_tpu_torch.train.step import compute_losses, parse_losses, \
         teacher_info
 
     student, teacher = build_models(cfg, DEVICE)
     random_msda_kernels(student, seed=3)
     _, _, det_cfg, dcfg = train_setup(cfg, student, torch.float32)
-    batch = train_batch(DEVICE)
+    batch = train_batch(DEVICE, TRAIN_CANVAS.get(switch, TRAIN_HW))
     tinfo = teacher_info(teacher, batch, det_cfg,
                          cfg.distill.teacher_score_thr,
                          cfg.distill.teacher_max_per_img)
@@ -731,25 +1133,30 @@ def check_train_switch_vs_default(cfg, switch):
     with switched(TRAIN_SWITCHES[switch]):
         reset_counts()
         _, s_losses, s_grads = run((targets, losses["auction_fallback"]))
-        launches = read_counts()
-    want = expected_launches(switch, msda_calls(cfg), msda_calls(cfg))
+        launches, escapes = read_counts(), read_escapes()
+    want = model_launches(switch, cfg, 1, 1)
     if launches != want:
         raise AssertionError(f"train {switch} vs default: launches "
                              f"{launches}, expected {want}")
+    loss_tol, grad_tol = ((WINDOW_LOSS_TOL, WINDOW_GRAD_REL_TOL)
+                          if switch in ENCODER_CALL
+                          else (LOSS_TOL, GRAD_REL_TOL))
     for k, v in losses.items():
-        torch.testing.assert_close(s_losses[k], v, **LOSS_TOL, msg=k)
+        torch.testing.assert_close(s_losses[k], v, **loss_tol, msg=k)
     loss_err = max(float((s_losses[k] - v).abs()) for k, v in losses.items())
     grad_err = {}
     for n in GRAD_PARAMS:
         rel = float((s_grads[n] - grads[n]).norm() / grads[n].norm())
         grad_err[n] = rel
-        if not rel <= GRAD_REL_TOL:
+        if not rel <= grad_tol:
             raise AssertionError(f"train {switch}: grad {n} differs from "
                                  f"the default path: rel L2 {rel:.3e}")
     print(f"train {switch} vs default on the card (6+6 layers, f32, "
-          f"dropout 0.1, one assignment): {len(losses)} loss keys, largest "
-          f"abs err {loss_err:.3e} (tolerance {LOSS_TOL}); named gradients "
-          f"rel L2 err {grad_err} (tolerance {GRAD_REL_TOL})")
+          f"dropout 0.1, one assignment, {batch.images.shape[1]}x"
+          f"{batch.images.shape[2]}): {len(losses)} loss keys, largest "
+          f"abs err {loss_err:.3e} (tolerance {loss_tol}); named "
+          f"gradients rel L2 err {grad_err} (tolerance {grad_tol}); window "
+          f"escapes {escapes}")
     return loss_err, grad_err
 
 
@@ -1014,13 +1421,15 @@ def main() -> int:
 
     from dskd_tpu_torch.apis.inference import prepare_batch
     from dskd_tpu_torch.ops import _build
-    from dskd_tpu_torch.ops import fused_sample, mxu_gather, pack_kernel
+    from dskd_tpu_torch.ops import fused_sample, mxu_gather, pack_kernel, \
+        window
     t0 = time.perf_counter()
     sources = {"pack_corners": pack_kernel._SIGNATURES,
                "gather_weighted": mxu_gather._SIGNATURES,
                "gather_weighted_bwd": mxu_gather._BWD_SIGNATURES,
                "mxu_gather": mxu_gather.MXU_GATHER_SIGNATURES,
-               "fused_sample": fused_sample.SIGNATURES}
+               "fused_sample": fused_sample.SIGNATURES,
+               "window_sample": window.SIGNATURES}
     _build.build(list(sources))
     for name, signatures in sources.items():
         _build.load(name, signatures)
@@ -1042,6 +1451,15 @@ def main() -> int:
     gerr = check_msda_grads(gen)
     print(f"kernels: ms_deform_attn_core gradients on the card vs the plain "
           f"twins, max abs err {gerr} (tolerance {MSDA_GRAD_TOL})")
+    werr = check_window_kernels(gen)
+    print(f"kernels: window_gather (bit for bit), fused_window and "
+          f"window_weighted_bwd match their twins on the card, with the same "
+          f"tolerances; max abs err {werr}")
+    wgerr = check_window_grads(gen)
+    print(f"kernels: ms_deform_attn_core gradients under the windowed "
+          f"switches on the card vs the plain twins, max abs err {wgerr} "
+          f"(tolerance rtol {MSDA_GRAD_TOL['rtol']}, atol "
+          f"{WINDOW_GRAD_TOL} x each tensor's max)")
 
     rng = np.random.RandomState(0)
     shapes = [(480, 640), (427, 640), (640, 512), (512, 683)]
@@ -1060,12 +1478,12 @@ def main() -> int:
     switch_states = {}
     for switch, env in TRAIN_SWITCHES.items():
         with switched(env):
-            st, sp, tch, _, n = run_train(cfg, torch.float32, 2,
-                                          f"f32 {switch}", switch)
-            switch_states[switch] = (st, sp, tch)
+            st, sp, tch, sw_batch, n = run_train(cfg, torch.float32, 2,
+                                                 f"f32 {switch}", switch)
+            switch_states[switch] = (st, sp, tch, sw_batch)
             print(f"train f32 {switch} {env}: launches over the 2 steps {n}")
             for k in ("mxu_gather", "mxu_gather_bwd", "fused_sample",
-                      "fused_sample_bwd"):
+                      "fused_sample_bwd", *WINDOW_KERNELS):
                 launches[k] = launches.get(k, 0) + n[k]
             # two steps: after one bf16 step from the init, some head
             # parameters still have a zero gradient and have not moved
@@ -1085,6 +1503,12 @@ def main() -> int:
         print(f"  {name} (640x480, Q={Q_TRAIN}, B={B}): kernel {k_ms:.4f} "
               f"ms, plain twin {p_ms:.4f} ms{lib}, bound {b_ms:.4f} ms "
               f"({by})")
+    wtimes = time_window_kernels(gen)
+    for name, (k_ms, p_ms, l_ms, (b_ms, by)) in wtimes.items():
+        plain = "" if p_ms is None else f", plain twin {p_ms:.4f} ms"
+        lib = "" if l_ms is None else f", library call {l_ms:.4f} ms"
+        print(f"  {name} (B={B}): kernel {k_ms:.4f} ms{plain}{lib}, bound "
+              f"{b_ms:.4f} ms ({by})")
     stimes = time_slice(model, cfg, {1: imgs[:1], 4: imgs})
     for bsz, (e2e, fwd) in stimes.items():
         print(f"  serve B={bsz}: inference_detector {e2e:.3f} ms/image, "
@@ -1094,12 +1518,12 @@ def main() -> int:
         ms, img_s = time_train(st, sp, tch, batch)
         print(f"  train {tag} B={B} {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
               f"{ms:.3f} ms/step, {img_s:.3f} img/s")
-    for switch, (st, sp, tch) in switch_states.items():
+    for switch, (st, sp, tch, sw_batch) in switch_states.items():
         with switched(TRAIN_SWITCHES[switch]):
-            ms, img_s = time_train(st, sp, tch, batch)
+            ms, img_s = time_train(st, sp, tch, sw_batch)
+        h, w = TRAIN_CANVAS.get(switch, TRAIN_HW)
         print(f"  train f32 {switch} {TRAIN_SWITCHES[switch]} B={B} "
-              f"{TRAIN_HW[0]}x{TRAIN_HW[1]}: {ms:.3f} ms/step, {img_s:.3f} "
-              f"img/s")
+              f"{h}x{w}: {ms:.3f} ms/step, {img_s:.3f} img/s")
     images, img_hw, _ = prepare_batch(cfg, imgs, DEVICE)
     with torch.inference_mode():
         profile(lambda: model(images, img_hw),
@@ -1119,8 +1543,8 @@ def main() -> int:
                 "bound_ms": bound_ms[0], "bound_by": bound_ms[1],
                 "library_ms": library_ms}
 
-    def sampled(name, source, replaces, max_abs_err):
-        k_ms, p_ms, l_ms, b = sampling[f"{name} f32"]
+    def sampled(name, source, replaces, max_abs_err, times=sampling):
+        k_ms, p_ms, l_ms, b = times[f"{name} f32"]
         return entry(name, source, replaces, max_abs_err, k_ms, p_ms, b,
                      l_ms)
 
@@ -1143,7 +1567,22 @@ def main() -> int:
                 "dskd_tpu/ops/fused_sample.py:29", serr["fused_sample"]),
         sampled("fused_sample_bwd", "fused_sample.cu",
                 "dskd_tpu/ops/fused_sample.py:45",
-                max(serr["fused_sample_bwd"], serr["fused_sample_dw"]))]}
+                max(serr["fused_sample_bwd"], serr["fused_sample_dw"])),
+        sampled("window_gather", "window_sample.cu",
+                "dskd_tpu/ops/window_gather.py:115", werr["window_gather"],
+                wtimes),
+        sampled("window_gather_bwd", "window_sample.cu",
+                "dskd_tpu/ops/window_gather.py:138",
+                werr["window_gather_bwd"], wtimes),
+        sampled("fused_window", "window_sample.cu",
+                "dskd_tpu/ops/fused_window.py:146", werr["fused_window"],
+                wtimes),
+        # one kernel for the two layouts of one function
+        sampled("window_weighted_bwd", "window_sample.cu",
+                "dskd_tpu/ops/fused_window.py:170 and "
+                "dskd_tpu/ops/window_bwd.py:113",
+                max(werr["window_weighted_bwd"],
+                    werr["window_weighted_bwd_dw"]), wtimes)]}
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps(report))

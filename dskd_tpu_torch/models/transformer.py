@@ -61,14 +61,21 @@ def msda_offset_bias(num_heads, num_levels, num_points) -> torch.Tensor:
 
 
 class MSDeformAttention(nn.Module):
-    """Multi-scale deformable attention over flattened level tokens."""
+    """Multi-scale deformable attention over flattened level tokens.
+
+    ``raster_queries``: the encoder's self-attention, where query q is
+    flattened token q; it lets ``ms_deform_attn_core`` take the windowed
+    branches that ``DSKD_WINBWD``, ``DSKD_FWIN`` and ``DSKD_WINDOW_ROWS``
+    select (ops/msda.py).
+    """
 
     def __init__(self, device, embed_dims=256, num_heads=8, num_levels=4,
-                 num_points=4, dropout=0.1):
+                 num_points=4, dropout=0.1, raster_queries=False):
         super().__init__()
         self.num_heads, self.num_levels, self.num_points = (
             num_heads, num_levels, num_points)
         self.dropout = dropout
+        self.raster_queries = raster_queries
         hlp = num_heads * num_levels * num_points
         self.sampling_offsets = nn.Linear(embed_dims, hlp * 2, device=device)
         self.attention_weights = nn.Linear(embed_dims, hlp, device=device)
@@ -95,7 +102,8 @@ class MSDeformAttention(nn.Module):
                             dtype=query.dtype, device=query.device)
         locs = (reference_points[:, :, None, :, None, :]
                 + offsets / norm[None, None, None, :, None, :])
-        out = ms_deform_attn_core(v, spatial_shapes, locs, weights)
+        out = ms_deform_attn_core(v, spatial_shapes, locs, weights,
+                                  raster_queries=self.raster_queries)
         return identity + dropout(self.output_proj(out), self.dropout,
                                   self.training, generator)
 
@@ -170,7 +178,8 @@ class EncoderLayer(nn.Module):
                  num_points=4, feedforward_channels=1024, dropout=0.1):
         super().__init__()
         self.attentions = nn.ModuleList([MSDeformAttention(
-            device, embed_dims, num_heads, num_levels, num_points, dropout)])
+            device, embed_dims, num_heads, num_levels, num_points, dropout,
+            raster_queries=True)])
         self.ffns = nn.ModuleList([FFN(device, embed_dims,
                                        feedforward_channels, dropout)])
         self.norms = _norms(2, embed_dims, device)

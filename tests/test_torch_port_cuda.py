@@ -229,3 +229,118 @@ def test_msda_switch_grads_on_card_match_cpu(cuda_device, monkeypatch, env):
         assert got.abs().max() > 0, name
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
                                    msg=name)
+
+
+def _window_case(rng, dev, dtype, B, H, D4, S, Q, P, tile_q, window,
+                 escape):
+    """A table of S rows, tiles of tile_q queries with windows spread over
+    it, indices inside each tile's window, or a share of them escaped."""
+    table = torch.from_numpy(rng.randn(B, S + 3, H, D4).astype(np.float32)
+                             ).to(dev, _TORCH[dtype])[:, 3:]   # strided
+    n_tiles = -(-Q // tile_q)
+    starts = tuple(int(s) for s in np.linspace(0, S - window, n_tiles))
+    lo = np.repeat(np.asarray(starts), tile_q)[:Q][None, :, None, None]
+    idx = lo + rng.randint(0, window, (B, Q, H, P))
+    if escape:
+        far = rng.rand(B, Q, H, P) < 0.05
+        idx = np.where(far, rng.randint(0, S, idx.shape), idx)
+    return (table, torch.from_numpy(idx.astype(np.int32)).to(dev), starts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [64, 1000])       # chunks of 32 and 16
+@pytest.mark.parametrize("escape", [False, True])
+def test_window_kernels_match_twins(cuda_device, dtype, window, escape):
+    from dskd_tpu_torch.ops.fused_window import fused_window_sample, \
+        fused_window_sample_plain, windowed_weighted_bwd, \
+        windowed_weighted_bwd_plain
+    from dskd_tpu_torch.ops.window import window_escapes
+    from dskd_tpu_torch.ops.window_gather import window_gather, \
+        window_gather_bwd, window_gather_bwd_plain, window_gather_plain
+
+    rng = np.random.RandomState(10)
+    B, H, D4, S, Q, P, tile_q = 2, 8, 128, 3000, 700, 4, 128
+    table, idx, starts = _window_case(rng, cuda_device, dtype, B, H, D4, S,
+                                      Q, P, tile_q, window, escape)
+    want_esc = int(window_escapes(idx, starts, tile_q, window))
+    assert (want_esc > 0) == escape
+    cw = torch.from_numpy(rng.rand(B, Q, H, P, 4).astype(np.float32)).to(
+        cuda_device)
+    g_rows = torch.from_numpy(rng.randn(B, Q, H, P, D4).astype(np.float32)
+                              ).to(cuda_device, _TORCH[dtype])
+    g = torch.from_numpy(rng.randn(B, Q, H, D4).astype(np.float32)).to(
+        cuda_device, _TORCH[dtype])
+    fns = (window_gather, window_gather_bwd, fused_window_sample,
+           windowed_weighted_bwd)
+    for fn in fns:
+        fn.escapes = None
+    rows = window_gather(table, idx, starts, tile_q * P, window)
+    dt_rows = window_gather_bwd(idx, g_rows, starts, tile_q, window, S)
+    out = fused_window_sample(table, idx, cw, starts, window, tile_q)
+    dt, dw = windowed_weighted_bwd(table, idx, cw, g, starts, window, tile_q)
+    torch.cuda.synchronize()
+    assert [int(fn.escapes) for fn in fns] == [want_esc] * 4
+    # a row copy: bit for bit
+    assert torch.equal(rows, window_gather_plain(table, idx, starts, tile_q,
+                                                 window))
+    want_rows = window_gather_bwd_plain(idx, g_rows.float(), starts, tile_q,
+                                        window, S)
+    want = fused_window_sample_plain(table.float(), idx, cw, starts, window,
+                                     tile_q)
+    want_dt, want_dw = windowed_weighted_bwd_plain(
+        table.float(), idx, cw, g.float(), starts, window, tile_q)
+    # f32: summation order and atomics; bf16: one rounding of the f32 sum
+    tol = dict(rtol=1e-5, atol=1e-4) if dtype == "float32" else \
+        dict(rtol=2 ** -7, atol=1e-4)
+    torch.testing.assert_close(dt_rows.float(), want_rows, **tol)
+    torch.testing.assert_close(out.float(), want, **tol)
+    torch.testing.assert_close(dt.float(), want_dt, **tol)
+    torch.testing.assert_close(dw, want_dw, rtol=1e-5, atol=1e-4)
+
+
+_WINDOW_SWITCHES = {
+    "window_rows": {"DSKD_WINDOW_ROWS": "1024"},
+    "fwin": {"DSKD_FWIN": "1"},
+    "winbwd": {"DSKD_WINBWD": "1"},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("switch", sorted(_WINDOW_SWITCHES))
+def test_msda_window_switch_grads_on_card_match_cpu(cuda_device, monkeypatch,
+                                                    switch):
+    """Each windowed switch on the card against the plain versions on the
+    CPU, forward and gradients, for raster queries of a 512x512 canvas's
+    levels (level 0 64x64: every windowed branch is taken)."""
+    for k, v in _WINDOW_SWITCHES[switch].items():
+        monkeypatch.setenv(k, v)
+    rng = np.random.RandomState(11)
+    shapes = [(64, 64), (32, 32), (16, 16), (8, 8)]
+    B, H, D, P = 2, 8, 32, 4
+    S = sum(h * w for h, w in shapes)
+    own = np.concatenate([np.stack(np.meshgrid(
+        (np.arange(w) + 0.5) / w, (np.arange(h) + 0.5) / h), -1).reshape(
+            -1, 2) for h, w in shapes], 0)
+    locs = own[None, :, None, None, None] + rng.randn(
+        B, S, H, len(shapes), P, 2) * 0.01
+    host = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.randn(B, S, H, D), locs, rng.rand(B, S, H, len(shapes), P))]
+    cot = torch.from_numpy(rng.randn(B, S, H * D).astype(np.float32))
+
+    def run(dev):
+        args = [t.to(dev).requires_grad_(True) for t in host]
+        out = ms_deform_attn_core(args[0], shapes, args[1], args[2],
+                                  raster_queries=True)
+        return [out.detach().cpu()] + [g.cpu() for g in torch.autograd.grad(
+            out, args, cot.to(dev))]
+
+    for name, got, want in zip(("out", "value", "locations", "attention"),
+                               run(cuda_device), run("cpu")):
+        assert got.abs().max() > 0, name
+        # f32 summation order, relative to the tensor's scale: the location
+        # gradients of 64-pixel maps reach 2e3 (the default branch differs
+        # card vs CPU by 3.7e-4 there, on an H100)
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=2e-6 * float(want.abs().max()),
+                                   msg=name)

@@ -35,13 +35,14 @@ def port_model(variables, dropout=0.1):
     return model
 
 
-def tiny_batch(seed=0):
-    """numpy (images, img_hw, gt_bboxes, gt_labels, gt_valid)."""
+def tiny_batch(seed=0, hw=HW):
+    """numpy (images, img_hw, gt_bboxes, gt_labels, gt_valid) on an hw x hw
+    canvas; the valid sizes and boxes scale with it."""
     rng = np.random.RandomState(seed)
-    images = (rng.randn(B, HW, HW, 3) * 0.5).astype(np.float32)
-    img_hw = np.array([[64, 64], [56, 60]], np.int32)
-    xy = rng.rand(B, G, 2) * 36
-    wh = rng.rand(B, G, 2) * 20 + 4
+    images = (rng.randn(B, hw, hw, 3) * 0.5).astype(np.float32)
+    img_hw = np.array([[64, 64], [56, 60]], np.int32) * hw // HW
+    xy = rng.rand(B, G, 2) * 36 * (hw / HW)
+    wh = (rng.rand(B, G, 2) * 20 + 4) * (hw / HW)
     gt = np.concatenate([xy, xy + wh], -1).astype(np.float32)
     labels = rng.randint(0, 10, (B, G)).astype(np.int32)
     valid = np.arange(G)[None] < np.array([[5], [8]])

@@ -33,9 +33,10 @@ FLAGS = dict(cates_distill="hard + teacher-first",
 SCORE_THR, MAX_PER_IMG = 0.3, 20
 
 
-def jax_step_run():
-    """One JAX value_and_grad of the step's loss at the tiny configuration:
-    the weights, batch, losses and gradients the port is held against."""
+def jax_step_run(arrays=None):
+    """One JAX value_and_grad of the step's loss at the tiny configuration
+    on ``arrays`` (default ``tiny_batch()``): the weights, batch, losses and
+    gradients the port is held against."""
     from dskd_tpu.distill.losses import DistillConfig as JDistill
     from dskd_tpu.models.detector import GFLDeformableDETR as JaxDETR
     from dskd_tpu.models.gfl_detr_loss import DetLossConfig as JDet
@@ -45,7 +46,7 @@ def jax_step_run():
 
     student = tiny_variables(seed=11)
     teacher = tiny_variables(seed=12, cls_scale=4.0)
-    arrays = tiny_batch()
+    arrays = tiny_batch() if arrays is None else arrays
     jmodel = JaxDETR(**TINY, remat=False)
     jbatch = JBatch(*(jnp.asarray(a) for a in arrays))
     det_cfg = JDet(num_classes=10)
