@@ -51,7 +51,8 @@ Phases; the first failure raises and the script exits non-zero:
   7. times: kernels against twins (and against one PyTorch library call
      where one computes the same function) with CUDA events, beside the
      least time the card could take (bytes over 3.35 TB/s or f32 operations
-     over 67 TFLOP/s), the serving slice in ms/image, the train step in
+     over 67 TFLOP/s) and, for the backwards, their rate of f32 adds into
+     dtable (G adds/s), the serving slice in ms/image, the train step in
      ms/step and img/s under each switch, and profiler tables of one serving
      forward and one bf16 train step.
 The last three lines are the card, the kernel report as JSON and the result
@@ -252,6 +253,11 @@ def bound(n_bytes, flops):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def adds_rate(n_adds, ms) -> str:
+    """A backward's f32 adds into dtable per second, for a timing line."""
+    return "" if n_adds is None else f" ({n_adds / ms / 1e6:.1f} G adds/s)"
 
 
 def reset_counts() -> None:
@@ -725,7 +731,8 @@ def time_window_kernels(gen):
     segments of 640x480 level 0 that take it (one MSDA call), and the
     windowed weighted backward over the two 640x480 segments of
     DSKD_WINBWD, beside gather_weighted_bwd on the same inputs. Returns
-    {name: (kernel ms, plain ms, library ms or None, (bound ms, by))}."""
+    {name: (kernel ms, plain ms, library ms or None, (bound ms, by), f32 adds
+    into dtable or None)}."""
     from dskd_tpu_torch.ops.fused_window import fused_window_sample, \
         fused_window_sample_plain, windowed_weighted_bwd, \
         windowed_weighted_bwd_plain
@@ -754,7 +761,7 @@ def time_window_kernels(gen):
             cuda_ms(lambda: window_gather_plain(table, flat, starts, tq, K),
                     iters=5),
             cuda_ms(lambda: torch.index_select(rows, 0, lin)),
-            bound(nbytes(table, flat, g), 0))
+            bound(nbytes(table, flat, g), 0), None)
         out[f"window_gather_bwd {tag}"] = (
             cuda_ms(lambda: window_gather_bwd(flat, g, starts, tq, K, S),
                     iters=10),
@@ -762,7 +769,8 @@ def time_window_kernels(gen):
                                                     S), iters=3, warmup=1),
             cuda_ms(lambda: torch.index_add(zeros, 0, lin,
                                             g.view(-1, 4 * D)), iters=10),
-            bound(nbytes(flat, g, table), flat.numel() * 4 * D))
+            bound(nbytes(flat, g, table), flat.numel() * 4 * D),
+            flat.numel() * 4 * D)
         for kind, name in (("fwin", "fused_window"),
                            ("winbwd", "window_weighted_bwd")):
             segs = [(t, f, c.float(), st, k,
@@ -784,7 +792,7 @@ def time_window_kernels(gen):
                     # reads the table, idx and w; writes out (g's size)
                     bound(nbytes(table) + sum(nbytes(f, c, g) for
                                               _, f, c, _, _, g in segs),
-                          2 * row * n_rows))
+                          2 * row * n_rows), None)
                 continue
             out[f"{name} {tag}"] = (
                 cuda_ms(lambda: [windowed_weighted_bwd(t, f, c, g, st, k, tq)
@@ -796,18 +804,18 @@ def time_window_kernels(gen):
                 # reads table, idx, w and g; writes dtable and dw
                 bound(2 * nbytes(table) + sum(nbytes(f, g) + 2 * nbytes(c)
                                               for _, f, c, _, _, g in segs),
-                      4 * row * n_rows))
+                      4 * row * n_rows), row * n_rows)
             out[f"gather_weighted_bwd on the same segments {tag}"] = (
                 cuda_ms(lambda: [gather_weighted_bwd(t, f, c, g)
                                  for t, f, c, st, k, g in segs], iters=10),
-                None, None, out[f"{name} {tag}"][3])
+                None, None, out[f"{name} {tag}"][3], row * n_rows)
             for t, f, c, st, k, g in segs:
                 out[f"{name} {tag} K={k} ({f.shape[1]} queries)"] = (
                     cuda_ms(lambda: windowed_weighted_bwd(t, f, c, g, st, k,
                                                           tq), iters=10),
                     None, None,
                     bound(2 * nbytes(t) + nbytes(f, g) + 2 * nbytes(c),
-                          4 * row * f.numel()))
+                          4 * row * f.numel()), row * f.numel())
     return out
 
 
@@ -1163,15 +1171,16 @@ def check_train_switch_vs_default(cfg, switch):
 # --- times -------------------------------------------------------------------
 
 def time_kernels(gen):
-    """Kernel and plain-twin ms of the three default-path kernels, and the
-    bound (ms, what bounds it) of the f32 timings the report names."""
+    """Kernel and plain-twin ms of the three default-path kernels, the
+    bound (ms, what bounds it) of the timings the report names, and the f32
+    adds into dtable of each backward timing."""
     from dskd_tpu_torch.ops.msda import corner_index_and_weights
     from dskd_tpu_torch.ops.mxu_gather import gather_weighted, \
         gather_weighted_bwd, gather_weighted_bwd_plain, gather_weighted_plain
     from dskd_tpu_torch.ops.pack_kernel import pack_corners, \
         pack_corners_plain
 
-    times, bounds = {}, {}
+    times, bounds, adds = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
         for levels, Q, canvas in ((LEVELS, Q_ENC, "640x640"),
@@ -1217,6 +1226,7 @@ def time_kernels(gen):
                 sum(2 * nbytes(t) + nbytes(f, g) + 2 * nbytes(c)
                     for t, (f, c), g in zip(tables, args, douts)),
                 4 * row * n_rows)
+            adds[key] = row * n_rows
             times[key] = (
                 cuda_ms(lambda: [gather_weighted_bwd(t, f, c, g) for
                                  t, (f, c), g in zip(tables, args, douts)],
@@ -1227,22 +1237,25 @@ def time_kernels(gen):
             if canvas == "640x480":
                 for lvl, ((h, w), t, (f, c), g) in enumerate(zip(
                         levels, tables, args, douts)):
-                    times[f"{key} level {lvl} ({h}x{w}, "
-                          f"{t.shape[1]} rows)"] = (
+                    lkey = f"{key} level {lvl} ({h}x{w}, {t.shape[1]} rows)"
+                    bounds[lkey] = bound(2 * nbytes(t) + nbytes(f, g)
+                                         + 2 * nbytes(c), 4 * row * f.numel())
+                    adds[lkey] = row * f.numel()
+                    times[lkey] = (
                         cuda_ms(lambda: gather_weighted_bwd(t, f, c, g),
                                 iters=10),
                         cuda_ms(lambda: gather_weighted_bwd_plain(t, f, c,
                                                                   g),
                                 iters=3, warmup=1))
-    return times, bounds
+    return times, bounds, adds
 
 
 def time_sampling_kernels(gen):
     """mxu_gather and fused_msda_sample, forward and backward, at the shapes
     the switches give them in the training step's encoder: levels 1-3 of
     the 640x480 canvas, Q=6380, one MSDA call. Returns {name: (kernel ms,
-    plain ms, library ms or None, (bound ms, bound by))}, f32 and bf16, and
-    the backward kernels per level."""
+    plain ms, library ms or None, (bound ms, bound by), f32 adds into dtable
+    or None)}, f32 and bf16, and the backward kernels per level."""
     from dskd_tpu_torch.ops.fused_sample import fused_msda_sample, \
         fused_msda_sample_bwd, fused_msda_sample_bwd_plain, \
         fused_msda_sample_plain
@@ -1288,7 +1301,7 @@ def time_sampling_kernels(gen):
                     iters=5),
             cuda_ms(lambda: [torch.index_select(t.view(-1, 4 * D), 0, lin)
                              for t, _, _, _, lin in mg]),
-            bound(sum(nbytes(t, f, g) for t, f, g, _, _ in mg), 0))
+            bound(sum(nbytes(t, f, g) for t, f, g, _, _ in mg), 0), None)
         out[f"mxu_gather_bwd {tag}"] = (
             cuda_ms(lambda: [mxu_gather_bwd(f, g, S)
                              for _, f, g, S, _ in mg], iters=10),
@@ -1298,7 +1311,7 @@ def time_sampling_kernels(gen):
                              for z, (_, _, g, _, lin) in zip(zeros, mg)],
                     iters=10),
             bound(sum(nbytes(f, g, t) for t, f, g, _, _ in mg),
-                  n_idx * 4 * D))
+                  n_idx * 4 * D), n_idx * 4 * D)
         out[f"fused_sample {tag}"] = (
             cuda_ms(lambda: [fused_msda_sample(v, c, wt, w)
                              for v, c, wt, _, w, _ in fs]),
@@ -1306,7 +1319,7 @@ def time_sampling_kernels(gen):
                              for v, c, wt, _, w, _ in fs], iters=5),
             None,
             bound(sum(nbytes(v, c, wt, gq) for v, c, wt, gq, _, _ in fs),
-                  sum(2 * D * taps for *_, taps in fs)))
+                  sum(2 * D * taps for *_, taps in fs)), None)
         out[f"fused_sample_bwd {tag}"] = (
             cuda_ms(lambda: [fused_msda_sample_bwd(v, c, wt, gq, w)
                              for v, c, wt, gq, w, _ in fs], iters=10),
@@ -1317,7 +1330,8 @@ def time_sampling_kernels(gen):
             # reads table, idx, w and g; writes dtable and dw
             bound(sum(2 * nbytes(v) + nbytes(c, gq) + 2 * nbytes(wt)
                       for v, c, wt, gq, _, _ in fs),
-                  sum(4 * D * taps for *_, taps in fs)))
+                  sum(4 * D * taps for *_, taps in fs)),
+            sum(D * taps for *_, taps in fs))
         for lvl, ((h, w), (_, f, g, S, _), (v, c, wt, gq, _, taps)) in \
                 enumerate(zip(levels[1:], mg, fs), start=1):
             out[f"mxu_gather_bwd {tag} level {lvl} ({h}x{w}, {S} rows)"] = (
@@ -1325,7 +1339,7 @@ def time_sampling_kernels(gen):
                 cuda_ms(lambda: mxu_gather_bwd_plain(f, g, S), iters=3,
                         warmup=1), None,
                 bound(nbytes(f, g) + B * S * HEADS * 4 * D * es,
-                      f.numel() * 4 * D))
+                      f.numel() * 4 * D), f.numel() * 4 * D)
             out[f"fused_sample_bwd {tag} level {lvl} ({h}x{w}, {h * w} "
                 f"rows)"] = (
                 cuda_ms(lambda: fused_msda_sample_bwd(v, c, wt, gq, w),
@@ -1333,7 +1347,7 @@ def time_sampling_kernels(gen):
                 cuda_ms(lambda: fused_msda_sample_bwd_plain(v, c, wt, gq, w),
                         iters=3, warmup=1), None,
                 bound(2 * nbytes(v) + nbytes(c, gq) + 2 * nbytes(wt),
-                      4 * D * taps))
+                      4 * D * taps), D * taps)
     return out
 
 
@@ -1398,6 +1412,35 @@ def profile(fn, what):
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.self_device_time_total / busy:6.1%} x{e.count:<5d} "
               f"{e.key[:100]}")
+
+
+def report_kernel_times(card, gen):
+    """Time every kernel (phase 7) and print each timing beside its plain
+    twin, library call, bound and, for a backward, its add rate. Returns
+    the timings of time_kernels, time_sampling_kernels and
+    time_window_kernels."""
+    print(f"times on {card} (a backward's rate: its f32 adds into dtable, "
+          f"one per in-range sample element, over its kernel time):")
+    ktimes, kbounds, kadds = time_kernels(gen)
+    for name, (k_ms, p_ms) in ktimes.items():
+        b_ms, rate = kbounds.get(name), adds_rate(kadds.get(name), k_ms)
+        print(f"  {name}: kernel {k_ms:.4f} ms{rate}, plain twin "
+              f"{p_ms:.4f} ms (B={B})"
+              + (f", bound {b_ms[0]:.4f} ms ({b_ms[1]})" if b_ms else ""))
+    sampling = time_sampling_kernels(gen)
+    for name, (k_ms, p_ms, l_ms, (b_ms, by), n_adds) in sampling.items():
+        lib = "" if l_ms is None else f", library call {l_ms:.4f} ms"
+        print(f"  {name} (640x480, Q={Q_TRAIN}, B={B}): kernel {k_ms:.4f} "
+              f"ms{adds_rate(n_adds, k_ms)}, plain twin {p_ms:.4f} ms{lib}, "
+              f"bound {b_ms:.4f} ms ({by})")
+    wtimes = time_window_kernels(gen)
+    for name, (k_ms, p_ms, l_ms, (b_ms, by), n_adds) in wtimes.items():
+        plain = "" if p_ms is None else f", plain twin {p_ms:.4f} ms"
+        lib = "" if l_ms is None else f", library call {l_ms:.4f} ms"
+        print(f"  {name} (B={B}): kernel {k_ms:.4f} ms"
+              f"{adds_rate(n_adds, k_ms)}{plain}{lib}, bound {b_ms:.4f} ms "
+              f"({by})")
+    return ktimes, kbounds, sampling, wtimes
 
 
 def main() -> int:
@@ -1490,25 +1533,7 @@ def main() -> int:
             run_train(cfg, torch.bfloat16, 2, f"bf16 {switch}", switch)
         check_train_switch_vs_default(cfg, switch)
 
-    print(f"times on {card}:")
-    ktimes, kbounds = time_kernels(gen)
-    for name, (k_ms, p_ms) in ktimes.items():
-        b_ms = kbounds.get(name)
-        print(f"  {name}: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms "
-              f"(B={B})" + (f", bound {b_ms[0]:.4f} ms ({b_ms[1]})"
-                            if b_ms else ""))
-    sampling = time_sampling_kernels(gen)
-    for name, (k_ms, p_ms, l_ms, (b_ms, by)) in sampling.items():
-        lib = "" if l_ms is None else f", library call {l_ms:.4f} ms"
-        print(f"  {name} (640x480, Q={Q_TRAIN}, B={B}): kernel {k_ms:.4f} "
-              f"ms, plain twin {p_ms:.4f} ms{lib}, bound {b_ms:.4f} ms "
-              f"({by})")
-    wtimes = time_window_kernels(gen)
-    for name, (k_ms, p_ms, l_ms, (b_ms, by)) in wtimes.items():
-        plain = "" if p_ms is None else f", plain twin {p_ms:.4f} ms"
-        lib = "" if l_ms is None else f", library call {l_ms:.4f} ms"
-        print(f"  {name} (B={B}): kernel {k_ms:.4f} ms{plain}{lib}, bound "
-              f"{b_ms:.4f} ms ({by})")
+    ktimes, kbounds, sampling, wtimes = report_kernel_times(card, gen)
     stimes = time_slice(model, cfg, {1: imgs[:1], 4: imgs})
     for bsz, (e2e, fwd) in stimes.items():
         print(f"  serve B={bsz}: inference_detector {e2e:.3f} ms/image, "
@@ -1544,7 +1569,7 @@ def main() -> int:
                 "library_ms": library_ms}
 
     def sampled(name, source, replaces, max_abs_err, times=sampling):
-        k_ms, p_ms, l_ms, b = times[f"{name} f32"]
+        k_ms, p_ms, l_ms, b, _ = times[f"{name} f32"]
         return entry(name, source, replaces, max_abs_err, k_ms, p_ms, b,
                      l_ms)
 

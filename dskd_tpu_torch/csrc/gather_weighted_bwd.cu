@@ -16,28 +16,44 @@
 // the TPU kernel accumulated it in the table's type.
 //
 // What bounds it on the H100: per (b, q, hd) it reads P rows of 4D elements
-// and one dout row, and issues P * 4D f32 atomic adds into dtable. The
-// atomics are the cost: on a small level thousands of queries land on the
-// same hundred rows (the 10x8 level of a 640x480 canvas packs 120 rows and
-// takes all 6,380 encoder queries x 8 heads x 4 points), so the adds to one
-// address serialize in L2. The sum order of the atomics changes from run to
-// run, so the result is compared with a tolerance, not bit for bit.
+// and one dout row, and adds P * 4D f32 products into dtable at
+// data-dependent rows. The bytes (table, dout, dtable, once each) take
+// ~0.11 ms for the four levels of a 640x480 canvas at B=2; the adds, 52 M
+// per level, are what set the pace: the L2 performs every atomic, so the
+// time goes by atomic instructions issued and by how many of them share an
+// address (on the 10x8 level all 6,380 encoder queries x 4 points add into
+// the same 120 packed rows of each (b, head)). Scalar atomics, four per lane
+// and point, spread each warp-wide instruction over four 128-byte lines at
+// a 16-byte stride and reach ~160 G adds/s on the H100, ~0.33 ms per level
+// whatever its size; the level's size, and so the contention, barely
+// matters (PERF.md).
 //
-// Design: one warp per (b, q, hd), as in the forward; lane l owns 4
-// consecutive elements of the row (one 16-byte f32 or 8-byte bf16 load of
-// dout and of the table row). For each point p the lane adds its 4 products
-// into dtable with scalar atomics and forms its part of the corner dot; a
-// butterfly of warp shuffles sums the four corner dots over the warp, and
-// lanes 0-3 write dw[p, 0:4]. The table is addressed through explicit batch,
+// Design: one warp per (b, q, hd); lane l owns 4 consecutive elements of
+// each 128-element piece of the row (one 16-byte f32 or 8-byte bf16 load of
+// dout and of each table row). The warp takes the points in groups of four:
+// it loads their indices and weights, then issues the four table-row loads
+// (and the dout row's) before any add, so four rows are in flight. Each
+// lane then adds its 4 products with one 16-byte vector atomic
+// (atomicAdd(float4*), global memory, compute capability 9.x), so one
+// warp-wide instruction covers a whole 512-byte f32 row: four times fewer
+// atomic instructions, each on whole lines. The corner dots of a point are
+// summed over the warp by a transposing butterfly (6 shuffles for the 4
+// corners) and written by the lanes of each corner's group. The sum order of
+// the atomics changes from run to run, so the result is compared with a
+// tolerance, not bit for bit. The table is addressed through explicit batch,
 // row and head strides (elements), so the (B, S', H, 4D) output of
 // pack_corners is read in place. idx, w (f32), dout, dtable (f32) and dw
 // (f32) are contiguous: (B, Q, H, P), (B, Q, H, P, 4), (B, Q, H, 4D),
-// (B, S, H, 4D) and (B, Q, H, P, 4).
+// (B, S, H, 4D) and (B, Q, H, P, 4). The wrapper checks that the table,
+// dout and dtable are 16-byte aligned with strides and a row width that are
+// multiples of 4 elements, as the vector loads and atomics need.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int kGroup = 4;                   // points with rows in flight
 
 __device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
   const float4 q = __ldg(reinterpret_cast<const float4*>(p));
@@ -49,6 +65,22 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&f)[4]) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
   f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+}
+
+// The sum over the warp of v[c] for c = lane >> 3: halve the four values
+// across lanes 16 apart, then the two across lanes 8 apart, then sum the
+// one left over the 8 lanes of its group.
+__device__ __forceinline__ float warp_sum4(const float (&v)[4], int lane) {
+  const bool hi16 = lane & 16, hi8 = lane & 8;
+  const float a = (hi16 ? v[2] : v[0])
+                + __shfl_xor_sync(0xffffffffu, hi16 ? v[0] : v[2], 16);
+  const float b = (hi16 ? v[3] : v[1])
+                + __shfl_xor_sync(0xffffffffu, hi16 ? v[1] : v[3], 16);
+  float s = (hi8 ? b : a) + __shfl_xor_sync(0xffffffffu, hi8 ? a : b, 8);
+  s += __shfl_xor_sync(0xffffffffu, s, 4);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  return s;
 }
 
 template <typename T>
@@ -71,41 +103,50 @@ __global__ void gather_weighted_bwd_kernel(
   float* dbase = dtable + b * table_rows * drow + hd * d4;
   const T* gp = dout + warp * d4;
   float* dwp = dw + warp * points * 4;
-  for (int p = 0; p < points; ++p) {
-    const int r = __ldg(ip + p);
-    const bool in_range = r >= 0 && r < table_rows;   // uniform in the warp
-    float part[4] = {0.f, 0.f, 0.f, 0.f};
-    if (in_range) {
-      const T* row = base + r * stride_s;
-      float* drow_p = dbase + r * drow;
-      for (int e = lane * 4; e < d4; e += 128) {
-        const int c = e / d;                // corner of this lane's chunk
-        const float wt = __ldg(wp + p * 4 + c);
-        float g[4], f[4];
-        load4(gp + e, g);
-        load4(row + e, f);
+  for (int p0 = 0; p0 < points; p0 += kGroup) {
+    int64_t r[kGroup];
+    bool ok[kGroup];                        // uniform in the warp
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      r[j] = p0 + j < points ? __ldg(ip + p0 + j) : -1;
+      ok[j] = r[j] >= 0 && r[j] < table_rows;
+    }
+    float part[kGroup][4] = {};
+    for (int e = lane * 4; e < d4; e += 128) {
+      const int c = e / d;                  // corner of this lane's chunk
+      float g[4], f[kGroup][4], wt[kGroup];
+      load4(gp + e, g);
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {    // every row load before an add
+        wt[j] = 0.f;
+        f[j][0] = f[j][1] = f[j][2] = f[j][3] = 0.f;
+        if (ok[j]) {
+          wt[j] = __ldg(wp + (p0 + j) * 4 + c);
+          load4(base + r[j] * stride_s + e, f[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        if (!ok[j]) continue;
+        atomicAdd(reinterpret_cast<float4*>(dbase + r[j] * drow + e),
+                  make_float4(wt[j] * g[0], wt[j] * g[1], wt[j] * g[2],
+                              wt[j] * g[3]));
         float dot = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          atomicAdd(drow_p + e + i, wt * g[i]);
-          dot = fmaf(g[i], f[i], dot);
-        }
+        for (int i = 0; i < 4; ++i) dot = fmaf(g[i], f[j][i], dot);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) part[k] += (k == c) ? dot : 0.f;
+        for (int k = 0; k < 4; ++k) part[j][k] += (k == c) ? dot : 0.f;
       }
     }
+    // lane 8k + j holds dw[p0 + j, k]
+    float mine = 0.f;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        part[k] += __shfl_xor_sync(0xffffffffu, part[k], off);
+    for (int j = 0; j < kGroup; ++j) {
+      const float s = warp_sum4(part[j], lane);
+      if ((lane & 7) == j) mine = s;
     }
-    if (lane < 4) {
-      const float v = lane == 0 ? part[0]
-                    : lane == 1 ? part[1]
-                    : lane == 2 ? part[2] : part[3];
-      dwp[p * 4 + lane] = v;
-    }
+    const int j = lane & 7;
+    if (j < kGroup && p0 + j < points) dwp[(p0 + j) * 4 + (lane >> 3)] = mine;
   }
 }
 

@@ -33,23 +33,37 @@
 // input, and no host sync decides a branch. Each kernel adds the number of
 // samples outside their window to the device int32 `escapes`.
 //
-// What bounds them on the H100: bytes. The forwards read P rows of 4D
-// elements (512 B in f32) per (b, q, hd) at data-dependent addresses and do
-// no matmul: the TPU needed the window to make a one-hot matmul affordable,
-// while Hopper gathers rows directly. So 1 and 3 read the rows straight from
-// device memory (L2 holds a level table: 27.5 MB at 640x640, B=2, f32) with
-// the designs of mxu_gather.cu and gather_weighted.cu: one warp per row (1)
-// or per (b, q, hd) (3). The backwards are where the window pays on this
-// card: the sample rows of a tile fall into its window, so 2 and 4 sum them
-// in shared memory and flush the window once, instead of issuing one device
-// atomic per sample element.
+// What bounds them on the H100. The forwards read P rows of 4D elements
+// (512 B in f32) per (b, q, hd) at data-dependent addresses and do no
+// matmul: the TPU needed the window to make a one-hot matmul affordable,
+// while Hopper gathers rows directly. So 1 and 3 are bound by bytes and read
+// the rows straight from device memory (a level-0 table is 27.5 MB per
+// image at 640x640 in f32, beside a 50 MB L2) with the designs of
+// mxu_gather.cu and gather_weighted.cu: one warp per row (1) or per
+// (b, q, hd) (3). The backwards read g once and add every element of it
+// into dtable: 52 M f32 adds at level 0 of 640x640 (409,600 sample rows of
+// 128) against 210 MB of g and 55 MB of dtable at B=2. The L2 performs
+// every device atomic, so the adds set the pace: by the atomic instructions
+// issued, and by how many share a line.
 //
-// Design of 2 and 4: one block of 256 threads per (tile, b * heads + hd,
-// chunk), where a chunk is `chunk` consecutive elements of the row (a power
-// of two up to 32 that divides the corner width D, so a chunk lies in one
-// corner). A row of a 992-row window is 508 KB in f32 and a block has at most
-// 227 KB, so a block keeps only its chunk of the window: window x chunk f32
-// in dynamic shared memory, at most 96 KB so that two blocks fit on an SM
+// Design of 2: a direct scatter, as in gather_weighted_bwd.cu. One warp per
+// (b, q, hd) loads the P indices, then its P sample rows of g (four in
+// flight), then adds them: lane l adds elements 4l..4l+3 of each 128-element
+// piece with one 16-byte vector f32 atomic (atomicAdd(float4*), global
+// memory, compute capability 9.x), so one warp-wide instruction covers a
+// whole 512-byte row. The window is left only in the escape count: lane p
+// compares sample p's row with its tile's window, the warp sums the count,
+// and each block adds its total to `escapes` once. Summing each tile in a
+// shared-memory window, as 4 does, took 3.7-4.0x this scatter's time at
+// level 0 of 640x640 on an H100 and lost to torch's index_add there
+// (PERF.md).
+//
+// Design of 4: one block of 256 threads per (tile, b * heads + hd, chunk),
+// where a chunk is `chunk` consecutive elements of the row (a power of two
+// up to 32 that divides the corner width D, so a chunk lies in one corner).
+// A row of a 992-row window is 508 KB in f32 and a block has at most 227 KB,
+// so a block keeps only its chunk of the window: window x chunk f32 in
+// dynamic shared memory, at most 96 KB so that two blocks fit on an SM
 // (chunk 16 at 992-1536 rows, 8 up to 3072, 4 up to 6144). Thread i handles
 // element i % chunk of sample row i / chunk of each pass over the tile's
 // tile_q x P samples: an in-window sample adds into the shared window with a
@@ -66,7 +80,9 @@
 // output is read in place; the JAX (N, S, 4D) layout is the case H = 1. idx
 // (B, Q, H, P) int32, w (B, Q, H, P, 4) f32, g (B, Q, H, P, D) for 2 and
 // (B, Q, H, 4D) for 4, out, dtable (B, S, H, row) f32 and dw (B, Q, H, P, 4)
-// f32 are contiguous; starts holds ceil(Q / tile_q) int32.
+// f32 are contiguous; starts holds ceil(Q / tile_q) int32. For 2 the wrapper
+// checks that g and dtable are 16-byte aligned and the row width D a
+// multiple of 4, as its vector loads and atomics need.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -184,10 +200,65 @@ __global__ void fused_window_kernel(
   }
 }
 
-// 2 (kWeighted = false) and 4 (kWeighted = true): one block per (tile,
-// b * heads + hd, chunk); see the header for the design.
-template <typename T, bool kWeighted>
-__global__ void window_bwd_kernel(
+// 2. Scatter-add of sample rows, one warp per (b, q, hd) with its points'
+// rows in flight; see the header for the design.
+constexpr int kGroup = 4;                   // sample rows in flight per warp
+
+template <typename T>
+__global__ void window_gather_bwd_kernel(
+    const int* __restrict__ idx, const T* __restrict__ g,
+    const int* __restrict__ starts, float* __restrict__ dtable,
+    int* __restrict__ escapes, int64_t rows, int64_t queries, int heads,
+    int points, int tile_q, int window, int64_t table_rows, int d) {
+  __shared__ int block_escapes;
+  if (threadIdx.x == 0) block_escapes = 0;
+  __syncthreads();
+  const int64_t warp =
+      (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp < rows) {                        // uniform in the warp
+    const int hd = static_cast<int>(warp % heads);
+    const int64_t q = (warp / heads) % queries;
+    const int64_t b = warp / heads / queries;
+    const int* ip = idx + warp * points;
+    const int start = __ldg(starts + q / tile_q);
+    int esc = 0;
+    for (int p = lane; p < points; p += 32)
+      esc += !in_window(__ldg(ip + p), start, window);
+    esc = __reduce_add_sync(0xffffffffu, esc);
+    if (lane == 0 && esc) atomicAdd(&block_escapes, esc);
+    const int64_t row_stride = static_cast<int64_t>(heads) * d;
+    float* dbase = dtable + b * table_rows * row_stride + hd * d;
+    const T* gp = g + warp * points * d;
+    for (int p0 = 0; p0 < points; p0 += kGroup) {
+      int64_t r[kGroup];
+      bool ok[kGroup];                      // uniform in the warp
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        r[j] = p0 + j < points ? __ldg(ip + p0 + j) : -1;
+        ok[j] = r[j] >= 0 && r[j] < table_rows;
+      }
+      for (int e = lane * 4; e < d; e += 128) {
+        float v[kGroup][4];
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j)    // every row load before an add
+          if (ok[j]) load4(gp + static_cast<int64_t>(p0 + j) * d + e, v[j]);
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j)
+          if (ok[j])
+            atomicAdd(reinterpret_cast<float4*>(dbase + r[j] * row_stride + e),
+                      make_float4(v[j][0], v[j][1], v[j][2], v[j][3]));
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && block_escapes) atomicAdd(escapes, block_escapes);
+}
+
+// 4. Weighted backward, one block per (tile, b * heads + hd, chunk); see the
+// header for the design.
+template <typename T>
+__global__ void window_weighted_bwd_kernel(
     const T* __restrict__ table, const int* __restrict__ idx,
     const float* __restrict__ w, const T* __restrict__ g,
     const int* __restrict__ starts, float* __restrict__ dtable,
@@ -201,8 +272,7 @@ __global__ void window_bwd_kernel(
   const int64_t b = blockIdx.y / heads;
   const int hd = static_cast<int>(blockIdx.y % heads);
   const int e0 = blockIdx.z * chunk;        // the chunk's first element
-  // the corner the chunk lies in (only kernel 4 weights by corner)
-  const int corner = kWeighted ? e0 / (row_width / 4) : 0;
+  const int corner = e0 / (row_width / 4);  // the corner the chunk lies in
   const int start = __ldg(starts + t);
   const int cells = window * chunk;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) win[i] = 0.f;
@@ -230,22 +300,16 @@ __global__ void window_bwd_kernel(
       r = __ldg(idx + sample);
       inside = in_window(r, start, window);
       esc += !inside && el == 0;
-      if constexpr (kWeighted) {
-        const float gv = to_f32(g[qh * row_width + e0 + el]);
-        contrib = __ldg(w + sample * 4 + corner) * gv;
-        if (r >= 0 && r < table_rows)
-          dot = gv * to_f32(table[b * stride_b + r * stride_s +
-                                  hd * stride_h + e0 + el]);
-      } else {
-        contrib = to_f32(g[sample * row_width + e0 + el]);
-      }
+      const float gv = to_f32(g[qh * row_width + e0 + el]);
+      contrib = __ldg(w + sample * 4 + corner) * gv;
+      if (r >= 0 && r < table_rows)
+        dot = gv * to_f32(table[b * stride_b + r * stride_s +
+                                hd * stride_h + e0 + el]);
     }
     const bool valid = active && r >= 0 && r < table_rows;
-    if constexpr (kWeighted) {
-      for (int off = chunk / 2; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (valid && el == 0) atomicAdd(dw + sample * 4 + corner, dot);
-    }
+    for (int off = chunk / 2; off > 0; off >>= 1)
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    if (valid && el == 0) atomicAdd(dw + sample * 4 + corner, dot);
     if (!valid) continue;
     if (inside)
       atomicAdd(win + (r - start) * chunk + el, contrib);
@@ -313,18 +377,36 @@ int launch_fused(const void* table, const void* idx, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kWeighted>
-int launch_bwd(const void* table, const void* idx, const void* w,
-               const void* g, const void* starts, void* dtable, void* dw,
-               void* escapes, int64_t batch, int64_t queries, int64_t heads,
-               int64_t points, int64_t tile_q, int64_t window,
-               int64_t table_rows, int64_t row_width, int64_t chunk,
-               int64_t stride_b, int64_t stride_s, int64_t stride_h,
-               void* stream) {
+template <typename T>
+int launch_gather_bwd(const void* idx, const void* g, const void* starts,
+                      void* dtable, void* escapes, int64_t batch,
+                      int64_t queries, int64_t heads, int64_t points,
+                      int64_t tile_q, int64_t window, int64_t table_rows,
+                      int64_t d, void* stream) {
+  const int64_t rows = batch * queries * heads;
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  window_gather_bwd_kernel<T><<<warp_blocks(rows), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(idx), static_cast<const T*>(g),
+      static_cast<const int*>(starts), static_cast<float*>(dtable),
+      static_cast<int*>(escapes), rows, queries, static_cast<int>(heads),
+      static_cast<int>(points), static_cast<int>(tile_q),
+      static_cast<int>(window), table_rows, static_cast<int>(d));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_weighted_bwd(const void* table, const void* idx, const void* w,
+                        const void* g, const void* starts, void* dtable,
+                        void* dw, void* escapes, int64_t batch,
+                        int64_t queries, int64_t heads, int64_t points,
+                        int64_t tile_q, int64_t window, int64_t table_rows,
+                        int64_t row_width, int64_t chunk, int64_t stride_b,
+                        int64_t stride_s, int64_t stride_h, void* stream) {
   const int64_t tiles = (queries + tile_q - 1) / tile_q;
   if (batch * heads * tiles == 0) return static_cast<int>(cudaSuccess);
   const size_t smem = static_cast<size_t>(window * chunk) * sizeof(float);
-  auto kernel = window_bwd_kernel<T, kWeighted>;
+  auto kernel = window_weighted_bwd_kernel<T>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -380,22 +462,21 @@ extern "C" int window_gather_bwd_f32(
     const void* idx, const void* g, const void* starts, void* dtable,
     void* escapes, int64_t batch, int64_t queries, int64_t heads,
     int64_t points, int64_t tile_q, int64_t window, int64_t table_rows,
-    int64_t d, int64_t chunk, void* stream) {
-  return launch_bwd<float, false>(nullptr, idx, nullptr, g, starts, dtable,
-                                  nullptr, escapes, batch, queries, heads,
-                                  points, tile_q, window, table_rows, d,
-                                  chunk, 0, 0, 0, stream);
+    int64_t d, void* stream) {
+  return launch_gather_bwd<float>(idx, g, starts, dtable, escapes, batch,
+                                  queries, heads, points, tile_q, window,
+                                  table_rows, d, stream);
 }
 
 extern "C" int window_gather_bwd_bf16(
     const void* idx, const void* g, const void* starts, void* dtable,
     void* escapes, int64_t batch, int64_t queries, int64_t heads,
     int64_t points, int64_t tile_q, int64_t window, int64_t table_rows,
-    int64_t d, int64_t chunk, void* stream) {
-  return launch_bwd<__nv_bfloat16, false>(
-      nullptr, idx, nullptr, g, starts, dtable, nullptr, escapes, batch,
-      queries, heads, points, tile_q, window, table_rows, d, chunk, 0, 0, 0,
-      stream);
+    int64_t d, void* stream) {
+  return launch_gather_bwd<__nv_bfloat16>(idx, g, starts, dtable, escapes,
+                                          batch, queries, heads, points,
+                                          tile_q, window, table_rows, d,
+                                          stream);
 }
 
 // 3. w (B, Q, H, P, 4) f32; out (B, Q, H, d4) in the table's type.
@@ -431,10 +512,10 @@ extern "C" int window_weighted_bwd_f32(
     int64_t queries, int64_t heads, int64_t points, int64_t tile_q,
     int64_t window, int64_t table_rows, int64_t d4, int64_t chunk,
     int64_t stride_b, int64_t stride_s, int64_t stride_h, void* stream) {
-  return launch_bwd<float, true>(table, idx, w, g, starts, dtable, dw,
-                                 escapes, batch, queries, heads, points,
-                                 tile_q, window, table_rows, d4, chunk,
-                                 stride_b, stride_s, stride_h, stream);
+  return launch_weighted_bwd<float>(table, idx, w, g, starts, dtable, dw,
+                                    escapes, batch, queries, heads, points,
+                                    tile_q, window, table_rows, d4, chunk,
+                                    stride_b, stride_s, stride_h, stream);
 }
 
 extern "C" int window_weighted_bwd_bf16(
@@ -443,7 +524,7 @@ extern "C" int window_weighted_bwd_bf16(
     int64_t queries, int64_t heads, int64_t points, int64_t tile_q,
     int64_t window, int64_t table_rows, int64_t d4, int64_t chunk,
     int64_t stride_b, int64_t stride_s, int64_t stride_h, void* stream) {
-  return launch_bwd<__nv_bfloat16, true>(
+  return launch_weighted_bwd<__nv_bfloat16>(
       table, idx, w, g, starts, dtable, dw, escapes, batch, queries, heads,
       points, tile_q, window, table_rows, d4, chunk, stride_b, stride_s,
       stride_h, stream);

@@ -30,7 +30,11 @@ backward ``csrc/gather_weighted_bwd.cu``; on CPU tensors they run
 one-hot matmul because its gather is a scalar loop; the GPU gathers rows
 directly, so these kernels take a table of any size: MSDA's
 ``mxu_gather_max_rows`` only chooses between the variants the JAX package
-switches with it.
+switches with it. The backward keeps four table rows in flight per warp and
+adds each lane's four products into ``dtable`` with one 16-byte vector f32
+atomic, so the table, ``dout`` and ``dtable`` must be 16-byte aligned with
+row widths and strides a multiple of 4 elements (``check_aligned``; the
+wrappers raise otherwise).
 """
 from __future__ import annotations
 
@@ -108,11 +112,19 @@ def _check(name, table, idx, w):
     if table.stride(3) != 1 or any(s % 4 for s in table.stride()[:3]):
         raise ValueError(f"{name}: table rows must be contiguous "
                          "with strides a multiple of 4 elements")
-    if table.data_ptr() % 16:
-        raise ValueError(f"{name}: table not 16-byte aligned")
+    check_aligned(name, table=table)
     if not (idx.device == w.device == table.device):
         raise ValueError(f"{name}: tensors on different devices")
     return B, S, H, D4, Q, P
+
+
+def check_aligned(name, **tensors):
+    """Raise unless each tensor starts on a 16-byte boundary: the kernels
+    move its rows in 16-byte (f32) or 8-byte (bf16) vectors and add into
+    an f32 ``dtable`` with 16-byte vector atomics."""
+    for what, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} not 16-byte aligned")
 
 
 def _gather_weighted_cuda(table, idx, w):
@@ -147,6 +159,7 @@ def gather_weighted_bwd(table: torch.Tensor, idx: torch.Tensor,
     dout = dout.to(table.dtype).contiguous()
     dtable = torch.zeros((B, S, H, D4), dtype=torch.float32,
                          device=table.device)
+    check_aligned("gather_weighted_bwd", dout=dout, dtable=dtable)
     dw = torch.empty((B, Q, H, P, 4), dtype=torch.float32,
                      device=table.device)
     lib = _build.load("gather_weighted_bwd", _BWD_SIGNATURES)

@@ -30,7 +30,7 @@ import torch
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int64
 SIGNATURES = {f"{name}_{tag}": (_PTR,) * n_ptr + (_INT,) * n_int + (_PTR,)
               for name, n_ptr, n_int in (("window_gather", 5, 11),
-                                         ("window_gather_bwd", 5, 9),
+                                         ("window_gather_bwd", 5, 8),
                                          ("fused_window", 6, 11),
                                          ("window_weighted_bwd", 8, 12))
               for tag in ("f32", "bf16")}
@@ -39,8 +39,8 @@ DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # Mosaic's sublane alignment of a window start on the TPU; the starts keep
 # it so that they equal the JAX package's
 SUBLANE_ALIGN = 16
-# f32 shared memory a block of a windowed backward may take for its window:
-# two blocks fit on one H100 SM (227 KB each at most)
+# f32 shared memory a block of the windowed weighted backward may take for
+# its window: two blocks fit on one H100 SM (227 KB each at most)
 SMEM_BYTES = 96 * 1024
 
 _STARTS: Dict[Tuple[Tuple[int, ...], str], torch.Tensor] = {}
@@ -138,9 +138,9 @@ def escape_counter(fn, device: torch.device) -> torch.Tensor:
 
 
 def chunk_width(window: int, width: int) -> int:
-    """Elements of a row that one block of a windowed backward sums: the
-    largest power of two up to 32 that divides ``width`` and whose
-    (window, chunk) f32 window fits in SMEM_BYTES."""
+    """Elements of a row that one block of the windowed weighted backward
+    sums: the largest power of two up to 32 that divides ``width`` and
+    whose (window, chunk) f32 window fits in SMEM_BYTES."""
     for chunk in (32, 16, 8, 4, 2, 1):
         if width % chunk == 0 and window * chunk * 4 <= SMEM_BYTES:
             return chunk

@@ -16,7 +16,12 @@ An index outside [0, S) gives a zero row and adds nothing, as in
 
 It is differentiable in ``table`` through ``WindowGather``: the backward sums
 ``g`` into ``dtable`` at ``idx``, in f32, cast once to the table's type (the
-TPU kernel summed in the table's type tile by tile).
+TPU kernel summed in the table's type tile by tile). On the TPU the window is
+what made that backward's one-hot matmul affordable; on the card its CUDA
+kernel is a direct scatter, one warp per (b, q, hd) with its points' rows in
+flight and one 16-byte vector f32 atomic per lane and row (so ``g`` must be
+16-byte aligned and its row width a multiple of 4), and the window is left
+only in the escape count.
 
 MSDA calls it in its own layout, table (B, S, H, D) with the head axis in the
 middle (``pack_corners``' output, read in place through its strides) and idx
@@ -30,9 +35,10 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .mxu_gather import _check_idx, mxu_gather_bwd_plain, mxu_gather_plain
-from .window import (DTYPE_TAG, SIGNATURES, check_window, chunk_width,
-                     escape_counter, starts_tensor)
+from .mxu_gather import (_check_idx, check_aligned, mxu_gather_bwd_plain,
+                         mxu_gather_plain)
+from .window import (DTYPE_TAG, SIGNATURES, check_window, escape_counter,
+                     starts_tensor)
 
 
 def window_gather_plain(table: torch.Tensor, idx: torch.Tensor, starts,
@@ -97,11 +103,14 @@ def window_gather_bwd(idx: torch.Tensor, g: torch.Tensor, starts,
                          f"{tuple(g.shape)}")
     if g.dtype not in DTYPE_TAG:
         raise TypeError(f"window_gather_bwd: unsupported dtype {g.dtype}")
+    if D % 4:
+        raise ValueError(f"window_gather_bwd: row width {D} is not a "
+                         "multiple of 4 elements")
     starts = check_window("window_gather_bwd", starts, Q, tile_q, window)
-    chunk = chunk_width(window, D)
     idx, g = idx.contiguous(), g.contiguous()
     dtable = torch.zeros((B, table_rows, H, D), dtype=torch.float32,
                          device=g.device)
+    check_aligned("window_gather_bwd", g=g, dtable=dtable)
     lib = _build.load("window_sample", SIGNATURES)
     fn = getattr(lib, f"window_gather_bwd_{DTYPE_TAG[g.dtype]}")
     stream = torch.cuda.current_stream(g.device).cuda_stream
@@ -109,7 +118,7 @@ def window_gather_bwd(idx: torch.Tensor, g: torch.Tensor, starts,
                     starts_tensor(starts, g.device).data_ptr(),
                     dtable.data_ptr(),
                     escape_counter(window_gather_bwd, g.device).data_ptr(),
-                    B, Q, H, P, tile_q, window, table_rows, D, chunk, stream),
+                    B, Q, H, P, tile_q, window, table_rows, D, stream),
                  "window_gather_bwd")
     window_gather_bwd.launches += 1
     return dtable.to(g.dtype)

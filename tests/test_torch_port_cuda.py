@@ -344,3 +344,131 @@ def test_msda_window_switch_grads_on_card_match_cpu(cuda_device, monkeypatch,
         torch.testing.assert_close(got, want, rtol=1e-4,
                                    atol=2e-6 * float(want.abs().max()),
                                    msg=name)
+
+
+# The two scatter backwards under adversarial indices: every sample on one
+# row of each (b, head) (the most atomics on one address), samples on the
+# table's first and last rows, indices outside [0, S), and for the windowed
+# one every sample in its tile's window or every sample escaped.
+_SCATTER_CASES = [("gather_weighted_bwd", case) for case in
+                  ("one_row", "ends", "outside")] + \
+                 [("window_gather_bwd", case) for case in
+                  ("one_row", "ends", "outside", "in_window", "escaped")]
+
+
+def _scatter_indices(rng, case, B, Q, H, P, S, tile_q, window):
+    """(idx int32 numpy, window starts) of an adversarial case."""
+    shape = (B, Q, H, P)
+    n_tiles = -(-Q // tile_q)
+    starts = tuple(int(s) for s in np.linspace(0, S - window, n_tiles))
+    if case == "one_row":
+        idx = np.full(shape, S // 3)
+    elif case == "ends":
+        idx = np.where(rng.rand(*shape) < 0.5, 0, S - 1)
+    elif case == "outside":
+        wild = np.array([-10 ** 6, -1, S, S + 10 ** 6])
+        idx = np.where(rng.rand(*shape) < 0.5, rng.randint(0, S, shape),
+                       wild[rng.randint(0, 4, shape)])
+    elif case == "in_window":
+        lo = np.repeat(np.asarray(starts), tile_q)[:Q][None, :, None, None]
+        idx = lo + rng.randint(0, window, shape)
+    else:                                     # escaped: below every window
+        starts = (S - window,) * n_tiles
+        idx = rng.randint(0, S - window, shape)
+    return idx.astype(np.int32), starts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel,case", _SCATTER_CASES)
+def test_scatter_backwards_adversarial_indices(cuda_device, dtype, kernel,
+                                                case):
+    from dskd_tpu_torch.ops.mxu_gather import gather_weighted_bwd, \
+        gather_weighted_bwd_plain
+    from dskd_tpu_torch.ops.window import window_escapes
+    from dskd_tpu_torch.ops.window_gather import window_gather_bwd, \
+        window_gather_bwd_plain
+
+    rng = np.random.RandomState(12)
+    B, H, D4, S, Q, P, tile_q, window = 2, 8, 128, 3000, 128, 4, 32, 64
+    idx_np, starts = _scatter_indices(rng, case, B, Q, H, P, S, tile_q,
+                                      window)
+    idx = torch.from_numpy(idx_np).to(cuda_device)
+    dt_type = _TORCH[dtype]
+    # f32: atomics in run-to-run order, up to Q * P = 512 adds per element;
+    # bf16: one rounding of the f32 sum
+    tol = dict(rtol=1e-5, atol=1e-4) if dtype == "float32" else \
+        dict(rtol=2 ** -7, atol=1e-4)
+    if kernel == "gather_weighted_bwd":
+        table = torch.from_numpy(rng.randn(B, S + 3, H, D4).astype(
+            np.float32)).to(cuda_device, dt_type)[:, 3:]     # strided view
+        cw = torch.from_numpy(rng.rand(B, Q, H, P, 4).astype(np.float32)
+                              ).to(cuda_device)
+        dout = torch.from_numpy(rng.randn(B, Q, H, D4).astype(np.float32)
+                                ).to(cuda_device, dt_type)
+        before = gather_weighted_bwd.launches
+        dt, dw = gather_weighted_bwd(table, idx, cw, dout)
+        assert gather_weighted_bwd.launches == before + 1
+        want_dt, want_dw = gather_weighted_bwd_plain(table.float(), idx, cw,
+                                                     dout.float())
+        torch.cuda.synchronize()
+        torch.testing.assert_close(dt.float(), want_dt, **tol)
+        torch.testing.assert_close(dw, want_dw, rtol=1e-5, atol=1e-5)
+        assert (dw[(idx < 0) | (idx >= S)] == 0).all()
+        return
+    g = torch.from_numpy(rng.randn(B, Q, H, P, D4).astype(np.float32)).to(
+        cuda_device, dt_type)
+    window_gather_bwd.escapes = None
+    before = window_gather_bwd.launches
+    dt = window_gather_bwd(idx, g, starts, tile_q, window, S)
+    assert window_gather_bwd.launches == before + 1
+    want = window_gather_bwd_plain(idx, g.float(), starts, tile_q, window, S)
+    want_esc = int(window_escapes(idx, starts, tile_q, window))
+    torch.cuda.synchronize()
+    assert dt.dtype == dt_type
+    torch.testing.assert_close(dt.float(), want, **tol)
+    assert int(window_gather_bwd.escapes) == want_esc
+    if case == "in_window":
+        assert want_esc == 0
+    if case == "escaped":
+        assert want_esc == idx.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("what", ["table", "dout", "g", "dtable"])
+def test_scatter_backwards_refuse_misaligned(cuda_device, dtype, what):
+    """The vector loads and atomics need 16-byte aligned rows: a view one
+    element off raises, and launches nothing."""
+    from dskd_tpu_torch.ops.mxu_gather import check_aligned, \
+        gather_weighted_bwd
+    from dskd_tpu_torch.ops.window_gather import window_gather_bwd
+
+    B, H, D4, S, Q, P = 2, 8, 128, 40, 16, 4
+    dt_type = _TORCH[dtype]
+
+    def off_by_one(*shape, dtype=dt_type):
+        n = int(np.prod(shape))
+        return torch.zeros(n + 8, dtype=dtype, device=cuda_device)[
+            1:1 + n].view(shape)
+
+    def aligned(*shape):
+        return torch.zeros(shape, dtype=dt_type, device=cuda_device)
+
+    idx = torch.zeros((B, Q, H, P), dtype=torch.int32, device=cuda_device)
+    cw = torch.zeros((B, Q, H, P, 4), device=cuda_device)
+    launches = (gather_weighted_bwd.launches, window_gather_bwd.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if what == "table":
+            gather_weighted_bwd(off_by_one(B, S, H, D4), idx, cw,
+                                aligned(B, Q, H, D4))
+        elif what == "dout":
+            gather_weighted_bwd(aligned(B, S, H, D4), idx, cw,
+                                off_by_one(B, Q, H, D4))
+        elif what == "g":
+            window_gather_bwd(idx, off_by_one(B, Q, H, P, D4), (0,), Q, 8, S)
+        else:                # the f32 buffer the wrappers allocate
+            check_aligned("gather_weighted_bwd",
+                          dtable=off_by_one(B, S, H, D4, dtype=torch.float32))
+    assert (gather_weighted_bwd.launches, window_gather_bwd.launches) == \
+        launches
