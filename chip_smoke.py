@@ -12,7 +12,8 @@ Phases; the first failure raises and the script exits non-zero:
      turns TF32 off for matmuls and convolutions (every comparison and time
      below is full f32 unless it says bf16);
   2. build: compiles the six CUDA sources from dskd_tpu_torch/csrc (eleven
-     kernels), one nvcc per source, all started together;
+     kernels), one nvcc per source, all started together, and prints each
+     kernel's registers and spills;
   3. kernels: each kernel against its plain PyTorch twin on the card at the
      flagship's shapes (B=2, H=8, D=32, P=4; the levels of the 640x640
      serving canvas with Q=8500 encoder and Q=300 decoder queries, and of
@@ -49,12 +50,16 @@ Phases; the first failure raises and the script exits non-zero:
      are held against the default path on the card (same weights, batch,
      dropout generator, teacher and assignment);
   7. times: kernels against twins (and against one PyTorch library call
-     where one computes the same function) with CUDA events, beside the
-     least time the card could take (bytes over 3.35 TB/s or f32 operations
-     over 67 TFLOP/s) and, for the backwards, their rate of f32 adds into
-     dtable (G adds/s), the serving slice in ms/image, the train step in
-     ms/step and img/s under each switch, and profiler tables of one serving
-     forward and one bf16 train step.
+     where one computes the same function: index_select, index_add, or
+     F.embedding_bag for gather_weighted, fused_sample and fused_window) in
+     device ms (device_ms: the calls queued behind a spin kernel, so that no
+     host time enters), gather_weighted and pack_corners also level by
+     level, beside the least time the card could take (bytes over 3.35 TB/s
+     or f32 operations over 67 TFLOP/s) and, for the backwards, their rate
+     of f32 adds into dtable (G adds/s); the serving slice in ms/image (host
+     clock and CUDA events), the train step in ms/step and img/s under each
+     switch, and profiler tables of one serving forward and one bf16 train
+     step.
 The last three lines are the card, the kernel report as JSON and the result
 as JSON.
 """
@@ -147,6 +152,9 @@ ENCODER_CALL = {
     "window_rows": ({"pack_corners": 4, "gather_weighted": 4,
                      "window_gather": 1},
                     {"window_gather_bwd": 1, "gather_weighted_bwd": 4})}
+# device_ms's spin: at most ~2 GHz, 10**8 cycles hold the stream for 50 ms
+# or more, longer than the host takes to enqueue the calls it times
+SPIN_CYCLES = 10 ** 8
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 # bytes/s and f32 FLOP/s outside the tensor cores, where these kernels'
 # arithmetic runs whatever the table's type
@@ -178,6 +186,90 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warmup=3) -> float:
+    """Device time of one call of ``fn`` in ms, with no host time in it: a
+    spin kernel holds the stream while the host enqueues ``iters`` calls,
+    and the card then runs them back to back between two CUDA events.
+    (Events around a few short launches from Python, as in ``cuda_ms``,
+    time the host whenever it launches slower than the card runs.) A call
+    that waits for the card, as the host-to-device copies of some plain
+    twins do, ends the spin early; such a function is timed by
+    ``cuda_ms``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    held = not start.query()        # still spinning after the last call
+    torch.cuda.synchronize()
+    if held:
+        return start.elapsed_time(end) / iters
+    return cuda_ms(fn, iters, warmup=0)
+
+
+def device_events(prof):
+    """The kernels and copies of a profile, by name."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def gather_weighted_bags(table, idx, w):
+    """gather_weighted(table, idx, w) as one ``F.embedding_bag`` call (the
+    library yardstick; the port never calls it): the contiguous
+    (B, S, H, 4D) table read as (B*S*H*4, D) rows, one bag per
+    (b, q, hd, corner) holding its P points, row ((b*S + idx)*H + hd)*4 + c
+    weighted by w[..., p, c]; an index outside [0, S) takes a row in range
+    with weight 0. Returns (input, weight, per_sample_weights); the output
+    (B*Q*H*4, D) is gather_weighted's (B, Q, H, 4D)."""
+    B, S, H, D4 = table.shape
+    P = idx.shape[3]
+    dev = idx.device
+    valid = (idx >= 0) & (idx < S)
+    bi = torch.arange(B, device=dev)[:, None, None, None]
+    hi = torch.arange(H, device=dev)[None, None, :, None]
+    rows = ((bi * S + idx.clamp(0, S - 1).long()) * H + hi) * 4
+    bags = rows[..., None, :] + torch.arange(4, device=dev)[:, None]
+    psw = (w * valid[..., None]).transpose(-1, -2)     # (B, Q, H, 4, P)
+    return (bags.reshape(-1, P), table.reshape(-1, D4 // 4),
+            psw.reshape(-1, P).to(table.dtype))
+
+
+def fused_sample_bags(value, start, hw, c00, wts):
+    """fused_msda_sample(value[:, start:start + h*w], c00, wts, w) as one
+    ``F.embedding_bag`` call on the contiguous (B, S, H, D) value tensor read
+    as (B*S*H, D) rows: one bag per (b, q, hd) of its P points' four taps
+    c00 + (0, 1, w, w+1), a tap outside the level's [0, h*w) taking a row in
+    range with weight 0. Returns (input, weight, per_sample_weights); the
+    output (B*Q*H, D) is the sample's (B, Q, H, D)."""
+    B, S, H, D = value.shape
+    h, w = hw
+    dev = c00.device
+    taps = c00.long()[..., None] + torch.tensor([0, 1, w, w + 1], device=dev)
+    valid = (taps >= 0) & (taps < h * w)
+    bi = torch.arange(B, device=dev)[:, None, None, None, None]
+    hi = torch.arange(H, device=dev)[None, None, :, None, None]
+    rows = (bi * S + start + taps.clamp(0, h * w - 1)) * H + hi
+    n = c00.shape[3] * 4
+    return (rows.reshape(-1, n), value.reshape(-1, D),
+            (wts.float() * valid).reshape(-1, n).to(value.dtype))
+
+
+def embedding_bag(bags, shape):
+    """The one library call of a ``*_bags`` mapping, shaped as the kernel's
+    output."""
+    import torch.nn.functional as F
+
+    inp, weight, psw = bags
+    return F.embedding_bag(inp, weight, per_sample_weights=psw,
+                           mode="sum").view(shape)
 
 
 def counters():
@@ -730,9 +822,9 @@ def time_window_kernels(gen):
     640x640 (B5's training canvas, Q=6400), fused_window over the two
     segments of 640x480 level 0 that take it (one MSDA call), and the
     windowed weighted backward over the two 640x480 segments of
-    DSKD_WINBWD, beside gather_weighted_bwd on the same inputs. Returns
-    {name: (kernel ms, plain ms, library ms or None, (bound ms, by), f32 adds
-    into dtable or None)}."""
+    DSKD_WINBWD, beside gather_weighted_bwd on the same inputs; device ms.
+    Returns {name: (kernel ms, plain ms, library ms or None, (bound ms, by),
+    f32 adds into dtable or None)}."""
     from dskd_tpu_torch.ops.fused_window import fused_window_sample, \
         fused_window_sample_plain, windowed_weighted_bwd, \
         windowed_weighted_bwd_plain
@@ -757,17 +849,17 @@ def time_window_kernels(gen):
         lin = ((bi * S + flat.long()) * HEADS + hd).reshape(-1)
         zeros = torch.zeros_like(rows)
         out[f"window_gather {tag}"] = (
-            cuda_ms(lambda: window_gather(table, flat, starts, tq * P, K)),
-            cuda_ms(lambda: window_gather_plain(table, flat, starts, tq, K),
-                    iters=5),
-            cuda_ms(lambda: torch.index_select(rows, 0, lin)),
+            device_ms(lambda: window_gather(table, flat, starts, tq * P, K)),
+            device_ms(lambda: window_gather_plain(table, flat, starts, tq, K),
+                      iters=5),
+            device_ms(lambda: torch.index_select(rows, 0, lin)),
             bound(nbytes(table, flat, g), 0), None)
         out[f"window_gather_bwd {tag}"] = (
-            cuda_ms(lambda: window_gather_bwd(flat, g, starts, tq, K, S),
-                    iters=10),
-            cuda_ms(lambda: window_gather_bwd_plain(flat, g, starts, tq, K,
+            device_ms(lambda: window_gather_bwd(flat, g, starts, tq, K, S),
+                      iters=10),
+            device_ms(lambda: window_gather_bwd_plain(flat, g, starts, tq, K,
                                                     S), iters=3, warmup=1),
-            cuda_ms(lambda: torch.index_add(zeros, 0, lin,
+            device_ms(lambda: torch.index_add(zeros, 0, lin,
                                             g.view(-1, 4 * D)), iters=10),
             bound(nbytes(flat, g, table), flat.numel() * 4 * D),
             flat.numel() * 4 * D)
@@ -782,22 +874,26 @@ def time_window_kernels(gen):
             n_rows = sum(f.numel() for _, f, *_ in segs)
             row = 4 * D
             if kind == "fwin":
+                bags = [gather_weighted_bags(t, f, c)
+                        for t, f, c, *_ in segs]
                 out[f"{name} {tag}"] = (
-                    cuda_ms(lambda: [fused_window_sample(t, f, c, st, k, tq)
-                                     for t, f, c, st, k, _ in segs]),
-                    cuda_ms(lambda: [fused_window_sample_plain(
+                    device_ms(lambda: [fused_window_sample(t, f, c, st, k, tq)
+                                       for t, f, c, st, k, _ in segs]),
+                    device_ms(lambda: [fused_window_sample_plain(
                         t, f, c, st, k, tq) for t, f, c, st, k, _ in segs],
                         iters=5),
-                    None,
+                    # its function is gather_weighted's on the same inputs
+                    device_ms(lambda: [embedding_bag(bg, g.shape)
+                                       for bg, (*_, g) in zip(bags, segs)]),
                     # reads the table, idx and w; writes out (g's size)
                     bound(nbytes(table) + sum(nbytes(f, c, g) for
                                               _, f, c, _, _, g in segs),
                           2 * row * n_rows), None)
                 continue
             out[f"{name} {tag}"] = (
-                cuda_ms(lambda: [windowed_weighted_bwd(t, f, c, g, st, k, tq)
-                                 for t, f, c, st, k, g in segs], iters=10),
-                cuda_ms(lambda: [windowed_weighted_bwd_plain(
+                device_ms(lambda: [windowed_weighted_bwd(t, f, c, g, st, k, tq)
+                                   for t, f, c, st, k, g in segs], iters=10),
+                device_ms(lambda: [windowed_weighted_bwd_plain(
                     t, f, c, g, st, k, tq) for t, f, c, st, k, g in segs],
                     iters=3, warmup=1),
                 None,
@@ -806,12 +902,12 @@ def time_window_kernels(gen):
                                               for _, f, c, _, _, g in segs),
                       4 * row * n_rows), row * n_rows)
             out[f"gather_weighted_bwd on the same segments {tag}"] = (
-                cuda_ms(lambda: [gather_weighted_bwd(t, f, c, g)
-                                 for t, f, c, st, k, g in segs], iters=10),
+                device_ms(lambda: [gather_weighted_bwd(t, f, c, g)
+                                   for t, f, c, st, k, g in segs], iters=10),
                 None, None, out[f"{name} {tag}"][3], row * n_rows)
             for t, f, c, st, k, g in segs:
                 out[f"{name} {tag} K={k} ({f.shape[1]} queries)"] = (
-                    cuda_ms(lambda: windowed_weighted_bwd(t, f, c, g, st, k,
+                    device_ms(lambda: windowed_weighted_bwd(t, f, c, g, st, k,
                                                           tq), iters=10),
                     None, None,
                     bound(2 * nbytes(t) + nbytes(f, g) + 2 * nbytes(c),
@@ -1171,9 +1267,13 @@ def check_train_switch_vs_default(cfg, switch):
 # --- times -------------------------------------------------------------------
 
 def time_kernels(gen):
-    """Kernel and plain-twin ms of the three default-path kernels, the
-    bound (ms, what bounds it) of the timings the report names, and the f32
-    adds into dtable of each backward timing."""
+    """Device ms of the three default-path kernels and their plain twins
+    over the four levels of each canvas, and level by level for
+    gather_weighted and pack_corners at 640x640 and gather_weighted_bwd at
+    640x480, with gather_weighted's ``F.embedding_bag`` yardstick on the
+    same inputs. Returns ({name: (kernel ms, plain ms, library ms or
+    None)}, {name: (bound ms, what bounds it)}, {name: f32 adds into dtable}
+    of each backward timing)."""
     from dskd_tpu_torch.ops.msda import corner_index_and_weights
     from dskd_tpu_torch.ops.mxu_gather import gather_weighted, \
         gather_weighted_bwd, gather_weighted_bwd_plain, gather_weighted_plain
@@ -1181,13 +1281,13 @@ def time_kernels(gen):
         pack_corners_plain
 
     times, bounds, adds = {}, {}, {}
+    row = 4 * D
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
+        es = torch.empty((), dtype=dtype).element_size()
         for levels, Q, canvas in ((LEVELS, Q_ENC, "640x640"),
                                   (LEVELS, Q_DEC, "640x640"),
-                                  (TRAIN_LEVELS, sum(
-                                      h * w for h, w in TRAIN_LEVELS),
-                                   "640x480")):
+                                  (TRAIN_LEVELS, Q_TRAIN, "640x480")):
             value, per_level = level_inputs(gen, dtype, Q, levels)
             slices, tables, args, douts = [], [], [], []
             start = 0
@@ -1199,27 +1299,49 @@ def time_kernels(gen):
                 args.append(corner_index_and_weights(loc, attn, h, w, dtype))
                 douts.append(torch.randn(B, Q, HEADS, 4 * D, generator=gen)
                              .to(DEVICE, dtype))
-            n_rows = sum(f.numel() for f, _ in args)   # all in range
-            row = 4 * D
             if canvas == "640x640":
-                bounds[f"gather_weighted {tag} Q={Q}"] = bound(
+                shape = (B, Q, HEADS, row)
+                bags = [gather_weighted_bags(t, f, c)
+                        for t, (f, c) in zip(tables, args)]
+                key = f"gather_weighted {tag} Q={Q}"
+                # reads the tables, idx and w; writes one row per sample
+                bounds[key] = bound(
                     sum(nbytes(t, f, c) for t, (f, c) in zip(tables, args))
-                    + len(levels) * B * Q * HEADS * row * value.element_size(),
-                    2 * row * n_rows)
+                    + len(levels) * B * Q * HEADS * row * es,
+                    2 * row * sum(f.numel() for f, _ in args))
+                times[key] = (
+                    device_ms(lambda: [gather_weighted(t, f, c) for t, (f, c)
+                                       in zip(tables, args)]),
+                    device_ms(lambda: [gather_weighted_plain(t, f, c)
+                                       for t, (f, c) in zip(tables, args)],
+                              iters=5),
+                    device_ms(lambda: [embedding_bag(bg, shape)
+                                       for bg in bags]))
+                for lvl, ((h, w), t, (f, c), bg) in enumerate(zip(
+                        levels, tables, args, bags)):
+                    lkey = f"{key} level {lvl} ({h}x{w}, {t.shape[1]} rows)"
+                    bounds[lkey] = bound(nbytes(t, f, c) + B * Q * HEADS
+                                         * row * es, 2 * row * f.numel())
+                    times[lkey] = (
+                        device_ms(lambda: gather_weighted(t, f, c)),
+                        device_ms(lambda: gather_weighted_plain(t, f, c),
+                                  iters=5),
+                        device_ms(lambda: embedding_bag(bg, shape)))
                 if Q == Q_ENC:
-                    bounds[f"pack_corners {tag}"] = bound(
-                        sum(nbytes(v, t) for (v, _, _), t in zip(slices,
-                                                                 tables)), 0)
-                    times[f"pack_corners {tag}"] = (
-                        cuda_ms(lambda: [pack_corners(*a) for a in slices]),
-                        cuda_ms(lambda: [pack_corners_plain(*a)
-                                         for a in slices]))
-                times[f"gather_weighted {tag} Q={Q}"] = (
-                    cuda_ms(lambda: [gather_weighted(t, f, c) for t, (f, c)
-                                     in zip(tables, args)]),
-                    cuda_ms(lambda: [gather_weighted_plain(t, f, c)
-                                     for t, (f, c) in zip(tables, args)],
-                            iters=5))
+                    key = f"pack_corners {tag}"
+                    bounds[key] = bound(sum(nbytes(v, t) for (v, _, _), t
+                                            in zip(slices, tables)), 0)
+                    times[key] = (
+                        device_ms(lambda: [pack_corners(*a) for a in slices]),
+                        device_ms(lambda: [pack_corners_plain(*a)
+                                           for a in slices]), None)
+                    for lvl, (a, t) in enumerate(zip(slices, tables)):
+                        lkey = f"{key} level {lvl} ({a[1]}x{a[2]})"
+                        bounds[lkey] = bound(nbytes(a[0], t), 0)
+                        times[lkey] = (
+                            device_ms(lambda: pack_corners(*a)),
+                            device_ms(lambda: pack_corners_plain(*a)), None)
+            n_rows = sum(f.numel() for f, _ in args)   # all in range
             key = f"gather_weighted_bwd {tag} Q={Q} {canvas}"
             # reads table, idx, w and dout; writes dtable and dw
             bounds[key] = bound(
@@ -1228,12 +1350,12 @@ def time_kernels(gen):
                 4 * row * n_rows)
             adds[key] = row * n_rows
             times[key] = (
-                cuda_ms(lambda: [gather_weighted_bwd(t, f, c, g) for
-                                 t, (f, c), g in zip(tables, args, douts)],
-                        iters=10),
-                cuda_ms(lambda: [gather_weighted_bwd_plain(t, f, c, g) for
-                                 t, (f, c), g in zip(tables, args, douts)],
-                        iters=3, warmup=1))
+                device_ms(lambda: [gather_weighted_bwd(t, f, c, g) for
+                                   t, (f, c), g in zip(tables, args, douts)],
+                          iters=10),
+                device_ms(lambda: [gather_weighted_bwd_plain(t, f, c, g) for
+                                   t, (f, c), g in zip(tables, args, douts)],
+                          iters=3, warmup=1), None)
             if canvas == "640x480":
                 for lvl, ((h, w), t, (f, c), g) in enumerate(zip(
                         levels, tables, args, douts)):
@@ -1242,20 +1364,21 @@ def time_kernels(gen):
                                          + 2 * nbytes(c), 4 * row * f.numel())
                     adds[lkey] = row * f.numel()
                     times[lkey] = (
-                        cuda_ms(lambda: gather_weighted_bwd(t, f, c, g),
-                                iters=10),
-                        cuda_ms(lambda: gather_weighted_bwd_plain(t, f, c,
-                                                                  g),
-                                iters=3, warmup=1))
+                        device_ms(lambda: gather_weighted_bwd(t, f, c, g),
+                                  iters=10),
+                        device_ms(lambda: gather_weighted_bwd_plain(t, f, c,
+                                                                    g),
+                                  iters=3, warmup=1), None)
     return times, bounds, adds
 
 
 def time_sampling_kernels(gen):
     """mxu_gather and fused_msda_sample, forward and backward, at the shapes
     the switches give them in the training step's encoder: levels 1-3 of
-    the 640x480 canvas, Q=6380, one MSDA call. Returns {name: (kernel ms,
-    plain ms, library ms or None, (bound ms, bound by), f32 adds into dtable
-    or None)}, f32 and bf16, and the backward kernels per level."""
+    the 640x480 canvas, Q=6380, one MSDA call; device ms. Returns {name:
+    (kernel ms, plain ms, library ms or None, (bound ms, bound by), f32 adds
+    into dtable or None)}, f32 and bf16, and the backward kernels per
+    level."""
     from dskd_tpu_torch.ops.fused_sample import fused_msda_sample, \
         fused_msda_sample_bwd, fused_msda_sample_bwd_plain, \
         fused_msda_sample_plain
@@ -1273,7 +1396,7 @@ def time_sampling_kernels(gen):
         tag = "f32" if dtype == torch.float32 else "bf16"
         es = torch.empty((), dtype=dtype).element_size()
         value, per_level = level_inputs(gen, dtype, Q, levels)
-        mg, fs = [], []
+        mg, fs, fbags = [], [], []
         start = levels[0][0] * levels[0][1]
         for (h, w), (loc, attn) in zip(levels[1:], per_level[1:]):
             v = value[:, start:start + h * w]
@@ -1288,6 +1411,8 @@ def time_sampling_kernels(gen):
             lin = ((bi * S + flat.long()) * HEADS + hd).reshape(-1)
             mg.append((table, flat, g, S, lin))
             c00, wts = fused_index_and_weights(loc, attn, h, w, dtype)
+            fbags.append(fused_sample_bags(value, start - h * w, (h, w), c00,
+                                           wts))
             rows = c00[..., None].long() + torch.tensor([0, 1, w, w + 1],
                                                         device=DEVICE)
             taps = int(((rows >= 0) & (rows < h * w)).sum())
@@ -1296,36 +1421,37 @@ def time_sampling_kernels(gen):
         n_idx = sum(f.numel() for _, f, _, _, _ in mg)
         zeros = [torch.zeros_like(t).view(-1, 4 * D) for t, *_ in mg]
         out[f"mxu_gather {tag}"] = (
-            cuda_ms(lambda: [mxu_gather(t, f) for t, f, _, _, _ in mg]),
-            cuda_ms(lambda: [mxu_gather_plain(t, f) for t, f, _, _, _ in mg],
-                    iters=5),
-            cuda_ms(lambda: [torch.index_select(t.view(-1, 4 * D), 0, lin)
-                             for t, _, _, _, lin in mg]),
+            device_ms(lambda: [mxu_gather(t, f) for t, f, _, _, _ in mg]),
+            device_ms(lambda: [mxu_gather_plain(t, f) for t, f, _, _, _ in mg],
+                      iters=5),
+            device_ms(lambda: [torch.index_select(t.view(-1, 4 * D), 0, lin)
+                               for t, _, _, _, lin in mg]),
             bound(sum(nbytes(t, f, g) for t, f, g, _, _ in mg), 0), None)
         out[f"mxu_gather_bwd {tag}"] = (
-            cuda_ms(lambda: [mxu_gather_bwd(f, g, S)
-                             for _, f, g, S, _ in mg], iters=10),
-            cuda_ms(lambda: [mxu_gather_bwd_plain(f, g, S)
-                             for _, f, g, S, _ in mg], iters=3, warmup=1),
-            cuda_ms(lambda: [torch.index_add(z, 0, lin, g.view(-1, 4 * D))
-                             for z, (_, _, g, _, lin) in zip(zeros, mg)],
-                    iters=10),
+            device_ms(lambda: [mxu_gather_bwd(f, g, S)
+                               for _, f, g, S, _ in mg], iters=10),
+            device_ms(lambda: [mxu_gather_bwd_plain(f, g, S)
+                               for _, f, g, S, _ in mg], iters=3, warmup=1),
+            device_ms(lambda: [torch.index_add(z, 0, lin, g.view(-1, 4 * D))
+                               for z, (_, _, g, _, lin) in zip(zeros, mg)],
+                      iters=10),
             bound(sum(nbytes(f, g, t) for t, f, g, _, _ in mg),
                   n_idx * 4 * D), n_idx * 4 * D)
         out[f"fused_sample {tag}"] = (
-            cuda_ms(lambda: [fused_msda_sample(v, c, wt, w)
-                             for v, c, wt, _, w, _ in fs]),
-            cuda_ms(lambda: [fused_msda_sample_plain(v, c, wt, w)
-                             for v, c, wt, _, w, _ in fs], iters=5),
-            None,
+            device_ms(lambda: [fused_msda_sample(v, c, wt, w)
+                               for v, c, wt, _, w, _ in fs]),
+            device_ms(lambda: [fused_msda_sample_plain(v, c, wt, w)
+                               for v, c, wt, _, w, _ in fs], iters=5),
+            device_ms(lambda: [embedding_bag(bg, (B, Q, HEADS, D))
+                               for bg in fbags]),
             bound(sum(nbytes(v, c, wt, gq) for v, c, wt, gq, _, _ in fs),
                   sum(2 * D * taps for *_, taps in fs)), None)
         out[f"fused_sample_bwd {tag}"] = (
-            cuda_ms(lambda: [fused_msda_sample_bwd(v, c, wt, gq, w)
-                             for v, c, wt, gq, w, _ in fs], iters=10),
-            cuda_ms(lambda: [fused_msda_sample_bwd_plain(v, c, wt, gq, w)
-                             for v, c, wt, gq, w, _ in fs], iters=3,
-                    warmup=1),
+            device_ms(lambda: [fused_msda_sample_bwd(v, c, wt, gq, w)
+                               for v, c, wt, gq, w, _ in fs], iters=10),
+            device_ms(lambda: [fused_msda_sample_bwd_plain(v, c, wt, gq, w)
+                               for v, c, wt, gq, w, _ in fs], iters=3,
+                      warmup=1),
             None,
             # reads table, idx, w and g; writes dtable and dw
             bound(sum(2 * nbytes(v) + nbytes(c, gq) + 2 * nbytes(wt)
@@ -1335,17 +1461,17 @@ def time_sampling_kernels(gen):
         for lvl, ((h, w), (_, f, g, S, _), (v, c, wt, gq, _, taps)) in \
                 enumerate(zip(levels[1:], mg, fs), start=1):
             out[f"mxu_gather_bwd {tag} level {lvl} ({h}x{w}, {S} rows)"] = (
-                cuda_ms(lambda: mxu_gather_bwd(f, g, S), iters=10),
-                cuda_ms(lambda: mxu_gather_bwd_plain(f, g, S), iters=3,
-                        warmup=1), None,
+                device_ms(lambda: mxu_gather_bwd(f, g, S), iters=10),
+                device_ms(lambda: mxu_gather_bwd_plain(f, g, S), iters=3,
+                          warmup=1), None,
                 bound(nbytes(f, g) + B * S * HEADS * 4 * D * es,
                       f.numel() * 4 * D), f.numel() * 4 * D)
             out[f"fused_sample_bwd {tag} level {lvl} ({h}x{w}, {h * w} "
                 f"rows)"] = (
-                cuda_ms(lambda: fused_msda_sample_bwd(v, c, wt, gq, w),
-                        iters=10),
-                cuda_ms(lambda: fused_msda_sample_bwd_plain(v, c, wt, gq, w),
-                        iters=3, warmup=1), None,
+                device_ms(lambda: fused_msda_sample_bwd(v, c, wt, gq, w),
+                          iters=10),
+                device_ms(lambda: fused_msda_sample_bwd_plain(v, c, wt, gq, w),
+                          iters=3, warmup=1), None,
                 bound(2 * nbytes(v) + nbytes(c, gq) + 2 * nbytes(wt),
                       4 * D * taps), D * taps)
     return out
@@ -1388,8 +1514,9 @@ def time_train(state, step, teacher, batch, iters=5):
 
 
 def profile(fn, what):
-    """Device time by kernel over one call of ``fn``, and the device's idle
-    share of its wall time (one stream: kernels do not overlap)."""
+    """Device time by kernel over one call of ``fn`` (the 15 largest and
+    the port's own kernels), and the device's idle share of its wall time
+    (one stream: kernels do not overlap)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     fn()
@@ -1400,15 +1527,16 @@ def profile(fn, what):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+    kernels = device_events(prof)
     busy = sum(e.self_device_time_total for e in kernels)
     print(f"profile: {what} under the profiler: wall {wall_us / 1e3:.3f} "
           f"ms, device busy {busy / 1e3:.3f} ms, idle share "
           f"{1 - busy / wall_us:.3f}, {sum(e.count for e in kernels)} kernel "
           f"launches of {len(kernels)} kernels")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    # the 15 largest, then the port's own kernels among the others
+    port = [e for e in ranked[15:] if any(n in e.key for n in counters())]
+    for e in ranked[:15] + port:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.self_device_time_total / busy:6.1%} x{e.count:<5d} "
               f"{e.key[:100]}")
@@ -1419,13 +1547,15 @@ def report_kernel_times(card, gen):
     twin, library call, bound and, for a backward, its add rate. Returns
     the timings of time_kernels, time_sampling_kernels and
     time_window_kernels."""
-    print(f"times on {card} (a backward's rate: its f32 adds into dtable, "
-          f"one per in-range sample element, over its kernel time):")
+    print(f"times on {card}, device ms (device_ms; a backward's rate: its "
+          f"f32 adds into dtable, one per in-range sample element, over its "
+          f"kernel time):")
     ktimes, kbounds, kadds = time_kernels(gen)
-    for name, (k_ms, p_ms) in ktimes.items():
+    for name, (k_ms, p_ms, l_ms) in ktimes.items():
         b_ms, rate = kbounds.get(name), adds_rate(kadds.get(name), k_ms)
+        lib = "" if l_ms is None else f", embedding_bag {l_ms:.4f} ms"
         print(f"  {name}: kernel {k_ms:.4f} ms{rate}, plain twin "
-              f"{p_ms:.4f} ms (B={B})"
+              f"{p_ms:.4f} ms{lib} (B={B})"
               + (f", bound {b_ms[0]:.4f} ms ({b_ms[1]})" if b_ms else ""))
     sampling = time_sampling_kernels(gen)
     for name, (k_ms, p_ms, l_ms, (b_ms, by), n_adds) in sampling.items():
@@ -1441,6 +1571,21 @@ def report_kernel_times(card, gen):
               f"{adds_rate(n_adds, k_ms)}{plain}{lib}, bound {b_ms:.4f} ms "
               f"({by})")
     return ktimes, kbounds, sampling, wtimes
+
+
+def ptxas(log):
+    """'kernel: registers, spills' of each entry function in a ptxas -v
+    report."""
+    out, name, spills = [], "?", ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "spill stores" in ln:
+            spills = ln.strip().split(", ", 1)[-1]
+        elif "Used" in ln and "registers" in ln:
+            regs = ln.split("Used", 1)[1].split(",")[0].strip()
+            out.append(f"{name}: {regs}, {spills}")
+    return out
 
 
 def main() -> int:
@@ -1479,8 +1624,7 @@ def main() -> int:
     print(f"build: {len(sources)} sources in {time.perf_counter() - t0:.2f} "
           f"s")
     for name, (secs, log) in _build.BUILD_LOG.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"build: {name} nvcc {secs:.2f} s; {'; '.join(regs)}")
+        print(f"build: {name} nvcc {secs:.2f} s; {'; '.join(ptxas(log))}")
 
     gen = torch.Generator().manual_seed(0)
     err = check_kernels(gen)
@@ -1559,8 +1703,8 @@ def main() -> int:
     bwd_key = f"gather_weighted_bwd f32 Q={Q_TRAIN} 640x480"
     gw_key = f"gather_weighted f32 Q={Q_ENC}"
 
-    def entry(name, source, replaces, max_abs_err, ms, plain_ms, bound_ms,
-              library_ms=None):
+    def entry(name, source, replaces, max_abs_err, ms, plain_ms, library_ms,
+              bound_ms):
         return {"name": name, "route": "cuda",
                 "source": f"dskd_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[name],
@@ -1570,8 +1714,8 @@ def main() -> int:
 
     def sampled(name, source, replaces, max_abs_err, times=sampling):
         k_ms, p_ms, l_ms, b, _ = times[f"{name} f32"]
-        return entry(name, source, replaces, max_abs_err, k_ms, p_ms, b,
-                     l_ms)
+        return entry(name, source, replaces, max_abs_err, k_ms, p_ms, l_ms,
+                     b)
 
     report = {"kernels": [
         entry("pack_corners", "pack_corners.cu",

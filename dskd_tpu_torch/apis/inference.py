@@ -1,11 +1,15 @@
 """Inference API (port of dskd_tpu/apis/inference.py ``init_detector`` and
 ``inference_detector``).
 
-``init_detector`` builds the flagship detector on the card (or on the device
-the caller names, ``device="cpu"`` in the tests) with either JAX-layout
-variables or seeded random weights; ``inference_detector`` takes
-raw RGB images through the test pipeline on that device and returns, per
-image, the reference's ``bbox2result`` format: one (n, 5)
+``init_detector(config, checkpoint=None, task=None)`` takes JAX's arguments
+in JAX's order and builds the flagship detector on the card (or on the
+device the caller names, ``device="cpu"`` in the tests) with either
+JAX-layout ``variables`` or seeded random weights; it returns
+``(model, cfg)``, where JAX returns ``(model, variables, cfg)``: the
+weights live in the ``nn.Module``. ``inference_detector`` takes one image
+or a sequence of them, each a path (decoded by ``data.pipeline.load_image``)
+or an RGB array, through the test pipeline on the model's device and
+returns, per image, the reference's ``bbox2result`` format: one (n, 5)
 [x1 y1 x2 y2 score] numpy array per class.
 """
 from __future__ import annotations
@@ -15,7 +19,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..data.pipeline import PipelineConfig, preprocess
+from ..data.pipeline import PipelineConfig, load_image, preprocess
 from ..models.detector import GFLDeformableDETR, build_detector, init_weights
 from ..models.gfl_detr_head import get_bboxes
 from ..utils.config import ExperimentConfig, load_config
@@ -23,14 +27,17 @@ from ..utils.weights import state_dict_from_jax
 
 
 def init_detector(config: Union[str, ExperimentConfig],
-                  variables: Optional[Dict[str, Any]] = None, *,
-                  device="cuda", checkpoint: Optional[str] = None,
-                  seed: int = 0):
+                  checkpoint: Optional[str] = None,
+                  task: Optional[int] = None, *,
+                  variables: Optional[Dict[str, Any]] = None,
+                  device="cuda", seed: int = 0):
     """Build the detector on ``device``; returns (model, cfg).
 
-    ``variables``: the JAX package's ``{"params", "batch_stats"}`` tree, or
-    None for seeded random weights (``models.detector.init_weights``).
-    Restoring a training checkpoint is not ported yet.
+    ``checkpoint``: restoring a training checkpoint is not ported yet, so
+    any checkpoint raises NotImplementedError. ``task`` is accepted and
+    unused, as in the JAX package. ``variables``: the JAX package's
+    ``{"params", "batch_stats"}`` tree, or None for seeded random weights
+    (``models.detector.init_weights``).
     """
     if checkpoint is not None:
         raise NotImplementedError("restoring a dskd_tpu checkpoint is not "
@@ -56,13 +63,14 @@ def prepare_batch(cfg: ExperimentConfig, imgs: Sequence, device="cuda"):
 
 @torch.inference_mode()
 def inference_detector(model: GFLDeformableDETR, cfg: ExperimentConfig,
-                       imgs: Union[np.ndarray, Sequence[np.ndarray]],
+                       imgs: Union[str, np.ndarray, Sequence],
                        score_thr: float = 0.0) -> List:
-    """Run inference on RGB image arrays; returns per-image lists of
-    per-class (n, 5) arrays (one list when given one image)."""
-    single = isinstance(imgs, np.ndarray)
+    """Run inference on image paths or RGB arrays; returns per-image lists
+    of per-class (n, 5) arrays (one list when given one image)."""
+    single = isinstance(imgs, (str, np.ndarray))
     if single:
         imgs = [imgs]
+    imgs = [load_image(im) if isinstance(im, str) else im for im in imgs]
     device = next(model.parameters()).device
     images, img_hw, sf = prepare_batch(cfg, imgs, device)
     out = model(images, img_hw)

@@ -9,124 +9,266 @@
 //   out[b, q, hd, e] = sum_p table[b, idx[b,q,hd,p], hd, e] * w[b,q,hd,p, e/D]
 //
 // Each corner weight spans its D-lane chunk of the 4D-wide packed row. Sums
-// run in f32 registers; the result is written in the table's type. An index
-// outside [0, S) contributes nothing and is never read: on the TPU the
-// one-hot row of such an index matches no table row, on the GPU it would be a
-// read out of bounds.
+// run in f32 registers, point after point with one fused multiply-add each
+// (the order the windowed kernels and branches repeat); the result is
+// written in the table's type. w is read as f32 or bf16 (bf16 to f32 is
+// exact). An index outside [0, S) contributes nothing and is never read: on
+// the TPU the one-hot row of such an index matches no table row, on the GPU
+// it would be a read out of bounds.
 //
-// What bounds it on the H100: bytes, at random row addresses. Per (b, q, hd)
-// it reads P rows of 4D elements (512 B each in f32, 256 B in bf16) and
-// writes one; it does 2 flops per byte read. The TPU needed the one-hot
-// matmul because its gather is a scalar loop; Hopper gathers rows directly,
-// so this kernel does no matmul and its cost is the row reads. In f32 the
-// flagship's four level tables hold 27.5, 7.2, 2.0 and 0.6 MB per image, so
-// the three small ones stay in the 50 MB L2 while they are sampled.
+// What bounds it on the H100: memory, at random row addresses; it is a
+// gather, not a product, so the tensor cores have no part in it. Per
+// (b, q, hd) it reads P rows of 4D elements (512 B each in f32, 256 B in
+// bf16) and writes one. The bound counts each table byte once, but the rows
+// themselves cross from L2 to the SMs P times per sample (1.1 GB in f32 for
+// the four levels of a 640x640 canvas at B=2, Q=8500), four times the
+// output; only reuse in L1 cuts that.
 //
-// Design: one warp per (b, q, hd); lane l owns 4 consecutive elements of the
-// row, so each row read is one coalesced 16-byte (f32) or 8-byte (bf16) load
-// per lane. The table is addressed through explicit batch, row and head
-// strides (elements; the row itself is contiguous), so the (B, S', H, 4D)
-// output of pack_corners is read in place with no head-major transpose. idx
-// and w are contiguous (B, Q, H, P) and (B, Q, H, P, 4) with w in f32; out is
-// contiguous (B, Q, H, 4D).
+// What held the first design back (one warp per (b, q, hd), a runtime loop
+// over the points): latency. Each point loaded its index, then its weight
+// and row, one after the other, so a lane had one row load in flight and
+// eight memory latencies in series per sample; bf16 lanes moved 8 bytes,
+// not 16, so bf16 was no faster than f32.
+//
+// Design:
+//   * P is a template parameter (4, the flagship's; a generic kernel takes
+//     any other P and row widths other than 16 and 32 vectors). A sample's
+//     P indices and its lanes' weights load together, an index outside
+//     [0, S) turns into a zero weight and a predicated row load, and all P
+//     row loads are issued before the first multiply-add: P rows in flight
+//     per lane.
+//   * kG lanes span one row, one 16-byte vector each, and 32 / kG rows
+//     share a warp: a warp per f32 row of 128 elements, a half-warp per
+//     bf16 row.
+//   * Stores stream (evict-first): the output is written once, and must not
+//     push the table, which the next samples read, out of L2.
+//   * One sample per lane group and a grid over all samples, in (b, q, hd)
+//     order. Persistent blocks that load the next sample's indices before
+//     the current one's multiply-adds, and a (b, hd, q) order that gives a
+//     block consecutive raster queries of one head, both measured slower on
+//     the H100 (tools/torch_kernel_steps.py).
+// With the index latency exposed once per sample and P rows in flight, the
+// f32 kernel moves the rows from L2 at about the rate L2 serves random
+// 512-byte rows (PERF.md).
+// The table is addressed through explicit batch, row and head strides
+// (elements; each row contiguous), so the (B, S', H, 4D) output of
+// pack_corners is read in place. idx (int32) and w are contiguous
+// (B, Q, H, P) and (B, Q, H, P, 4); out is contiguous (B, Q, H, 4D). The
+// wrapper checks that the table is 16-byte aligned and that its strides and
+// corner chunks are whole 16-byte vectors.
+#include <climits>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-__device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
+constexpr int kThreads = 256;               // 8 warps
+
+struct Shape {
+  int items;                                // B * Q * H samples
+  int queries, heads, points, table_rows;
+  int nv;                                   // 16-byte vectors per row
+  int vpc;                                  // vectors per corner chunk
+  int64_t stride_b, stride_s, stride_h;
+};
+
+__device__ __forceinline__ void load_vec(const float* p, float (&f)[4]) {
   const float4 q = __ldg(reinterpret_cast<const float4*>(p));
   f[0] = q.x; f[1] = q.y; f[2] = q.z; f[3] = q.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&f)[4]) {
-  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+__device__ __forceinline__ float2 bf2(unsigned u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&f)[8]) {
+  const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+  const float2 a = bf2(q.x), b = bf2(q.y), c = bf2(q.z), d = bf2(q.w);
   f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+  f[4] = c.x; f[5] = c.y; f[6] = d.x; f[7] = d.y;
 }
 
-__device__ __forceinline__ void store4(float* p, const float (&f)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+__device__ __forceinline__ void store_vec(float* p, const float (&f)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(f[0], f[1], f[2], f[3]));
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&f)[4]) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(f[0], f[1]);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(f[2], f[3]);
-  uint2 q;
-  q.x = *reinterpret_cast<const unsigned*>(&a);
-  q.y = *reinterpret_cast<const unsigned*>(&b);
-  *reinterpret_cast<uint2*>(p) = q;
+__device__ __forceinline__ unsigned pack_bf2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
 }
 
-template <typename T>
-__global__ void gather_weighted_kernel(const T* __restrict__ table,
-                                       const int* __restrict__ idx,
-                                       const float* __restrict__ w,
-                                       T* __restrict__ out, int64_t rows,
-                                       int64_t queries, int heads, int points,
-                                       int64_t table_rows, int d4, int d,
-                                       int64_t stride_b, int64_t stride_s,
-                                       int64_t stride_h) {
-  const int64_t warp =
-      (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float (&f)[8]) {
+  __stcs(reinterpret_cast<uint4*>(p),
+         make_uint4(pack_bf2(f[0], f[1]), pack_bf2(f[2], f[3]),
+                    pack_bf2(f[4], f[5]), pack_bf2(f[6], f[7])));
+}
+
+__device__ __forceinline__ float load_w(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float load_w(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+// kP points per sample; kG lanes per row, one 16-byte vector each (16 or
+// 32, so that 32 / kG rows share a warp).
+template <typename T, typename WT, int kP, int kG>
+__global__ void __launch_bounds__(kThreads)
+gather_weighted_kernel(const T* __restrict__ table,
+                       const int* __restrict__ idx, const WT* __restrict__ w,
+                       T* __restrict__ out, Shape s) {
+  constexpr int kV = 16 / sizeof(T);        // elements per vector
+  constexpr int kRows = 32 / kG;            // samples per warp
   const int lane = threadIdx.x & 31;
-  if (warp >= rows) return;
-  const int hd = static_cast<int>(warp % heads);
-  const int64_t b = warp / heads / queries;
-  const int* ip = idx + warp * points;
-  const float* wp = w + warp * points * 4;
-  const T* base = table + b * stride_b + hd * stride_h;
-  T* op = out + warp * d4;
-  for (int e = lane * 4; e < d4; e += 128) {
-    const int c = e / d;                    // corner of this lane's chunk
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int p = 0; p < points; ++p) {
-      const int r = __ldg(ip + p);
-      if (r < 0 || r >= table_rows) continue;
-      const float wt = __ldg(wp + p * 4 + c);
-      float f[4];
-      load4(base + r * stride_s + e, f);
+  const int e = (lane % kG) * kV;           // this lane's elements of a row
+  const int corner = (lane % kG) / s.vpc;
+  const int it =                            // the (b, q, hd) sample
+      (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * kRows + lane / kG;
+  if (it >= s.items) return;
+  const int b = it / (s.queries * s.heads);
+  const int64_t base = b * s.stride_b + (it % s.heads) * s.stride_h;
+  const int* ip = idx + static_cast<int64_t>(it) * kP;
+  const WT* wp = w + static_cast<int64_t>(it) * kP * 4;
+  // the indices and this lane's corner weights; outside [0, S): row -1,
+  // weight 0
+  int r[kP];
+  float wt[kP];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] = fmaf(wt, f[i], acc[i]);
+  for (int p = 0; p < kP; ++p) {
+    const int x = __ldg(ip + p);
+    const float y = load_w(wp + p * 4 + corner);
+    const bool ok = static_cast<unsigned>(x) <
+                    static_cast<unsigned>(s.table_rows);
+    r[p] = ok ? x : -1;
+    wt[p] = ok ? y : 0.f;
+  }
+  // all P rows in flight before the first multiply-add
+  float f[kP][kV];
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    if (r[p] >= 0) {
+      load_vec(table + base + static_cast<int64_t>(r[p]) * s.stride_s + e,
+               f[p]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kV; ++i) f[p][i] = 0.f;
     }
-    store4(op + e, acc);
+  }
+  float acc[kV];
+#pragma unroll
+  for (int i = 0; i < kV; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+#pragma unroll
+    for (int i = 0; i < kV; ++i) acc[i] = fmaf(wt[p], f[p][i], acc[i]);
+  }
+  store_vec(out + static_cast<int64_t>(it) * s.nv * kV + e, acc);
+}
+
+// Any P and any row of whole 16-byte vectors: a warp per sample, its lanes
+// over the row's vectors, the points in a runtime loop.
+template <typename T, typename WT>
+__global__ void __launch_bounds__(kThreads)
+gather_weighted_generic(const T* __restrict__ table,
+                        const int* __restrict__ idx, const WT* __restrict__ w,
+                        T* __restrict__ out, Shape s) {
+  constexpr int kV = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31;
+  const int it = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (it >= s.items) return;
+  const int b = it / (s.queries * s.heads);
+  const int64_t base = b * s.stride_b + (it % s.heads) * s.stride_h;
+  const int* ip = idx + static_cast<int64_t>(it) * s.points;
+  const WT* wp = w + static_cast<int64_t>(it) * s.points * 4;
+  for (int j = lane; j < s.nv; j += 32) {
+    const int c = j / s.vpc;
+    float acc[kV];
+#pragma unroll
+    for (int i = 0; i < kV; ++i) acc[i] = 0.f;
+    for (int p = 0; p < s.points; ++p) {
+      const int r = __ldg(ip + p);
+      if (static_cast<unsigned>(r) >= static_cast<unsigned>(s.table_rows))
+        continue;
+      const float wt = load_w(wp + p * 4 + c);
+      float f[kV];
+      load_vec(table + base + static_cast<int64_t>(r) * s.stride_s + j * kV,
+               f);
+#pragma unroll
+      for (int i = 0; i < kV; ++i) acc[i] = fmaf(wt, f[i], acc[i]);
+    }
+    store_vec(out + static_cast<int64_t>(it) * s.nv * kV + j * kV, acc);
   }
 }
 
+// One kernel over the samples; kP == 0: the generic kernel.
+template <typename T, typename WT, int kP, int kG>
+cudaError_t run(const T* table, const int* idx, const WT* w, T* out,
+                const Shape& s, cudaStream_t stream) {
+  void (*kernel)(const T*, const int*, const WT*, T*, Shape);
+  int rows_per_block = kThreads / 32;
+  if constexpr (kP == 0) {
+    kernel = gather_weighted_generic<T, WT>;
+  } else {
+    kernel = gather_weighted_kernel<T, WT, kP, kG>;
+    rows_per_block *= 32 / kG;
+  }
+  const int blocks = (s.items + rows_per_block - 1) / rows_per_block;
+  kernel<<<blocks, kThreads, 0, stream>>>(table, idx, w, out, s);
+  return cudaGetLastError();
+}
+
+template <typename T, typename WT>
+cudaError_t dispatch(const void* table, const void* idx, const void* w,
+                     void* out, const Shape& s, cudaStream_t stream) {
+  const T* t = static_cast<const T*>(table);
+  const int* i = static_cast<const int*>(idx);
+  const WT* wt = static_cast<const WT*>(w);
+  T* o = static_cast<T*>(out);
+  // the flagship's rows (D = 32: 32 f32 or 16 bf16 vectors) and P = 4
+  if (s.points == 4 && s.nv == 32) return run<T, WT, 4, 32>(t, i, wt, o, s,
+                                                            stream);
+  if (s.points == 4 && s.nv == 16) return run<T, WT, 4, 16>(t, i, wt, o, s,
+                                                            stream);
+  return run<T, WT, 0, 32>(t, i, wt, o, s, stream);
+}
+
 template <typename T>
-int launch(const void* table, const void* idx, const void* w, void* out,
-           int64_t batch, int64_t queries, int64_t heads, int64_t points,
-           int64_t table_rows, int64_t d4, int64_t stride_b,
-           int64_t stride_s, int64_t stride_h, void* stream) {
-  const int64_t rows = batch * queries * heads;
-  if (rows == 0) return static_cast<int>(cudaSuccess);
-  const int threads = 256;                  // 8 warps, 8 (b, q, hd) rows
-  const int64_t blocks = (rows * 32 + threads - 1) / threads;
-  gather_weighted_kernel<T><<<static_cast<unsigned>(blocks), threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(table), static_cast<const int*>(idx),
-      static_cast<const float*>(w), static_cast<T*>(out), rows, queries,
-      static_cast<int>(heads), static_cast<int>(points), table_rows,
-      static_cast<int>(d4), static_cast<int>(d4 / 4), stride_b, stride_s,
-      stride_h);
-  return static_cast<int>(cudaGetLastError());
+int entry(const void* table, const void* idx, const void* w, void* out,
+          int64_t batch, int64_t queries, int64_t heads, int64_t points,
+          int64_t table_rows, int64_t d4, int64_t stride_b, int64_t stride_s,
+          int64_t stride_h, int64_t w_bf16, void* stream) {
+  constexpr int kV = 16 / sizeof(T);
+  const int64_t items = batch * queries * heads;
+  if (items == 0) return static_cast<int>(cudaSuccess);
+  if (items > INT_MAX / 2 || table_rows > INT_MAX || points > INT_MAX / 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Shape s{static_cast<int>(items), static_cast<int>(queries),
+                static_cast<int>(heads), static_cast<int>(points),
+                static_cast<int>(table_rows), static_cast<int>(d4 / kV),
+                static_cast<int>(d4 / 4 / kV), stride_b, stride_s, stride_h};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      w_bf16 ? dispatch<T, __nv_bfloat16>(table, idx, w, out, s, st)
+             : dispatch<T, float>(table, idx, w, out, s, st));
 }
 
 }  // namespace
 
-// Entry points, one per table type. Strides are in elements. Returns
-// cudaGetLastError() after the launch.
+// Entry points, one per table type; w_bf16 says whether w is bf16 (else
+// f32). Strides are in elements. Returns cudaGetLastError() after the
+// launch.
 extern "C" int gather_weighted_f32(const void* table, const void* idx,
                                    const void* w, void* out, int64_t batch,
                                    int64_t queries, int64_t heads,
                                    int64_t points, int64_t table_rows,
                                    int64_t d4, int64_t stride_b,
                                    int64_t stride_s, int64_t stride_h,
-                                   void* stream) {
-  return launch<float>(table, idx, w, out, batch, queries, heads, points,
-                       table_rows, d4, stride_b, stride_s, stride_h, stream);
+                                   int64_t w_bf16, void* stream) {
+  return entry<float>(table, idx, w, out, batch, queries, heads, points,
+                      table_rows, d4, stride_b, stride_s, stride_h, w_bf16,
+                      stream);
 }
 
 extern "C" int gather_weighted_bf16(const void* table, const void* idx,
@@ -135,8 +277,8 @@ extern "C" int gather_weighted_bf16(const void* table, const void* idx,
                                     int64_t points, int64_t table_rows,
                                     int64_t d4, int64_t stride_b,
                                     int64_t stride_s, int64_t stride_h,
-                                    void* stream) {
-  return launch<__nv_bfloat16>(table, idx, w, out, batch, queries, heads,
-                               points, table_rows, d4, stride_b, stride_s,
-                               stride_h, stream);
+                                    int64_t w_bf16, void* stream) {
+  return entry<__nv_bfloat16>(table, idx, w, out, batch, queries, heads,
+                              points, table_rows, d4, stride_b, stride_s,
+                              stride_h, w_bf16, stream);
 }

@@ -1,6 +1,6 @@
 """Test-time image preprocessing on the device (port of the test path of
 dskd_tpu/data/pipeline.py ``preprocess``, with the port's own copies of its
-``PipelineConfig`` and ``rescale_size``).
+``PipelineConfig``, ``rescale_size`` and ``load_image``).
 
 Rescale to ``img_scale`` keeping the aspect ratio (``rescale_size``),
 bilinear resize, normalize with the COCO mean/std, pad into the static
@@ -62,6 +62,34 @@ def rescale_size(h: int, w: int, scale: Tuple[int, int]
     max_long, max_short = max(scale), min(scale)
     f = min(max_long / max(h, w), max_short / min(h, w))
     return int(h * f + 0.5), int(w * f + 0.5), f
+
+
+def load_image(path: str) -> np.ndarray:
+    """Image file -> (h, w, 3) uint8 RGB array (the reference's
+    to_rgb=True): the port's copy of dskd_tpu/data/pipeline.py
+    ``load_image``. Decodes with OpenCV (BGR, turned to RGB) where it
+    imports, else with PIL; decoding is host work, so the choice changes no
+    device path. Raises FileNotFoundError for a file neither can read and
+    ImportError when neither is installed."""
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
+        if img is None:
+            raise FileNotFoundError(path)
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ImportError("load_image needs OpenCV (cv2) or PIL to decode "
+                          "an image file") from None
+    try:
+        with Image.open(path) as img:
+            return np.asarray(img.convert("RGB"))
+    except OSError as err:
+        raise FileNotFoundError(path) from err
 
 
 def resize_bilinear(img: torch.Tensor, new_h: int, new_w: int

@@ -30,11 +30,15 @@ backward ``csrc/gather_weighted_bwd.cu``; on CPU tensors they run
 one-hot matmul because its gather is a scalar loop; the GPU gathers rows
 directly, so these kernels take a table of any size: MSDA's
 ``mxu_gather_max_rows`` only chooses between the variants the JAX package
-switches with it. The backward keeps four table rows in flight per warp and
-adds each lane's four products into ``dtable`` with one 16-byte vector f32
-atomic, so the table, ``dout`` and ``dtable`` must be 16-byte aligned with
-row widths and strides a multiple of 4 elements (``check_aligned``; the
-wrappers raise otherwise).
+switches with it. The forward reads ``w`` in its own type, f32 or bf16
+(bf16 to f32 is exact, so the sums are those of an f32 ``w``): a bf16 step
+launches no cast. It moves the table's rows in 16-byte vectors, so in bf16
+the corner chunks and the table's strides must be multiples of 8 elements.
+The backward casts ``w`` to f32, keeps four table rows in flight per warp
+and adds each lane's four products into ``dtable`` with one 16-byte vector
+f32 atomic, so the table, ``dout`` and ``dtable`` must be 16-byte aligned
+with row widths and strides a multiple of 4 elements (``check_aligned``;
+the wrappers raise otherwise).
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ import torch
 
 from . import _build
 
-_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 9 + (ctypes.c_void_p,)
+_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 10 + (ctypes.c_void_p,)
 _SIGNATURES = {"gather_weighted_f32": _ARGS, "gather_weighted_bf16": _ARGS}
 _BWD_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int64,) * 9 + (
     ctypes.c_void_p,)
@@ -120,8 +124,8 @@ def _check(name, table, idx, w):
 
 def check_aligned(name, **tensors):
     """Raise unless each tensor starts on a 16-byte boundary: the kernels
-    move its rows in 16-byte (f32) or 8-byte (bf16) vectors and add into
-    an f32 ``dtable`` with 16-byte vector atomics."""
+    move its rows in 16-byte vectors (the backward's bf16 rows in 8-byte
+    ones) and add into an f32 ``dtable`` with 16-byte vector atomics."""
     for what, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {what} not 16-byte aligned")
@@ -129,15 +133,22 @@ def check_aligned(name, **tensors):
 
 def _gather_weighted_cuda(table, idx, w):
     B, S, H, D4, Q, P = _check("gather_weighted", table, idx, w)
-    idx = idx.contiguous()
-    w = w.to(torch.float32).contiguous()
+    es = table.element_size()
+    if D4 // 4 * es % 16 or any(s * es % 16 for s in table.stride()[:3]):
+        raise ValueError("gather_weighted: corner chunks and table strides "
+                         "must be whole 16-byte vectors")
+    if w.dtype not in _DTYPE_TAG:
+        raise TypeError(f"gather_weighted: unsupported weight dtype "
+                        f"{w.dtype}")
+    idx, w = idx.contiguous(), w.contiguous()
     out = torch.empty((B, Q, H, D4), dtype=table.dtype, device=table.device)
     lib = _build.load("gather_weighted", _SIGNATURES)
     fn = getattr(lib, f"gather_weighted_{_DTYPE_TAG[table.dtype]}")
     stream = torch.cuda.current_stream(table.device).cuda_stream
     _build.check(fn(table.data_ptr(), idx.data_ptr(), w.data_ptr(),
                     out.data_ptr(), B, Q, H, P, S, D4, table.stride(0),
-                    table.stride(1), table.stride(2), stream),
+                    table.stride(1), table.stride(2),
+                    int(w.dtype == torch.bfloat16), stream),
                  "gather_weighted")
     gather_weighted.launches += 1
     return out

@@ -103,13 +103,18 @@ def _pack_corners_cuda(v: torch.Tensor, h: int, w: int) -> torch.Tensor:
                          "must be contiguous")
     if v.data_ptr() % 16:
         raise ValueError("pack_corners: input not 16-byte aligned")
+    d_vecs = D * es // 16
+    if B > 65535 or h + 2 > 65535 \
+            or (h + 2) * (w + 2) * H * 4 * d_vecs >= 2 ** 31:
+        raise ValueError(f"pack_corners: {B} images of {h}x{w} exceed the "
+                         "kernel's grid or its 32-bit offsets")
     out = torch.empty((B, (h + 2) * (w + 2), H, 4 * D), dtype=v.dtype,
                       device=v.device)
     lib = _build.load("pack_corners", _SIGNATURES)
     stream = torch.cuda.current_stream(v.device).cuda_stream
     _build.check(lib.pack_corners(v.data_ptr(), out.data_ptr(), B,
                                   v.stride(0) * es // 16, h, w, H,
-                                  D * es // 16, stream), "pack_corners")
+                                  d_vecs, stream), "pack_corners")
     pack_corners.launches += 1
     return out
 

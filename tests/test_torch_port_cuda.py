@@ -472,3 +472,113 @@ def test_scatter_backwards_refuse_misaligned(cuda_device, dtype, what):
                           dtable=off_by_one(B, S, H, D4, dtype=torch.float32))
     assert (gather_weighted_bwd.launches, window_gather_bwd.launches) == \
         launches
+
+
+# gather_weighted (B1) beyond the flagship's shapes: P other than 4 and row
+# widths other than 32, 64, 128 and 256 elements take the generic kernel;
+# indices outside [0, S), all points on one row, the table's first and last
+# rows, and a table read in place through a strided view.
+_GATHER_CASES = {
+    "outside": dict(idx="outside"), "one_row": dict(idx="one_row"),
+    "ends": dict(idx="ends"), "strided": dict(strided=True),
+    "P1": dict(P=1), "P3": dict(P=3), "P8": dict(P=8),
+    "D16": dict(D=16), "D24": dict(D=24), "D64": dict(D=64)}
+
+
+def _gather_case(rng, dev, dtype, P=4, D=32, idx="random", strided=False):
+    B, H, S, Q = 2, 8, 300, 257
+    table = torch.from_numpy(rng.randn(B, S + 5, H, 4 * D).astype(np.float32)
+                             ).to(dev, _TORCH[dtype])
+    table = table[:, 5:] if strided else table[:, :S]   # batch-strided
+    shape = (B, Q, H, P)
+    if idx == "outside":
+        wild = np.array([-10 ** 6, -1, S, S + 10 ** 6])
+        rows = np.where(rng.rand(*shape) < 0.5, rng.randint(0, S, shape),
+                        wild[rng.randint(0, 4, shape)])
+    elif idx == "one_row":
+        rows = np.full(shape, S // 3)
+    elif idx == "ends":
+        rows = np.where(rng.rand(*shape) < 0.5, 0, S - 1)
+    else:
+        rows = rng.randint(0, S, shape)
+    cw = rng.rand(B, Q, H, P, 4).astype(np.float32)
+    return (table, torch.from_numpy(rows.astype(np.int32)).to(dev),
+            torch.from_numpy(cw).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(_GATHER_CASES))
+def test_gather_weighted_cases(cuda_device, dtype, case):
+    rng = np.random.RandomState(13)
+    table, idx, cw = _gather_case(rng, cuda_device, dtype,
+                                  **_GATHER_CASES[case])
+    before = gather_weighted.launches
+    got = gather_weighted(table, idx, cw)
+    assert gather_weighted.launches == before + 1
+    want = gather_weighted_plain(table.float(), idx, cw).to(got.dtype)
+    torch.cuda.synchronize()
+    # f32: summation order only; bf16: one rounding of the f32 sum
+    tol = 1e-5 if dtype == "float32" else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=1e-5)
+    if case == "outside":          # nothing read: exactly the valid points
+        keep = (idx >= 0) & (idx < table.shape[1])
+        torch.testing.assert_close(
+            got, gather_weighted(table, idx.clamp(0, table.shape[1] - 1),
+                                 cw * keep[..., None]), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P", [4, 3])
+def test_gather_weighted_reads_bf16_weights(cuda_device, dtype, P):
+    """bf16 weights are read as they are, with no cast: bf16 to f32 is
+    exact, so the output is that of the same weights in f32, bit for
+    bit."""
+    rng = np.random.RandomState(14)
+    table, idx, cw = _gather_case(rng, cuda_device, dtype, P=P)
+    w16 = cw.to(torch.bfloat16)
+    assert torch.equal(gather_weighted(table, idx, w16),
+                       gather_weighted(table, idx, w16.float()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_weighted_refuses_misaligned(cuda_device, dtype):
+    B, S, H, D4, Q, P = 2, 40, 8, 128, 16, 4
+    n = B * S * H * D4
+    table = torch.zeros(n + 8, dtype=_TORCH[dtype], device=cuda_device)[
+        1:1 + n].view(B, S, H, D4)
+    idx = torch.zeros((B, Q, H, P), dtype=torch.int32, device=cuda_device)
+    cw = torch.zeros((B, Q, H, P, 4), device=cuda_device)
+    before = gather_weighted.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gather_weighted(table, idx, cw)
+    assert gather_weighted.launches == before
+
+
+# pack_corners (B2), bit for bit: maps one pixel high or wide, odd widths, a
+# level sliced out of a (B, S, H, D) value tensor, one and three images, and
+# D-chunks of 12 and 6 vectors (the runtime-width kernel).
+_PACK_CASES = {"h1": (2, 1, 7, 8, 32, False), "w1": (2, 5, 1, 8, 32, False),
+               "odd": (2, 7, 9, 8, 32, False),
+               "sliced": (2, 10, 12, 8, 32, True),
+               "B1": (1, 6, 5, 8, 32, True), "B3": (3, 4, 6, 8, 32, False),
+               "D48": (2, 5, 6, 3, 48, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(_PACK_CASES))
+def test_pack_corners_cases(cuda_device, dtype, case):
+    B, h, w, H, D, sliced = _PACK_CASES[case]
+    rng = np.random.RandomState(15)
+    extra = 11 if sliced else 0
+    value = torch.from_numpy(rng.randn(B, extra + h * w, H, D).astype(
+        np.float32)).to(cuda_device, _TORCH[dtype])
+    v = value[:, extra:]
+    before = pack_corners.launches
+    got = pack_corners(v, h, w)
+    assert pack_corners.launches == before + 1
+    assert torch.equal(got, pack_corners_plain(v, h, w))

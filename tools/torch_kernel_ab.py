@@ -10,14 +10,20 @@ that checkout's ``chip_smoke.py`` and calls its ``time_kernels`` and
 ``dskd_tpu_torch/build/``) and times them at the shapes its script gives
 them: the default path's kernels over the levels of the 640x640 and 640x480
 canvases (``gather_weighted_bwd`` also level by level), and the windowed
-family at level 0 (``window_gather_bwd`` beside ``torch.index_add``).
-CHANGE_DIR defaults to the checkout that holds this script. Prints the
-card's name and power limit, one JSON line per turn, and for every timing
-the two sides' means and their ratio (change / parent), on one card in one
-run, so that run-to-run spread between cards does not enter the ratio.
+family at level 0 (``window_gather_bwd`` beside ``torch.index_add``). Both
+sides time with the two timers of the ``chip_smoke.py`` beside this script,
+put in place of their own: device ms (``device_ms``, the calls queued behind
+a spin kernel: what they take on the card) and CUDA events around the calls
+(``cuda_ms``, which also count the host whenever it launches slower than
+the card runs). CHANGE_DIR
+defaults to the checkout that holds this script. Prints the card's name and
+power limit, one JSON line per turn, and for every timing the two sides'
+means and their ratio (change / parent), on one card in one run, so that
+run-to-run spread between cards does not enter the ratio.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -26,22 +32,37 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def timers():
+    """{mode: timer} of the checkout that holds this script, for both
+    sides: ``chip_smoke.device_ms`` and ``chip_smoke.cuda_ms`` (events)."""
+    spec = importlib.util.spec_from_file_location(
+        "timing_chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return {"device": mod.device_ms, "events": mod.cuda_ms}
+
+
 def turn() -> None:
     """One side: time the kernels of the checkout in the working
-    directory and print them as one JSON line."""
+    directory with each timer and print them as one JSON line."""
     sys.path.insert(0, os.getcwd())
     import torch
     import chip_smoke
 
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
-    gen = torch.Generator().manual_seed(0)
-    ms = {f"{k} kernel": v[0]
-          for k, v in chip_smoke.time_kernels(gen)[0].items()}
-    for k, v in chip_smoke.time_window_kernels(gen).items():
-        ms[f"{k} kernel"] = v[0]
-        if v[2] is not None:
-            ms[f"{k} library"] = v[2]
+    ms = {}
+    for mode, timer in timers().items():
+        chip_smoke.cuda_ms = chip_smoke.device_ms = timer
+        gen = torch.Generator().manual_seed(0)
+        for k, v in chip_smoke.time_kernels(gen)[0].items():
+            ms[f"{k} kernel {mode}"] = v[0]
+            if len(v) > 2 and v[2] is not None:
+                ms[f"{k} library {mode}"] = v[2]
+        for k, v in chip_smoke.time_window_kernels(gen).items():
+            ms[f"{k} kernel {mode}"] = v[0]
+            if v[2] is not None:
+                ms[f"{k} library {mode}"] = v[2]
     print("TURN " + json.dumps({"dir": os.getcwd(), "ms": ms}), flush=True)
 
 
@@ -74,10 +95,11 @@ def main(argv) -> int:
     print("timing: parent ms (two turns) | change ms (two turns) | "
           "change / parent")
     for key in runs["change"][0]:
+        c = [r[key] for r in runs["change"]]
         if key not in runs["parent"][0]:
+            print(f"  {key}: (change only) {c[0]:.4f} {c[1]:.4f}")
             continue
         p = [r[key] for r in runs["parent"]]
-        c = [r[key] for r in runs["change"]]
         print(f"  {key}: {p[0]:.4f} {p[1]:.4f} | {c[0]:.4f} {c[1]:.4f} | "
               f"{sum(c) / sum(p):.3f}")
     return 0
