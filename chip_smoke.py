@@ -1746,8 +1746,9 @@ def main() -> int:
         sampled("fused_window", "window_sample.cu",
                 "dskd_tpu/ops/fused_window.py:146", werr["fused_window"],
                 wtimes),
-        # one kernel for the two layouts of one function
-        sampled("window_weighted_bwd", "window_sample.cu",
+        # one kernel for the two layouts of one function: B1''s scatter
+        # with an escape count
+        sampled("window_weighted_bwd", "gather_weighted_bwd.cu",
                 "dskd_tpu/ops/fused_window.py:170 and "
                 "dskd_tpu/ops/window_bwd.py:113",
                 max(werr["window_weighted_bwd"],

@@ -1,4 +1,4 @@
-// The windowed sampling family of multi-scale deformable attention: four
+// The windowed sampling family of multi-scale deformable attention: three
 // kernels, each in f32 and bf16.
 //
 // Replaces:
@@ -6,11 +6,11 @@
 //      pallas_call at :115): window_gather_{f32,bf16};
 //   2. its backward (`bwd_kernel`, :138): window_gather_bwd_{f32,bf16};
 //   3. dskd_tpu/ops/fused_window.py `fused_window_sample` forward
-//      (`fwd_kernel`, :146): fused_window_{f32,bf16};
-//   4. the backward of `fused_window_sample` (`bwd_kernel`, :170) and of
-//      dskd_tpu/ops/window_bwd.py `windowed_bwd_sample` (`bwd_kernel`, :113),
-//      which compute one function in two layouts:
-//      window_weighted_bwd_{f32,bf16}.
+//      (`fwd_kernel`, :146): fused_window_{f32,bf16}.
+// The family's fourth kernel, the weighted backward of `fused_window_sample`
+// and of dskd_tpu/ops/window_bwd.py `windowed_bwd_sample`, is
+// gather_weighted_bwd.cu's windowed entry point: its function is
+// gather_weighted's backward with an escape count.
 //
 // Every sample (b, q, hd, p) reads or adds the packed corner row
 // r = idx[b, q, hd, p]; query q lies in tile t = q / tile_q, whose window is
@@ -18,12 +18,9 @@
 //   1. out[b, q, hd, p, :]  = table[b, r, hd, :]
 //   2. dtable[b, r, hd, :] += g[b, q, hd, p, :]
 //   3. out[b, q, hd, e]     = sum_p w[b, q, hd, p, e / D] * table[b, r, hd, e]
-//   4. dtable[b, r, hd, e] += w[b, q, hd, p, e / D] * g[b, q, hd, e]
-//      dw[b, q, hd, p, c]   = sum_{e in corner c} g[b, q, hd, e]
-//                                                 * table[b, r, hd, e]
-// An index outside [0, S) reads nothing, adds nothing and gets dw = 0, as in
-// gather_weighted.cu and mxu_gather.cu. Sums run in f32; dtable and dw are
-// f32 buffers the wrapper zeroes (and casts dtable once to the table's type).
+// An index outside [0, S) reads nothing and adds nothing, as in
+// gather_weighted.cu and mxu_gather.cu. Sums run in f32; dtable is an f32
+// buffer the wrapper zeroes (and casts once to the table's type).
 //
 // Escapes. On the TPU a sample outside its tile's window got zero from the
 // one-hot window product, and the caller sent the whole segment to the plain
@@ -40,7 +37,7 @@
 // the rows straight from device memory (a level-0 table is 27.5 MB per
 // image at 640x640 in f32, beside a 50 MB L2) with the designs of
 // mxu_gather.cu and gather_weighted.cu: one warp per row (1) or per
-// (b, q, hd) (3). The backwards read g once and add every element of it
+// (b, q, hd) (3). The backward 2 reads g once and adds every element of it
 // into dtable: 52 M f32 adds at level 0 of 640x640 (409,600 sample rows of
 // 128) against 210 MB of g and 55 MB of dtable at B=2. The L2 performs
 // every device atomic, so the adds set the pace: by the atomic instructions
@@ -54,35 +51,16 @@
 // whole 512-byte row. The window is left only in the escape count: lane p
 // compares sample p's row with its tile's window, the warp sums the count,
 // and each block adds its total to `escapes` once. Summing each tile in a
-// shared-memory window, as 4 does, took 3.7-4.0x this scatter's time at
-// level 0 of 640x640 on an H100 and lost to torch's index_add there
-// (PERF.md).
-//
-// Design of 4: one block of 256 threads per (tile, b * heads + hd, chunk),
-// where a chunk is `chunk` consecutive elements of the row (a power of two
-// up to 32 that divides the corner width D, so a chunk lies in one corner).
-// A row of a 992-row window is 508 KB in f32 and a block has at most 227 KB,
-// so a block keeps only its chunk of the window: window x chunk f32 in
-// dynamic shared memory, at most 96 KB so that two blocks fit on an SM
-// (chunk 16 at 992-1536 rows, 8 up to 3072, 4 up to 6144). Thread i handles
-// element i % chunk of sample row i / chunk of each pass over the tile's
-// tile_q x P samples: an in-window sample adds into the shared window with a
-// shared-memory atomic, an escaped one into dtable with a device atomic. dw
-// sums its chunk by warp shuffles over the chunk's threads and adds it into
-// dw (one add per dw element when chunk = D). Neighbouring tiles' windows
-// overlap and blocks run in no order, so the flush adds each nonzero window
-// cell into dtable with a device f32 atomic: a TPU kernel could carry dtable
-// across its sequential grid, a GPU kernel cannot. The atomics' order varies
-// from run to run, so results are compared with a tolerance.
+// shared-memory window took 3.7-4.0x this scatter's time at level 0 of
+// 640x640 on an H100 and lost to torch's index_add there (PERF.md).
 //
 // Layouts: the table is addressed through explicit batch, row and head
 // strides (elements; a row is contiguous), so pack_corners' (B, S, H, 4D)
 // output is read in place; the JAX (N, S, 4D) layout is the case H = 1. idx
-// (B, Q, H, P) int32, w (B, Q, H, P, 4) f32, g (B, Q, H, P, D) for 2 and
-// (B, Q, H, 4D) for 4, out, dtable (B, S, H, row) f32 and dw (B, Q, H, P, 4)
-// f32 are contiguous; starts holds ceil(Q / tile_q) int32. For 2 the wrapper
-// checks that g and dtable are 16-byte aligned and the row width D a
-// multiple of 4, as its vector loads and atomics need.
+// (B, Q, H, P) int32, w (B, Q, H, P, 4) f32, g (B, Q, H, P, D), out and
+// the f32 dtable (B, S, H, D) are contiguous; starts holds ceil(Q / tile_q)
+// int32. For 2 the wrapper checks that g and dtable are 16-byte aligned and
+// the row width D a multiple of 4, as its vector loads and atomics need.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,11 +68,6 @@
 namespace {
 
 constexpr int kThreads = 256;               // 8 warps
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 __device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
   const float4 q = __ldg(reinterpret_cast<const float4*>(p));
@@ -255,83 +228,6 @@ __global__ void window_gather_bwd_kernel(
   if (threadIdx.x == 0 && block_escapes) atomicAdd(escapes, block_escapes);
 }
 
-// 4. Weighted backward, one block per (tile, b * heads + hd, chunk); see the
-// header for the design.
-template <typename T>
-__global__ void window_weighted_bwd_kernel(
-    const T* __restrict__ table, const int* __restrict__ idx,
-    const float* __restrict__ w, const T* __restrict__ g,
-    const int* __restrict__ starts, float* __restrict__ dtable,
-    float* __restrict__ dw, int* __restrict__ escapes, int64_t queries,
-    int heads, int points, int tile_q, int window, int64_t table_rows,
-    int row_width, int chunk, int64_t stride_b, int64_t stride_s,
-    int64_t stride_h) {
-  extern __shared__ float win[];            // window x chunk f32 sums
-  __shared__ int block_escapes;
-  const int t = blockIdx.x;
-  const int64_t b = blockIdx.y / heads;
-  const int hd = static_cast<int>(blockIdx.y % heads);
-  const int e0 = blockIdx.z * chunk;        // the chunk's first element
-  const int corner = e0 / (row_width / 4);  // the corner the chunk lies in
-  const int start = __ldg(starts + t);
-  const int cells = window * chunk;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) win[i] = 0.f;
-  if (threadIdx.x == 0) block_escapes = 0;
-  __syncthreads();
-
-  const int el = threadIdx.x % chunk;       // this thread's element
-  const int slot = threadIdx.x / chunk;     // its sample row in a pass
-  const int slots = blockDim.x / chunk;
-  const int64_t q0 = static_cast<int64_t>(t) * tile_q;
-  const int64_t q1 = q0 + tile_q < queries ? q0 + tile_q : queries;
-  const int n = static_cast<int>(q1 - q0) * points;
-  int esc = 0;
-  // the trip count is the same for every thread: the shuffles below need
-  // whole warps
-  for (int base = 0; base < n; base += slots) {
-    const int i = base + slot;
-    const bool active = i < n;
-    int64_t r = -1, sample = 0;
-    bool inside = false;
-    float contrib = 0.f, dot = 0.f;
-    if (active) {
-      const int64_t qh = (b * queries + q0 + i / points) * heads + hd;
-      sample = qh * points + i % points;
-      r = __ldg(idx + sample);
-      inside = in_window(r, start, window);
-      esc += !inside && el == 0;
-      const float gv = to_f32(g[qh * row_width + e0 + el]);
-      contrib = __ldg(w + sample * 4 + corner) * gv;
-      if (r >= 0 && r < table_rows)
-        dot = gv * to_f32(table[b * stride_b + r * stride_s +
-                                hd * stride_h + e0 + el]);
-    }
-    const bool valid = active && r >= 0 && r < table_rows;
-    for (int off = chunk / 2; off > 0; off >>= 1)
-      dot += __shfl_xor_sync(0xffffffffu, dot, off);
-    if (valid && el == 0) atomicAdd(dw + sample * 4 + corner, dot);
-    if (!valid) continue;
-    if (inside)
-      atomicAdd(win + (r - start) * chunk + el, contrib);
-    else
-      atomicAdd(dtable + ((b * table_rows + r) * heads + hd) * row_width +
-                    e0 + el, contrib);
-  }
-  // every chunk sees the same samples: chunk 0 counts the escapes
-  if (blockIdx.z == 0 && esc) atomicAdd(&block_escapes, esc);
-  __syncthreads();
-  if (blockIdx.z == 0 && threadIdx.x == 0 && block_escapes)
-    atomicAdd(escapes, block_escapes);
-  float* dbase = dtable + (b * table_rows * heads + hd) * row_width + e0;
-  const int64_t row_stride = static_cast<int64_t>(heads) * row_width;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const float v = win[i];
-    const int64_t row = start + i / chunk;
-    if (v != 0.f && row >= 0 && row < table_rows)
-      atomicAdd(dbase + row * row_stride + i % chunk, v);
-  }
-}
-
 unsigned warp_blocks(int64_t warps) {
   return static_cast<unsigned>((warps * 32 + kThreads - 1) / kThreads);
 }
@@ -395,42 +291,11 @@ int launch_gather_bwd(const void* idx, const void* g, const void* starts,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_weighted_bwd(const void* table, const void* idx, const void* w,
-                        const void* g, const void* starts, void* dtable,
-                        void* dw, void* escapes, int64_t batch,
-                        int64_t queries, int64_t heads, int64_t points,
-                        int64_t tile_q, int64_t window, int64_t table_rows,
-                        int64_t row_width, int64_t chunk, int64_t stride_b,
-                        int64_t stride_s, int64_t stride_h, void* stream) {
-  const int64_t tiles = (queries + tile_q - 1) / tile_q;
-  if (batch * heads * tiles == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = static_cast<size_t>(window * chunk) * sizeof(float);
-  auto kernel = window_weighted_bwd_kernel<T>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(tiles),
-                  static_cast<unsigned>(batch * heads),
-                  static_cast<unsigned>(row_width / chunk));
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(table), static_cast<const int*>(idx),
-      static_cast<const float*>(w), static_cast<const T*>(g),
-      static_cast<const int*>(starts), static_cast<float*>(dtable),
-      static_cast<float*>(dw), static_cast<int*>(escapes), queries,
-      static_cast<int>(heads), static_cast<int>(points),
-      static_cast<int>(tile_q), static_cast<int>(window), table_rows,
-      static_cast<int>(row_width), static_cast<int>(chunk), stride_b,
-      stride_s, stride_h);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Entry points, one per table type. Strides are the table's, in elements;
 // `escapes` is one device int32. Each returns cudaGetLastError() after its
-// launch (or the error of the shared-memory attribute it sets).
+// launch.
 
 // 1. out (B, Q, H, P, d) in the table's type.
 extern "C" int window_gather_f32(
@@ -502,30 +367,4 @@ extern "C" int fused_window_bf16(
                                      batch, queries, heads, points, tile_q,
                                      window, table_rows, d4, stride_b,
                                      stride_s, stride_h, stream);
-}
-
-// 4. w (B, Q, H, P, 4) f32; g (B, Q, H, d4) in the table's type; dtable
-// (B, S, H, d4) f32; dw (B, Q, H, P, 4) f32.
-extern "C" int window_weighted_bwd_f32(
-    const void* table, const void* idx, const void* w, const void* g,
-    const void* starts, void* dtable, void* dw, void* escapes, int64_t batch,
-    int64_t queries, int64_t heads, int64_t points, int64_t tile_q,
-    int64_t window, int64_t table_rows, int64_t d4, int64_t chunk,
-    int64_t stride_b, int64_t stride_s, int64_t stride_h, void* stream) {
-  return launch_weighted_bwd<float>(table, idx, w, g, starts, dtable, dw,
-                                    escapes, batch, queries, heads, points,
-                                    tile_q, window, table_rows, d4, chunk,
-                                    stride_b, stride_s, stride_h, stream);
-}
-
-extern "C" int window_weighted_bwd_bf16(
-    const void* table, const void* idx, const void* w, const void* g,
-    const void* starts, void* dtable, void* dw, void* escapes, int64_t batch,
-    int64_t queries, int64_t heads, int64_t points, int64_t tile_q,
-    int64_t window, int64_t table_rows, int64_t d4, int64_t chunk,
-    int64_t stride_b, int64_t stride_s, int64_t stride_h, void* stream) {
-  return launch_weighted_bwd<__nv_bfloat16>(
-      table, idx, w, g, starts, dtable, dw, escapes, batch, queries, heads,
-      points, tile_q, window, table_rows, d4, chunk, stride_b, stride_s,
-      stride_h, stream);
 }

@@ -22,6 +22,10 @@ the middle (a level slice of the value, read in place through its strides),
 idx (B, Q, H, P), weights (B, Q, H, P, 4) -> (B, Q, H, D). On CUDA tensors
 the forward and the backward launch ``csrc/fused_sample.cu``; on CPU tensors
 they run ``fused_msda_sample_plain`` and ``fused_msda_sample_bwd_plain``.
+Where D is a multiple of 4 the backward moves 4-element vectors of each tap
+and adds them into ``dtable`` with 16-byte vector f32 atomics, so the table,
+``g`` and ``dtable`` must then be 16-byte aligned and the table's strides
+multiples of 4 elements (the wrapper raises otherwise).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import ctypes
 import torch
 
 from . import _build
+from .mxu_gather import check_aligned
 
 _ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 10 + (ctypes.c_void_p,)
 _BWD_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int64,) * 10 + (
@@ -131,6 +136,12 @@ def fused_msda_sample_bwd(table: torch.Tensor, idx: torch.Tensor,
     g = g.to(table.dtype).contiguous()
     dtable = torch.zeros((B, S, H, D), dtype=torch.float32,
                          device=table.device)
+    if D % 4 == 0:                       # the vector kernel
+        if any(s % 4 for s in table.stride()[:3]):
+            raise ValueError("fused_msda_sample_bwd: table strides must be "
+                             "multiples of 4 elements")
+        check_aligned("fused_msda_sample_bwd", table=table, g=g,
+                      dtable=dtable)
     dw = torch.empty((B, Q, H, P, 4), dtype=torch.float32,
                      device=table.device)
     lib = _build.load("fused_sample", SIGNATURES)

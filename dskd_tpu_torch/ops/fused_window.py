@@ -23,13 +23,19 @@ TPU kernel summed in the table's type tile by tile) and ``dw[..., p, c]`` is
 the dot of chunk c of ``g`` with chunk c of row ``idx[..., p]`` (0 for an
 index outside [0, S)), in f32. The JAX package computes this one function in
 the (B*H, S, 4D) layout here and in the (B, S, H, 4D) layout in
-ops/window_bwd.py; the port's one kernel takes the table's strides.
+ops/window_bwd.py; the port's one kernel takes the table's strides. That
+function is ``gather_weighted``'s backward, so on the card it is B1''s direct
+vector-atomic scatter (``csrc/gather_weighted_bwd.cu``, its windowed entry
+point), which keeps the window only in its escape count; the TPU kernel's
+per-tile window sums have no counterpart.
 
 MSDA calls it in its own layout, table (B, S, H, 4D) (``pack_corners``'
 output, read in place), idx (B, Q, H, P), weights (B, Q, H, P, 4) ->
-(B, Q, H, 4D). On CUDA tensors the forward and the backward launch
-``csrc/window_sample.cu``; on CPU tensors they run
-``fused_window_sample_plain`` and ``windowed_weighted_bwd_plain``.
+(B, Q, H, 4D). On CUDA tensors the forward launches
+``csrc/window_sample.cu`` and the backward ``csrc/gather_weighted_bwd.cu``
+(with ``gather_weighted_bwd``'s checks: the table, ``g`` and ``dtable``
+16-byte aligned); on CPU tensors they run ``fused_window_sample_plain`` and
+``windowed_weighted_bwd_plain``.
 """
 from __future__ import annotations
 
@@ -37,9 +43,10 @@ import torch
 
 from . import _build
 from .mxu_gather import _check as _check_weighted
-from .mxu_gather import gather_weighted_bwd_plain, gather_weighted_plain
-from .window import (DTYPE_TAG, SIGNATURES, check_window, chunk_width,
-                     escape_counter, starts_tensor)
+from .mxu_gather import (gather_weighted_bwd_plain, gather_weighted_plain,
+                         weighted_bwd_cuda)
+from .window import (DTYPE_TAG, SIGNATURES, check_window, escape_counter,
+                     starts_tensor)
 
 
 def fused_window_sample_plain(table: torch.Tensor, idx: torch.Tensor,
@@ -93,37 +100,20 @@ def windowed_weighted_bwd(table: torch.Tensor, idx: torch.Tensor,
                           window: int, tile_q: int):
     """``(dtable, dw)`` of ``fused_window_sample`` (MSDA layout) for the
     cotangent ``g`` (B, Q, H, 4D): ``dtable`` in the table's type, ``dw`` in
-    the weights' type. Launches ``csrc/window_sample.cu`` on CUDA tensors
-    and runs ``windowed_weighted_bwd_plain`` on CPU tensors."""
+    the weights' type. Launches ``csrc/gather_weighted_bwd.cu``'s windowed
+    entry point on CUDA tensors and runs ``windowed_weighted_bwd_plain`` on
+    CPU tensors."""
     if table.device.type == "cpu":
         return windowed_weighted_bwd_plain(table, idx, weights, g, starts,
                                            window, tile_q)
-    B, S, H, D4, Q, P, starts = _check("windowed_weighted_bwd", table, idx,
-                                       weights, starts, window, tile_q)
-    if g.shape != (B, Q, H, D4) or g.device != table.device:
-        raise ValueError(f"windowed_weighted_bwd: g {tuple(g.shape)} on "
-                         f"{g.device}")
-    chunk = chunk_width(window, D4 // 4)
-    idx = idx.contiguous()
-    w32 = weights.to(torch.float32).contiguous()
-    g = g.to(table.dtype).contiguous()
-    dtable = torch.zeros((B, S, H, D4), dtype=torch.float32,
-                         device=table.device)
-    dw = torch.zeros((B, Q, H, P, 4), dtype=torch.float32,
-                     device=table.device)
-    lib = _build.load("window_sample", SIGNATURES)
-    fn = getattr(lib, f"window_weighted_bwd_{DTYPE_TAG[table.dtype]}")
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    escapes = escape_counter(windowed_weighted_bwd, table.device)
-    starts_t = starts_tensor(starts, table.device)
-    _build.check(fn(table.data_ptr(), idx.data_ptr(), w32.data_ptr(),
-                    g.data_ptr(), starts_t.data_ptr(), dtable.data_ptr(),
-                    dw.data_ptr(), escapes.data_ptr(), B,
-                    Q, H, P, tile_q, window, S, D4, chunk, table.stride(0),
-                    table.stride(1), table.stride(2), stream),
-                 "windowed_weighted_bwd")
+    starts = check_window("windowed_weighted_bwd", starts, idx.shape[1],
+                          tile_q, window)
+    out = weighted_bwd_cuda(
+        "windowed_weighted_bwd", table, idx, weights, g,
+        (starts_tensor(starts, table.device), tile_q, window,
+         escape_counter(windowed_weighted_bwd, table.device)))
     windowed_weighted_bwd.launches += 1
-    return dtable.to(table.dtype), dw.to(weights.dtype)
+    return out
 
 
 windowed_weighted_bwd.launches = 0

@@ -52,8 +52,14 @@ _ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 10 + (ctypes.c_void_p,)
 _SIGNATURES = {"gather_weighted_f32": _ARGS, "gather_weighted_bf16": _ARGS}
 _BWD_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int64,) * 9 + (
     ctypes.c_void_p,)
+# the windowed entry point adds the window starts and the escape counter,
+# tile_q and the window's rows (ops/fused_window.py windowed_weighted_bwd)
+_WIN_BWD_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int64,) * 11 + (
+    ctypes.c_void_p,)
 _BWD_SIGNATURES = {"gather_weighted_bwd_f32": _BWD_ARGS,
-                   "gather_weighted_bwd_bf16": _BWD_ARGS}
+                   "gather_weighted_bwd_bf16": _BWD_ARGS,
+                   "window_weighted_bwd_f32": _WIN_BWD_ARGS,
+                   "window_weighted_bwd_bf16": _WIN_BWD_ARGS}
 _DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -161,26 +167,47 @@ def gather_weighted_bwd(table: torch.Tensor, idx: torch.Tensor,
     and runs ``gather_weighted_bwd_plain`` on CPU tensors."""
     if table.device.type == "cpu":
         return gather_weighted_bwd_plain(table, idx, w, dout)
-    B, S, H, D4, Q, P = _check("gather_weighted_bwd", table, idx, w)
+    out = weighted_bwd_cuda("gather_weighted_bwd", table, idx, w, dout)
+    gather_weighted_bwd.launches += 1
+    return out
+
+
+def weighted_bwd_cuda(name, table, idx, w, dout, window=None):
+    """Launch ``csrc/gather_weighted_bwd.cu`` on CUDA tensors: ``(dtable in
+    table.dtype, dw in w.dtype)``. With ``window = (starts, tile_q, rows,
+    escapes)`` (an int32 tensor of one start per tile of ``tile_q`` queries,
+    and the device int32 counter) its windowed entry point, which also adds
+    the samples outside their tile's window of ``rows`` rows to
+    ``escapes``."""
+    B, S, H, D4, Q, P = _check(name, table, idx, w)
     if dout.shape != (B, Q, H, D4) or dout.device != table.device:
-        raise ValueError(f"gather_weighted_bwd: dout {tuple(dout.shape)} "
-                         f"on {dout.device}")
+        raise ValueError(f"{name}: dout {tuple(dout.shape)} on "
+                         f"{dout.device}")
     idx = idx.contiguous()
     w32 = w.to(torch.float32).contiguous()
     dout = dout.to(table.dtype).contiguous()
     dtable = torch.zeros((B, S, H, D4), dtype=torch.float32,
                          device=table.device)
-    check_aligned("gather_weighted_bwd", dout=dout, dtable=dtable)
+    check_aligned(name, dout=dout, dtable=dtable)
     dw = torch.empty((B, Q, H, P, 4), dtype=torch.float32,
                      device=table.device)
     lib = _build.load("gather_weighted_bwd", _BWD_SIGNATURES)
-    fn = getattr(lib, f"gather_weighted_bwd_{_DTYPE_TAG[table.dtype]}")
+    tag = _DTYPE_TAG[table.dtype]
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    _build.check(fn(table.data_ptr(), idx.data_ptr(), w32.data_ptr(),
-                    dout.data_ptr(), dtable.data_ptr(), dw.data_ptr(), B, Q,
-                    H, P, S, D4, table.stride(0), table.stride(1),
-                    table.stride(2), stream), "gather_weighted_bwd")
-    gather_weighted_bwd.launches += 1
+    ptrs = (table.data_ptr(), idx.data_ptr(), w32.data_ptr(),
+            dout.data_ptr())
+    strides = (table.stride(0), table.stride(1), table.stride(2))
+    if window is None:
+        code = getattr(lib, f"gather_weighted_bwd_{tag}")(
+            *ptrs, dtable.data_ptr(), dw.data_ptr(), B, Q, H, P, S, D4,
+            *strides, stream)
+    else:
+        starts, tile_q, rows, escapes = window
+        code = getattr(lib, f"window_weighted_bwd_{tag}")(
+            *ptrs, starts.data_ptr(), dtable.data_ptr(), dw.data_ptr(),
+            escapes.data_ptr(), B, Q, H, P, tile_q, rows, S, D4, *strides,
+            stream)
+    _build.check(code, name)
     return dtable.to(table.dtype), dw.to(w.dtype)
 
 

@@ -25,23 +25,20 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-# the four entry points of csrc/window_sample.cu, in f32 and bf16: pointers
+# the three entry points of csrc/window_sample.cu, in f32 and bf16: pointers
 # (with the escape counter), then int64 shapes and strides, then the stream
+# (the windowed weighted backward is bound in ops/mxu_gather.py)
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int64
 SIGNATURES = {f"{name}_{tag}": (_PTR,) * n_ptr + (_INT,) * n_int + (_PTR,)
               for name, n_ptr, n_int in (("window_gather", 5, 11),
                                          ("window_gather_bwd", 5, 8),
-                                         ("fused_window", 6, 11),
-                                         ("window_weighted_bwd", 8, 12))
+                                         ("fused_window", 6, 11))
               for tag in ("f32", "bf16")}
 DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 # Mosaic's sublane alignment of a window start on the TPU; the starts keep
 # it so that they equal the JAX package's
 SUBLANE_ALIGN = 16
-# f32 shared memory a block of the windowed weighted backward may take for
-# its window: two blocks fit on one H100 SM (227 KB each at most)
-SMEM_BYTES = 96 * 1024
 
 _STARTS: Dict[Tuple[Tuple[int, ...], str], torch.Tensor] = {}
 
@@ -136,13 +133,3 @@ def escape_counter(fn, device: torch.device) -> torch.Tensor:
         fn.escapes = torch.zeros((), dtype=torch.int32, device=device)
     return fn.escapes
 
-
-def chunk_width(window: int, width: int) -> int:
-    """Elements of a row that one block of the windowed weighted backward
-    sums: the largest power of two up to 32 that divides ``width`` and
-    whose (window, chunk) f32 window fits in SMEM_BYTES."""
-    for chunk in (32, 16, 8, 4, 2, 1):
-        if width % chunk == 0 and window * chunk * 4 <= SMEM_BYTES:
-            return chunk
-    raise ValueError(f"a window of {window} rows does not fit in "
-                     f"{SMEM_BYTES} bytes of shared memory")

@@ -7,10 +7,11 @@ and f32 cw (B, Q, H, P, 4), and returns (B, Q, H, 4D) in the table's type.
 Its forward is the default branch's ``gather_weighted`` (B1's CUDA kernel on
 the card): the JAX package keeps its plain forward here (``_plain_sample``)
 and swaps only the cotangents. Its backward is ``windowed_weighted_bwd``
-(ops/fused_window.py): per tile of ``tile_q`` queries, the table cotangent
-is summed inside the tile's window, ``[starts[t], starts[t] + window)``, and
-an escaped sample adds into the table in device memory directly, so the
-gradients are ``gather_weighted``'s for any index.
+(ops/fused_window.py): on the TPU the table cotangent is summed per tile of
+``tile_q`` queries inside the tile's window, ``[starts[t], starts[t] +
+window)``; on the card it is ``gather_weighted_bwd``'s direct scatter, which
+counts the samples outside their tile's window as escapes, so the gradients
+are ``gather_weighted``'s for any index.
 """
 from __future__ import annotations
 

@@ -249,7 +249,7 @@ def _window_case(rng, dev, dtype, B, H, D4, S, Q, P, tile_q, window,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("window", [64, 1000])       # chunks of 32 and 16
+@pytest.mark.parametrize("window", [64, 1000])
 @pytest.mark.parametrize("escape", [False, True])
 def test_window_kernels_match_twins(cuda_device, dtype, window, escape):
     from dskd_tpu_torch.ops.fused_window import fused_window_sample, \
@@ -346,14 +346,22 @@ def test_msda_window_switch_grads_on_card_match_cpu(cuda_device, monkeypatch,
                                    msg=name)
 
 
-# The two scatter backwards under adversarial indices: every sample on one
-# row of each (b, head) (the most atomics on one address), samples on the
+# The scatter backwards under adversarial indices: every sample on one row
+# of each (b, head) (the most atomics on one address), samples on the
 # table's first and last rows, indices outside [0, S), and for the windowed
-# one every sample in its tile's window or every sample escaped.
+# ones every sample in its tile's window or every sample escaped. The fused
+# backward's taps: corners below 0 and past S, c00 + 1 wrapping into the
+# next image row, a batch-strided level slice, and P and D other than the
+# flagship's 4 and 32 (D = 6 takes the generic kernel).
 _SCATTER_CASES = [("gather_weighted_bwd", case) for case in
                   ("one_row", "ends", "outside")] + \
                  [("window_gather_bwd", case) for case in
-                  ("one_row", "ends", "outside", "in_window", "escaped")]
+                  ("one_row", "ends", "outside", "in_window", "escaped")] + \
+                 [("window_weighted_bwd", case) for case in
+                  ("outside", "in_window", "escaped")] + \
+                 [("fused_sample_bwd", case) for case in
+                  ("one_row", "ends", "outside", "wrap", "strided", "P1",
+                   "P3", "P8", "D16", "D24", "D64", "D6")]
 
 
 def _scatter_indices(rng, case, B, Q, H, P, S, tile_q, window):
@@ -378,56 +386,122 @@ def _scatter_indices(rng, case, B, Q, H, P, S, tile_q, window):
     return idx.astype(np.int32), starts
 
 
+def _fused_taps(rng, case, B, Q, H, P, h, w):
+    """c00 (int32 numpy) of an adversarial case of the fused backward on an
+    (h, w) level: unclipped top-left corners, taps c00 + (0, 1, w, w+1)."""
+    S, shape = h * w, (B, Q, H, P)
+    if case == "one_row":                   # the four taps on four rows
+        c00 = np.full(shape, S // 3)
+    elif case == "ends":                    # taps on the first and last rows
+        c00 = np.array([-(w + 1), 0, S - w - 2, S - 1])[
+            rng.randint(0, 4, shape)]
+    elif case == "outside":                 # corners below 0 and past S
+        wild = np.array([-10 ** 6, -w - 2, -w - 1, -1, S - 1, S, 10 ** 6])
+        c00 = np.where(rng.rand(*shape) < 0.5, rng.randint(0, S, shape),
+                       wild[rng.randint(0, len(wild), shape)])
+    elif case == "wrap":                    # x0 = w - 1: c00 + 1 wraps
+        c00 = rng.randint(-1, h, shape) * w + w - 1
+    else:
+        c00 = rng.randint(-w - 1, S, shape)
+    return c00.astype(np.int32)
+
+
+def _check_fused_sample_bwd(dev, dt_type, case, tol):
+    from dskd_tpu_torch.ops.fused_sample import fused_msda_sample_bwd, \
+        fused_msda_sample_bwd_plain
+
+    rng = np.random.RandomState(16)
+    B, H, Q, (h, w) = 2, 8, 64, (10, 8)     # the 80 rows of 640x480's level 3
+    P = int(case[1:]) if case[0] == "P" else 4
+    D = int(case[1:]) if case[0] == "D" else 32
+    extra = 7 if case == "strided" else 0
+    value = torch.from_numpy(rng.randn(B, extra + h * w, H, D).astype(
+        np.float32)).to(dev, dt_type)
+    v = value[:, extra:]
+    c00 = torch.from_numpy(_fused_taps(rng, case, B, Q, H, P, h, w)).to(dev)
+    wts = rng.rand(B, Q, H, P, 4).astype(np.float32)
+    wts[rng.rand(*wts.shape) < 0.125] = 0.0     # zero-weight taps keep dw
+    wts = torch.from_numpy(wts).to(dev)
+    g = torch.from_numpy(rng.randn(B, Q, H, D).astype(np.float32)).to(
+        dev, dt_type)
+    before = fused_msda_sample_bwd.launches
+    dt, dw = fused_msda_sample_bwd(v, c00, wts, g, w)
+    assert fused_msda_sample_bwd.launches == before + 1
+    want_dt, want_dw = fused_msda_sample_bwd_plain(v.float(), c00, wts,
+                                                   g.float(), w)
+    torch.cuda.synchronize()
+    assert dt.dtype == dt_type and dw.dtype == torch.float32
+    torch.testing.assert_close(dt.float(), want_dt.float(), **tol)
+    torch.testing.assert_close(dw, want_dw, rtol=1e-5, atol=1e-5)
+    rows = c00[..., None].long() + torch.tensor([0, 1, w, w + 1], device=dev)
+    inside = (rows >= 0) & (rows < h * w)
+    assert (dw[~inside] == 0).all()
+    if case == "outside":
+        assert (~inside).any() and inside.any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kernel,case", _SCATTER_CASES)
 def test_scatter_backwards_adversarial_indices(cuda_device, dtype, kernel,
                                                 case):
+    from dskd_tpu_torch.ops.fused_window import windowed_weighted_bwd
     from dskd_tpu_torch.ops.mxu_gather import gather_weighted_bwd, \
         gather_weighted_bwd_plain
     from dskd_tpu_torch.ops.window import window_escapes
     from dskd_tpu_torch.ops.window_gather import window_gather_bwd, \
         window_gather_bwd_plain
 
+    # f32: atomics in run-to-run order, up to Q * P = 512 adds per element;
+    # bf16: one rounding of the f32 sum
+    tol = dict(rtol=1e-5, atol=1e-4) if dtype == "float32" else \
+        dict(rtol=2 ** -7, atol=1e-4)
+    if kernel == "fused_sample_bwd":
+        _check_fused_sample_bwd(cuda_device, _TORCH[dtype], case, tol)
+        return
     rng = np.random.RandomState(12)
     B, H, D4, S, Q, P, tile_q, window = 2, 8, 128, 3000, 128, 4, 32, 64
     idx_np, starts = _scatter_indices(rng, case, B, Q, H, P, S, tile_q,
                                       window)
     idx = torch.from_numpy(idx_np).to(cuda_device)
     dt_type = _TORCH[dtype]
-    # f32: atomics in run-to-run order, up to Q * P = 512 adds per element;
-    # bf16: one rounding of the f32 sum
-    tol = dict(rtol=1e-5, atol=1e-4) if dtype == "float32" else \
-        dict(rtol=2 ** -7, atol=1e-4)
-    if kernel == "gather_weighted_bwd":
+    want_esc = int(window_escapes(idx, starts, tile_q, window))
+    if kernel in ("gather_weighted_bwd", "window_weighted_bwd"):
         table = torch.from_numpy(rng.randn(B, S + 3, H, D4).astype(
             np.float32)).to(cuda_device, dt_type)[:, 3:]     # strided view
         cw = torch.from_numpy(rng.rand(B, Q, H, P, 4).astype(np.float32)
                               ).to(cuda_device)
         dout = torch.from_numpy(rng.randn(B, Q, H, D4).astype(np.float32)
                                 ).to(cuda_device, dt_type)
-        before = gather_weighted_bwd.launches
-        dt, dw = gather_weighted_bwd(table, idx, cw, dout)
-        assert gather_weighted_bwd.launches == before + 1
+        windowed = kernel == "window_weighted_bwd"
+        fn = windowed_weighted_bwd if windowed else gather_weighted_bwd
+        if windowed:
+            fn.escapes = None
+        before = fn.launches
+        dt, dw = fn(table, idx, cw, dout,
+                    *((starts, window, tile_q) if windowed else ()))
+        assert fn.launches == before + 1
         want_dt, want_dw = gather_weighted_bwd_plain(table.float(), idx, cw,
                                                      dout.float())
         torch.cuda.synchronize()
         torch.testing.assert_close(dt.float(), want_dt, **tol)
         torch.testing.assert_close(dw, want_dw, rtol=1e-5, atol=1e-5)
         assert (dw[(idx < 0) | (idx >= S)] == 0).all()
-        return
-    g = torch.from_numpy(rng.randn(B, Q, H, P, D4).astype(np.float32)).to(
-        cuda_device, dt_type)
-    window_gather_bwd.escapes = None
-    before = window_gather_bwd.launches
-    dt = window_gather_bwd(idx, g, starts, tile_q, window, S)
-    assert window_gather_bwd.launches == before + 1
-    want = window_gather_bwd_plain(idx, g.float(), starts, tile_q, window, S)
-    want_esc = int(window_escapes(idx, starts, tile_q, window))
-    torch.cuda.synchronize()
-    assert dt.dtype == dt_type
-    torch.testing.assert_close(dt.float(), want, **tol)
-    assert int(window_gather_bwd.escapes) == want_esc
+        if windowed:
+            assert int(fn.escapes) == want_esc
+    else:
+        g = torch.from_numpy(rng.randn(B, Q, H, P, D4).astype(np.float32)
+                             ).to(cuda_device, dt_type)
+        window_gather_bwd.escapes = None
+        before = window_gather_bwd.launches
+        dt = window_gather_bwd(idx, g, starts, tile_q, window, S)
+        assert window_gather_bwd.launches == before + 1
+        want = window_gather_bwd_plain(idx, g.float(), starts, tile_q,
+                                       window, S)
+        torch.cuda.synchronize()
+        assert dt.dtype == dt_type
+        torch.testing.assert_close(dt.float(), want, **tol)
+        assert int(window_gather_bwd.escapes) == want_esc
     if case == "in_window":
         assert want_esc == 0
     if case == "escaped":
@@ -436,10 +510,15 @@ def test_scatter_backwards_adversarial_indices(cuda_device, dtype, kernel,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("what", ["table", "dout", "g", "dtable"])
+@pytest.mark.parametrize("what", ["table", "dout", "g", "dtable",
+                                  "window_table", "window_dout",
+                                  "fused_table", "fused_g", "fused_strides"])
 def test_scatter_backwards_refuse_misaligned(cuda_device, dtype, what):
     """The vector loads and atomics need 16-byte aligned rows: a view one
-    element off raises, and launches nothing."""
+    element off, or a fused table whose head stride is not a whole vector,
+    raises, and launches nothing."""
+    from dskd_tpu_torch.ops.fused_sample import fused_msda_sample_bwd
+    from dskd_tpu_torch.ops.fused_window import windowed_weighted_bwd
     from dskd_tpu_torch.ops.mxu_gather import check_aligned, \
         gather_weighted_bwd
     from dskd_tpu_torch.ops.window_gather import window_gather_bwd
@@ -457,8 +536,11 @@ def test_scatter_backwards_refuse_misaligned(cuda_device, dtype, what):
 
     idx = torch.zeros((B, Q, H, P), dtype=torch.int32, device=cuda_device)
     cw = torch.zeros((B, Q, H, P, 4), device=cuda_device)
-    launches = (gather_weighted_bwd.launches, window_gather_bwd.launches)
-    with pytest.raises(ValueError, match="16-byte aligned"):
+    D, w = D4 // 4, 8                       # the fused backward's level
+    fns = (gather_weighted_bwd, window_gather_bwd, windowed_weighted_bwd,
+           fused_msda_sample_bwd)
+    launches = [fn.launches for fn in fns]
+    with pytest.raises(ValueError, match="16-byte aligned|multiples of 4"):
         if what == "table":
             gather_weighted_bwd(off_by_one(B, S, H, D4), idx, cw,
                                 aligned(B, Q, H, D4))
@@ -467,11 +549,25 @@ def test_scatter_backwards_refuse_misaligned(cuda_device, dtype, what):
                                 off_by_one(B, Q, H, D4))
         elif what == "g":
             window_gather_bwd(idx, off_by_one(B, Q, H, P, D4), (0,), Q, 8, S)
+        elif what == "window_table":
+            windowed_weighted_bwd(off_by_one(B, S, H, D4), idx, cw,
+                                  aligned(B, Q, H, D4), (0,), 8, Q)
+        elif what == "window_dout":
+            windowed_weighted_bwd(aligned(B, S, H, D4), idx, cw,
+                                  off_by_one(B, Q, H, D4), (0,), 8, Q)
+        elif what == "fused_table":
+            fused_msda_sample_bwd(off_by_one(B, S, H, D), idx, cw,
+                                  aligned(B, Q, H, D), w)
+        elif what == "fused_g":
+            fused_msda_sample_bwd(aligned(B, S, H, D), idx, cw,
+                                  off_by_one(B, Q, H, D), w)
+        elif what == "fused_strides":       # head stride D + 2
+            fused_msda_sample_bwd(aligned(B, S, H, D + 2)[..., :D], idx, cw,
+                                  aligned(B, Q, H, D), w)
         else:                # the f32 buffer the wrappers allocate
             check_aligned("gather_weighted_bwd",
                           dtable=off_by_one(B, S, H, D4, dtype=torch.float32))
-    assert (gather_weighted_bwd.launches, window_gather_bwd.launches) == \
-        launches
+    assert [fn.launches for fn in fns] == launches
 
 
 # gather_weighted (B1) beyond the flagship's shapes: P other than 4 and row
