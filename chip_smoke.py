@@ -12,8 +12,9 @@ Phases; the first failure raises and the script exits non-zero:
      turns TF32 off for matmuls and convolutions (every comparison and time
      below is full f32 unless it says bf16);
   2. build: compiles the six CUDA sources from dskd_tpu_torch/csrc (eleven
-     kernels), one nvcc per source, all started together, and prints each
-     kernel's registers and spills;
+     kernels; gather_weighted.cu carries fused_window, gather_weighted_bwd.cu
+     the windowed weighted backward), one nvcc per source, all started
+     together, and prints the registers and spills of each instantiation;
   3. kernels: each kernel against its plain PyTorch twin on the card at the
      flagship's shapes (B=2, H=8, D=32, P=4; the levels of the 640x640
      serving canvas with Q=8500 encoder and Q=300 decoder queries, and of
@@ -22,7 +23,8 @@ Phases; the first failure raises and the script exits non-zero:
      on the main paths (640x640: window_gather at 1024 rows, fused_window
      at 1232-3200; 640x480: fused_window and the windowed backward at 992
      and 1376), once with every sample in its window (escape counts 0) and
-     once with some sent far away (counts > 0, the same results); and the
+     once with some sent far away (counts > 0, the same results;
+     fused_window also bit for bit gather_weighted's); and the
      gradients of ms_deform_attn_core in value, locations and attention on
      the card against the plain twins, on the default branch and under each
      sampling switch (the windowed ones for the encoder's raster queries of
@@ -54,7 +56,9 @@ Phases; the first failure raises and the script exits non-zero:
      F.embedding_bag for gather_weighted, fused_sample and fused_window) in
      device ms (device_ms: the calls queued behind a spin kernel, so that no
      host time enters), gather_weighted and pack_corners also level by
-     level, beside the least time the card could take (bytes over 3.35 TB/s
+     level, fused_sample by level of 640x480, fused_window beside
+     gather_weighted on its segments, beside the least time the card could
+     take (bytes over 3.35 TB/s
      or f32 operations over 67 TFLOP/s) and, for the backwards, their rate
      of f32 adds into dtable (G adds/s); the serving slice in ms/image (host
      clock and CUDA events), the train step in ms/step and img/s under each
@@ -686,6 +690,7 @@ def check_window_kernels(gen):
     from dskd_tpu_torch.ops.fused_window import fused_window_sample, \
         fused_window_sample_plain, windowed_weighted_bwd, \
         windowed_weighted_bwd_plain
+    from dskd_tpu_torch.ops.mxu_gather import gather_weighted
     from dskd_tpu_torch.ops.window import window_escapes
     from dskd_tpu_torch.ops.window_gather import window_gather, \
         window_gather_bwd, window_gather_bwd_plain, window_gather_plain
@@ -736,6 +741,12 @@ def check_window_kernels(gen):
                         + ("window_weighted_bwd",)
                     esc = read_escapes()
                     if kind == "fwin":
+                        # gather_weighted's kernel: its output bit for bit
+                        if not torch.equal(got, gather_weighted(table, idx,
+                                                                w32)):
+                            raise AssertionError(f"fused_window differs from "
+                                                 f"gather_weighted at {tag} "
+                                                 f"{dtype}")
                         want = fused_window_sample_plain(
                             table.float(), idx, w32, starts, K, tq)
                         torch.testing.assert_close(got.float(), want, **tol)
@@ -822,13 +833,16 @@ def time_window_kernels(gen):
     640x640 (B5's training canvas, Q=6400), fused_window over the two
     segments of 640x480 level 0 that take it (one MSDA call), and the
     windowed weighted backward over the two 640x480 segments of
-    DSKD_WINBWD, beside gather_weighted_bwd on the same inputs; device ms.
+    DSKD_WINBWD, fused_window and the windowed backward each beside its
+    unwindowed kernel (gather_weighted, gather_weighted_bwd) on the same
+    inputs; device ms.
     Returns {name: (kernel ms, plain ms, library ms or None, (bound ms, by),
     f32 adds into dtable or None)}."""
     from dskd_tpu_torch.ops.fused_window import fused_window_sample, \
         fused_window_sample_plain, windowed_weighted_bwd, \
         windowed_weighted_bwd_plain
-    from dskd_tpu_torch.ops.mxu_gather import gather_weighted_bwd
+    from dskd_tpu_torch.ops.mxu_gather import gather_weighted, \
+        gather_weighted_bwd
     from dskd_tpu_torch.ops.window_gather import window_gather, \
         window_gather_bwd, window_gather_bwd_plain, window_gather_plain
 
@@ -889,6 +903,10 @@ def time_window_kernels(gen):
                     bound(nbytes(table) + sum(nbytes(f, c, g) for
                                               _, f, c, _, _, g in segs),
                           2 * row * n_rows), None)
+                out[f"gather_weighted on the same segments {tag}"] = (
+                    device_ms(lambda: [gather_weighted(t, f, c)
+                                       for t, f, c, *_ in segs]),
+                    None, None, out[f"{name} {tag}"][3], None)
                 continue
             out[f"{name} {tag}"] = (
                 device_ms(lambda: [windowed_weighted_bwd(t, f, c, g, st, k, tq)
@@ -1377,8 +1395,8 @@ def time_sampling_kernels(gen):
     the switches give them in the training step's encoder: levels 1-3 of
     the 640x480 canvas, Q=6380, one MSDA call; device ms. Returns {name:
     (kernel ms, plain ms, library ms or None, (bound ms, bound by), f32 adds
-    into dtable or None)}, f32 and bf16, and the backward kernels per
-    level."""
+    into dtable or None)}, f32 and bf16, and fused_msda_sample forward and
+    backward and the mxu_gather backward per level."""
     from dskd_tpu_torch.ops.fused_sample import fused_msda_sample, \
         fused_msda_sample_bwd, fused_msda_sample_bwd_plain, \
         fused_msda_sample_plain
@@ -1466,6 +1484,13 @@ def time_sampling_kernels(gen):
                           warmup=1), None,
                 bound(nbytes(f, g) + B * S * HEADS * 4 * D * es,
                       f.numel() * 4 * D), f.numel() * 4 * D)
+            out[f"fused_sample {tag} level {lvl} ({h}x{w}, {h * w} rows)"] = (
+                device_ms(lambda: fused_msda_sample(v, c, wt, w)),
+                device_ms(lambda: fused_msda_sample_plain(v, c, wt, w),
+                          iters=5),
+                device_ms(lambda: embedding_bag(fbags[lvl - 1],
+                                                (B, Q, HEADS, D))),
+                bound(nbytes(v, c, wt, gq), 2 * D * taps), None)
             out[f"fused_sample_bwd {tag} level {lvl} ({h}x{w}, {h * w} "
                 f"rows)"] = (
                 device_ms(lambda: fused_msda_sample_bwd(v, c, wt, gq, w),
@@ -1743,7 +1768,8 @@ def main() -> int:
         sampled("window_gather_bwd", "window_sample.cu",
                 "dskd_tpu/ops/window_gather.py:138",
                 werr["window_gather_bwd"], wtimes),
-        sampled("fused_window", "window_sample.cu",
+        # gather_weighted's kernel with an escape count
+        sampled("fused_window", "gather_weighted.cu",
                 "dskd_tpu/ops/fused_window.py:146", werr["fused_window"],
                 wtimes),
         # one kernel for the two layouts of one function: B1''s scatter

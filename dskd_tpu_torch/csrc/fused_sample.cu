@@ -30,8 +30,35 @@
 // (on the 10x8 level all 6,380 encoder queries of an image land on 80 rows
 // of each (b, head)).
 //
-// Forward design: one warp per (b, q, hd); lane l owns elements l, l+32, ...
-// of the row, so every tap is one coalesced warp load.
+// What held the first forward design back (one warp per (b, q, hd), lane l
+// on elements l, l+32, ..., kept as the generic kernel for D not a multiple
+// of 4): latency. Each point loaded its index, then walked its four taps
+// behind a branch, one 128-byte row per warp load, so a warp had one row in
+// flight and paid the index latency once per point, in series.
+//
+// Forward design (D a multiple of 4): lanes over elements, B1's layout. kG
+// lanes span a 32-element piece of a sample's row, one 16-byte vector each
+// (kV = 4 elements in f32, kG = 8; kV = 8 in bf16, kG = 4; 8-byte bf16
+// lanes, kV = 4, where D is not a multiple of 8), so 32 / kG samples share
+// a warp. Each lane loads its sample's indices (one int4 at P = 4; other P
+// run in groups of four) and weights (a float4 per point), and sums all the
+// taps of its elements itself, point after point and tap after tap, in the
+// first design's order: the four taps of a point in flight, no shuffles,
+// results bit for bit the first design's, and the output written once with
+// one streaming vector store per lane. (B4''s layout, lane l on tap l >> 3,
+// serves the backward, whose adds and dots are per tap; for the forward it
+// needs a butterfly of shuffles over the four taps per sample and measured
+// slower, tools/fused_sample_steps.cu.)
+//
+// Taps from shared memory. The rows still cross from L2 to the SMs 4P times
+// per sample (2 KB in f32), whatever the level's size. A (b, hd) slice of
+// levels 1-3 of a 640x480 canvas is 80, 300 or 1200 rows of 128 B in f32,
+// 10-154 KB, so where a slice fits in shared memory (kMaxStage) and its
+// samples read it often enough (kStageReuse), blocks run over (query tile,
+// b * H + hd): each stages its slice once with 16-byte cp.async copies, one
+// per 16 bytes of a row (the rows are H * D elements apart), then reads the
+// taps from shared memory. That costs tiles x slice bytes of L2 traffic
+// instead of 2 KB per sample; the tiles are as many as fill the card once.
 //
 // Backward design (D a multiple of 4): one warp per (b, q, hd) holds the
 // four taps of a point at once. Lane l serves tap c = l >> 3 and elements
@@ -55,8 +82,11 @@
 // (elements), so a level slice of the (B, S, H, D) value is read in place.
 // idx (B, Q, H, P) int32, w (B, Q, H, P, 4) f32, out and g (B, Q, H, D),
 // dtable (B, S, H, D) f32 and dw (B, Q, H, P, 4) f32 are contiguous. For
-// the vector backward the wrapper checks that the table, g and dtable are
-// 16-byte aligned and the table's strides whole vectors of 4 elements.
+// the vector kernels (D a multiple of 4) the wrapper checks that the table,
+// g and dtable are 16-byte aligned and the table's strides whole vectors of
+// 4 elements; the forward takes 16-byte bf16 lanes and stages slices only
+// where the rows and strides are whole 16-byte vectors.
+#include <climits>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -242,6 +272,272 @@ __global__ void fused_sample_bwd_kernel(
   }
 }
 
+// --- the forward for D a multiple of 4; see the header ---------------------
+
+__device__ __forceinline__ float2 bf2(unsigned u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+__device__ __forceinline__ unsigned pack_bf2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// kV elements of a row as one vector: its bytes (loaded through the
+// read-only path from device memory, or from shared memory), unpacked to
+// f32, and kV f32 sums stored in the row's type (streaming: written once).
+template <typename T, int kV> struct Lane;
+
+template <> struct Lane<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ void unpack(const Raw& q, float (&f)[4]) {
+    f[0] = q.x; f[1] = q.y; f[2] = q.z; f[3] = q.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&f)[4]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(f[0], f[1], f[2], f[3]));
+  }
+};
+
+template <> struct Lane<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ void unpack(const Raw& q, float (&f)[8]) {
+    const float2 a = bf2(q.x), b = bf2(q.y), c = bf2(q.z), d = bf2(q.w);
+    f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+    f[4] = c.x; f[5] = c.y; f[6] = d.x; f[7] = d.y;
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&f)[8]) {
+    __stcs(reinterpret_cast<uint4*>(p),
+           make_uint4(pack_bf2(f[0], f[1]), pack_bf2(f[2], f[3]),
+                      pack_bf2(f[4], f[5]), pack_bf2(f[6], f[7])));
+  }
+};
+
+template <> struct Lane<__nv_bfloat16, 4> {
+  using Raw = uint2;
+  static __device__ __forceinline__ void unpack(const Raw& q, float (&f)[4]) {
+    const float2 a = bf2(q.x), b = bf2(q.y);
+    f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&f)[4]) {
+    __stcs(reinterpret_cast<uint2*>(p),
+           make_uint2(pack_bf2(f[0], f[1]), pack_bf2(f[2], f[3])));
+  }
+};
+
+struct FwdShape {
+  int64_t rows;                             // B * Q * H samples
+  int64_t queries;
+  int heads, points;
+  int64_t table_rows;
+  int level_w, d;
+  int64_t stride_b, stride_s, stride_h;
+};
+
+// One sample's output row on its kG lanes; see the header. `rows` is the
+// (b, hd) table in device memory (kStaged false) or its slice in shared
+// memory, rows `stride_s` elements apart; ip and wp the sample's indices
+// and weights (16-byte aligned).
+template <typename T, int kP, int kV, int kG, bool kStaged>
+__device__ __forceinline__ void sample_row(
+    const T* __restrict__ rows, int64_t stride_s, const int* __restrict__ ip,
+    const float* __restrict__ wp, T* __restrict__ op, int points,
+    int64_t table_rows, int level_w, int d, int lane) {
+  using L = Lane<T, kV>;
+  const int n = kP ? kP : points;
+  for (int e = (lane % kG) * kV; e < d; e += kG * kV) {
+    float acc[kV];
+#pragma unroll
+    for (int i = 0; i < kV; ++i) acc[i] = 0.f;
+    for (int p0 = 0; p0 < n; p0 += kGroup) {
+      int c00[kGroup];
+      if constexpr (kP == kGroup) {
+        const int4 c = __ldg(reinterpret_cast<const int4*>(ip));
+        c00[0] = c.x; c00[1] = c.y; c00[2] = c.z; c00[3] = c.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k)
+          c00[k] = p0 + k < n ? __ldg(ip + p0 + k) : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        if (p0 + k >= n) break;
+        const float4 w4 = __ldg(reinterpret_cast<const float4*>(wp) + p0 + k);
+        const float wt[4] = {w4.x, w4.y, w4.z, w4.w};
+        typename L::Raw raw[4];             // the point's four taps in flight
+        bool ok[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int64_t r = static_cast<int64_t>(c00[k]) + (c & 1) +
+                            (c >> 1) * static_cast<int64_t>(level_w);
+          ok[c] = r >= 0 && r < table_rows;
+          const auto* src = reinterpret_cast<const typename L::Raw*>(
+              rows + r * stride_s + e);
+          if (!ok[c]) {
+            raw[c] = typename L::Raw{};
+          } else if constexpr (kStaged) {
+            raw[c] = *src;
+          } else {
+            raw[c] = __ldg(src);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (!ok[c]) continue;
+          float f[kV];
+          L::unpack(raw[c], f);
+#pragma unroll
+          for (int i = 0; i < kV; ++i) acc[i] = fmaf(wt[c], f[i], acc[i]);
+        }
+      }
+    }
+    L::store(op + e, acc);
+  }
+}
+
+// Samples straight from the table in device memory: kG lanes per sample,
+// a grid over all samples in (b, q, hd) order.
+template <typename T, int kP, int kV, int kG>
+__global__ void __launch_bounds__(256)
+fused_sample_vec_kernel(const T* __restrict__ table,
+                        const int* __restrict__ idx,
+                        const float* __restrict__ w, T* __restrict__ out,
+                        FwdShape s) {
+  const int64_t it =
+      (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) / kG;
+  if (it >= s.rows) return;
+  const int n = kP ? kP : s.points;
+  const int hd = static_cast<int>(it % s.heads);
+  const int64_t b = it / s.heads / s.queries;
+  sample_row<T, kP, kV, kG, false>(
+      table + b * s.stride_b + hd * s.stride_h, s.stride_s, idx + it * n,
+      w + it * n * 4, out + it * s.d, s.points, s.table_rows, s.level_w,
+      s.d, threadIdx.x & 31);
+}
+
+constexpr int kStageThreads = 1024;         // 32 warps: one block per SM
+                                            // still keeps 32 in flight
+
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// Block (tile, b * H + hd) copies the (b, hd) slice's rows into shared
+// memory with cp.async (whole 16-byte vectors) and returns the range
+// [q0, q1) of its tile's queries.
+template <typename T>
+__device__ __forceinline__ void stage_slice(T* slice,
+                                            const T* __restrict__ table,
+                                            const FwdShape& s, int64_t b,
+                                            int hd, int64_t& q0,
+                                            int64_t& q1) {
+  constexpr int kE = 16 / sizeof(T);        // elements per 16-byte vector
+  const T* src = table + b * s.stride_b + hd * s.stride_h;
+  const int vpr = s.d / kE;                 // vectors per row
+  const int n_vec = static_cast<int>(s.table_rows) * vpr;
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x)
+    copy16(slice + static_cast<int64_t>(i) * kE,
+           src + (i / vpr) * s.stride_s + (i % vpr) * kE);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  const int64_t per = (s.queries + gridDim.x - 1) / gridDim.x;
+  q0 = blockIdx.x * per;
+  q1 = q0 + per < s.queries ? q0 + per : s.queries;
+}
+
+// Samples from the (b, hd) slice staged in shared memory: block
+// (tile, b * H + hd) serves the queries of its tile, kG lanes per sample.
+template <typename T, int kP, int kV, int kG>
+__global__ void __launch_bounds__(kStageThreads)
+fused_sample_staged_kernel(const T* __restrict__ table,
+                           const int* __restrict__ idx,
+                           const float* __restrict__ w, T* __restrict__ out,
+                           FwdShape s) {
+  extern __shared__ uint4 stage[];
+  T* slice = reinterpret_cast<T*>(stage);
+  const int hd = static_cast<int>(blockIdx.y % s.heads);
+  const int64_t b = blockIdx.y / s.heads;
+  int64_t q0, q1;
+  stage_slice(slice, table, s, b, hd, q0, q1);
+  const int n = kP ? kP : s.points;
+  const int lane = threadIdx.x & 31;
+  for (int64_t q = q0 + static_cast<int64_t>(threadIdx.x / kG); q < q1;
+       q += kStageThreads / kG) {
+    const int64_t at = (b * s.queries + q) * s.heads + hd;
+    sample_row<T, kP, kV, kG, true>(slice, s.d, idx + at * n,
+                                    w + at * n * 4, out + at * s.d,
+                                    s.points, s.table_rows, s.level_w, s.d,
+                                    lane);
+  }
+}
+
+// The largest slice staged (the shared memory a block may take on an H100,
+// 227 KB), and how many taps each staged row must serve on average: a slice
+// staged for fewer samples than that measured slower than the taps
+// streamed from device memory (the decoder's 300 queries on levels 1 and 2
+// of 640x480, tools/torch_kernel_steps.py).
+constexpr int64_t kMaxStage = 232448;
+constexpr int64_t kStageReuse = 4;
+
+// The grid of a staged kernel for these shapes: as many query tiles per
+// (b, hd) as fill the card once; dim3(0) where the slice does not fit. The
+// kernel must have opted in to kMaxStage bytes of shared memory.
+template <typename Kernel>
+dim3 stage_grid(Kernel kernel, const FwdShape& s, int element_size,
+                int* smem) {
+  const int64_t bytes = s.table_rows * s.d * element_size;
+  const int64_t slices = s.rows / s.queries;          // B * H
+  *smem = static_cast<int>(bytes);
+  if (bytes == 0 || bytes > kMaxStage || slices > 65535) return dim3(0);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                kStageThreads, *smem);
+  if (per_sm == 0) return dim3(0);
+  int64_t tiles = static_cast<int64_t>(sms) * per_sm / slices;
+  if (tiles > s.queries) tiles = s.queries;
+  if (tiles < 1) tiles = 1;
+  return dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(slices));
+}
+
+// Staged where the rows are whole 16-byte vectors, a slice fits and its
+// rows serve kStageReuse taps each on average, else streamed from device
+// memory.
+template <typename T, int kP, int kV, int kG>
+cudaError_t run_fwd(const T* table, const int* idx, const float* w, T* out,
+                    const FwdShape& s, bool whole_vectors,
+                    cudaStream_t stream) {
+  if constexpr (kV * sizeof(T) == 16) {
+    auto staged = fused_sample_staged_kernel<T, kP, kV, kG>;
+    static bool opted_in = false;           // once per instantiation
+    if (whole_vectors && !opted_in) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          staged, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(kMaxStage));
+      if (err != cudaSuccess) return err;
+      opted_in = true;
+    }
+    int smem = 0;
+    const dim3 grid =
+        whole_vectors ? stage_grid(staged, s, sizeof(T), &smem) : dim3(0);
+    const int n = kP ? kP : s.points;
+    if (grid.x && static_cast<int64_t>(grid.x) * s.table_rows * kStageReuse <=
+                      s.queries * n * 4) {
+      staged<<<grid, kStageThreads, smem, stream>>>(table, idx, w, out, s);
+      return cudaGetLastError();
+    }
+  }
+  fused_sample_vec_kernel<T, kP, kV, kG>
+      <<<static_cast<unsigned>((s.rows * kG + 255) / 256), 256, 0, stream>>>(
+          table, idx, w, out, s);
+  return cudaGetLastError();
+}
+
 constexpr int kThreads = 256;               // 8 warps, 8 (b, q, hd) rows
 
 unsigned blocks_for(int64_t rows) {
@@ -256,14 +552,41 @@ int launch_fwd(const void* table, const void* idx, const void* w, void* out,
                void* stream) {
   const int64_t rows = batch * queries * heads;
   if (rows == 0) return static_cast<int>(cudaSuccess);
-  fused_sample_kernel<T><<<blocks_for(rows), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(table), static_cast<const int*>(idx),
-      static_cast<const float*>(w), static_cast<T*>(out), rows, queries,
-      static_cast<int>(heads), static_cast<int>(points), table_rows,
-      static_cast<int>(level_w), static_cast<int>(d), stride_b, stride_s,
-      stride_h);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  const T* t = static_cast<const T*>(table);
+  const int* i = static_cast<const int*>(idx);
+  const float* wf = static_cast<const float*>(w);
+  T* o = static_cast<T*>(out);
+  if (d % 4) {                              // the first design
+    fused_sample_kernel<T><<<blocks_for(rows), kThreads, 0, st>>>(
+        t, i, wf, o, rows, queries, static_cast<int>(heads),
+        static_cast<int>(points), table_rows, static_cast<int>(level_w),
+        static_cast<int>(d), stride_b, stride_s, stride_h);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (table_rows > INT_MAX || points > INT_MAX / 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdShape s{rows, queries, static_cast<int>(heads),
+                   static_cast<int>(points), table_rows,
+                   static_cast<int>(level_w), static_cast<int>(d), stride_b,
+                   stride_s, stride_h};
+  // rows and strides of whole 16-byte vectors: 16-byte lanes, and a slice
+  // that cp.async can stage
+  constexpr int kE = 16 / sizeof(T);
+  const bool whole = d % kE == 0 && stride_b % kE == 0 &&
+                     stride_s % kE == 0 && stride_h % kE == 0;
+  cudaError_t err;
+  if constexpr (sizeof(T) == 4) {
+    err = points == 4 ? run_fwd<T, 4, 4, 8>(t, i, wf, o, s, whole, st)
+                      : run_fwd<T, 0, 4, 8>(t, i, wf, o, s, whole, st);
+  } else if (whole) {                       // bf16: 16-byte lanes
+    err = points == 4 ? run_fwd<T, 4, 8, 4>(t, i, wf, o, s, true, st)
+                      : run_fwd<T, 0, 8, 4>(t, i, wf, o, s, true, st);
+  } else {                                  // bf16: 8-byte lanes, streamed
+    err = points == 4 ? run_fwd<T, 4, 4, 8>(t, i, wf, o, s, false, st)
+                      : run_fwd<T, 0, 4, 8>(t, i, wf, o, s, false, st);
+  }
+  return static_cast<int>(err);
 }
 
 template <typename T>

@@ -4,7 +4,11 @@
 // Replaces: dskd_tpu/ops/mxu_gather.py `mxu_gather_weighted` forward
 // (`_fwd_w_kernel`), the Pallas one-hot kernel that samples levels 1-3 on the
 // TPU, and the XLA gather loop that samples level 0 there
-// (dskd_tpu/ops/msda.py `ms_deform_attn_core`).
+// (dskd_tpu/ops/msda.py `ms_deform_attn_core`): gather_weighted_{f32,bf16}.
+// And dskd_tpu/ops/fused_window.py `fused_window_sample` forward
+// (`fwd_kernel`, pallas_call at :146), which computes the same function per
+// query tile of `tile_q` inside a window of table rows:
+// fused_window_{f32,bf16}.
 //
 //   out[b, q, hd, e] = sum_p table[b, idx[b,q,hd,p], hd, e] * w[b,q,hd,p, e/D]
 //
@@ -50,6 +54,24 @@
 // With the index latency exposed once per sample and P rows in flight, the
 // f32 kernel moves the rows from L2 at about the rate L2 serves random
 // 512-byte rows (PERF.md).
+//
+// Windows. Query q lies in tile t = q / tile_q, whose window is the rows
+// [starts[t], starts[t] + window). On the TPU the window made the one-hot
+// product affordable, and a sample outside it (an escape) sent the whole
+// segment to the plain path. Here the windowed entry point runs this same
+// gather (kCountEscapes), which reads an escaped row like any other, so its
+// output is gather_weighted's bit for bit, and keeps the window only in a
+// count: lane p < P of a sample's lane group compares the row p it loaded
+// for the gather with its tile's window after the sample's store, the warp
+// sums the count, and a warp with escapes adds it to the device int32
+// `escapes` (where every sample keeps to its window, no atomic at all). The
+// gather is latency-bound, so the count must not cost it occupancy: in f32
+// it keeps the default kernel's 32 registers. (Counting before the gather,
+// behind a warp reduction that waits for the indices, cost 1.16x
+// gather_weighted's time on the same inputs on an H100; summing the warps'
+// counts per block behind a barrier 1.08x; a start per query, or the tile
+// by a multiply and shift, 34 registers and 1.10x; PERF.md.)
+//
 // The table is addressed through explicit batch, row and head strides
 // (elements; each row contiguous), so the (B, S', H, 4D) output of
 // pack_corners is read in place. idx (int32) and w are contiguous
@@ -72,6 +94,25 @@ struct Shape {
   int vpc;                                  // vectors per corner chunk
   int64_t stride_b, stride_s, stride_h;
 };
+
+struct Window {
+  const int* starts;                        // one row per tile of tile_q
+  int* escapes;                             // device int32 count
+  int tile_q, rows;
+};
+
+__device__ __forceinline__ bool escaped(int row, int start, int rows) {
+  const int64_t local = static_cast<int64_t>(row) - start;
+  return local < 0 || local >= rows;
+}
+
+// A warp's escapes: each lane's count summed over the warp, and one device
+// atomic from a warp with escapes (none where every sample keeps to its
+// window). All 32 lanes call it.
+__device__ __forceinline__ void add_escapes(const Window& win, int esc) {
+  esc = __reduce_add_sync(0xffffffffu, esc);
+  if ((threadIdx.x & 31) == 0 && esc) atomicAdd(win.escapes, esc);
+}
 
 __device__ __forceinline__ void load_vec(const float* p, float (&f)[4]) {
   const float4 q = __ldg(reinterpret_cast<const float4*>(p));
@@ -112,38 +153,37 @@ __device__ __forceinline__ float load_w(const __nv_bfloat16* p) {
   return __bfloat162float(__ldg(p));
 }
 
-// kP points per sample; kG lanes per row, one 16-byte vector each (16 or
-// 32, so that 32 / kG rows share a warp).
-template <typename T, typename WT, int kP, int kG>
-__global__ void __launch_bounds__(kThreads)
-gather_weighted_kernel(const T* __restrict__ table,
-                       const int* __restrict__ idx, const WT* __restrict__ w,
-                       T* __restrict__ out, Shape s) {
+// Sample `it` on its lane group; see the header. kCountEscapes: returns 1
+// on lane p < P of the group if row p lies outside the sample's window,
+// else 0.
+template <typename T, typename WT, int kP, int kG, bool kCountEscapes>
+__device__ __forceinline__ int gather_sample(
+    const T* __restrict__ table, const int* __restrict__ idx,
+    const WT* __restrict__ w, T* __restrict__ out, const Shape& s, int it,
+    int lane, const Window& win) {
   constexpr int kV = 16 / sizeof(T);        // elements per vector
-  constexpr int kRows = 32 / kG;            // samples per warp
-  const int lane = threadIdx.x & 31;
   const int e = (lane % kG) * kV;           // this lane's elements of a row
   const int corner = (lane % kG) / s.vpc;
-  const int it =                            // the (b, q, hd) sample
-      (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * kRows + lane / kG;
-  if (it >= s.items) return;
   const int b = it / (s.queries * s.heads);
   const int64_t base = b * s.stride_b + (it % s.heads) * s.stride_h;
   const int* ip = idx + static_cast<int64_t>(it) * kP;
   const WT* wp = w + static_cast<int64_t>(it) * kP * 4;
   // the indices and this lane's corner weights; outside [0, S): row -1,
   // weight 0
-  int r[kP];
+  int r[kP], x[kP];
   float wt[kP];
 #pragma unroll
   for (int p = 0; p < kP; ++p) {
-    const int x = __ldg(ip + p);
+    x[p] = __ldg(ip + p);
     const float y = load_w(wp + p * 4 + corner);
-    const bool ok = static_cast<unsigned>(x) <
+    const bool ok = static_cast<unsigned>(x[p]) <
                     static_cast<unsigned>(s.table_rows);
-    r[p] = ok ? x : -1;
+    r[p] = ok ? x[p] : -1;
     wt[p] = ok ? y : 0.f;
   }
+  int start = 0;                            // the window's first row
+  if constexpr (kCountEscapes)
+    start = __ldg(win.starts + (it / s.heads - b * s.queries) / win.tile_q);
   // all P rows in flight before the first multiply-add
   float f[kP][kV];
 #pragma unroll
@@ -165,19 +205,48 @@ gather_weighted_kernel(const T* __restrict__ table,
     for (int i = 0; i < kV; ++i) acc[i] = fmaf(wt[p], f[p][i], acc[i]);
   }
   store_vec(out + static_cast<int64_t>(it) * s.nv * kV + e, acc);
+  int esc = 0;
+  if constexpr (kCountEscapes) {
+#pragma unroll
+    for (int p = 0; p < kP; ++p)
+      esc += lane % kG == p && escaped(x[p], start, win.rows);
+  }
+  return esc;
+}
+
+// kP points per sample; kG lanes per row, one 16-byte vector each (16 or
+// 32, so that 32 / kG rows share a warp). kCountEscapes: also count the
+// samples outside their tile's window (the header).
+template <typename T, typename WT, int kP, int kG, bool kCountEscapes>
+__global__ void __launch_bounds__(kThreads)
+gather_weighted_kernel(const T* __restrict__ table,
+                       const int* __restrict__ idx, const WT* __restrict__ w,
+                       T* __restrict__ out, Shape s, Window win) {
+  constexpr int kV = 16 / sizeof(T);        // elements per vector
+  constexpr int kRows = 32 / kG;            // samples per warp
+  const int lane = threadIdx.x & 31;
+  const int it =                            // the (b, q, hd) sample
+      (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * kRows + lane / kG;
+  if constexpr (!kCountEscapes) {
+    if (it >= s.items) return;
+    gather_sample<T, WT, kP, kG, false>(table, idx, w, out, s, it, lane,
+                                        win);
+  } else {                                  // every lane to the reduction
+    add_escapes(win, it < s.items
+                         ? gather_sample<T, WT, kP, kG, true>(
+                               table, idx, w, out, s, it, lane, win)
+                         : 0);
+  }
 }
 
 // Any P and any row of whole 16-byte vectors: a warp per sample, its lanes
 // over the row's vectors, the points in a runtime loop.
 template <typename T, typename WT>
-__global__ void __launch_bounds__(kThreads)
-gather_weighted_generic(const T* __restrict__ table,
-                        const int* __restrict__ idx, const WT* __restrict__ w,
-                        T* __restrict__ out, Shape s) {
+__device__ __forceinline__ void generic_sample(
+    const T* __restrict__ table, const int* __restrict__ idx,
+    const WT* __restrict__ w, T* __restrict__ out, const Shape& s, int it,
+    int lane) {
   constexpr int kV = 16 / sizeof(T);
-  const int lane = threadIdx.x & 31;
-  const int it = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (it >= s.items) return;
   const int b = it / (s.queries * s.heads);
   const int64_t base = b * s.stride_b + (it % s.heads) * s.stride_h;
   const int* ip = idx + static_cast<int64_t>(it) * s.points;
@@ -202,43 +271,68 @@ gather_weighted_generic(const T* __restrict__ table,
   }
 }
 
+template <typename T, typename WT, bool kCountEscapes>
+__global__ void __launch_bounds__(kThreads)
+gather_weighted_generic(const T* __restrict__ table,
+                        const int* __restrict__ idx, const WT* __restrict__ w,
+                        T* __restrict__ out, Shape s, Window win) {
+  const int lane = threadIdx.x & 31;
+  const int it = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if constexpr (!kCountEscapes) {
+    if (it >= s.items) return;
+    generic_sample<T, WT>(table, idx, w, out, s, it, lane);
+  } else {                                  // every lane to the reduction
+    int esc = 0;
+    if (it < s.items) {
+      generic_sample<T, WT>(table, idx, w, out, s, it, lane);
+      const int start = __ldg(win.starts + (it / s.heads) % s.queries /
+                                               win.tile_q);
+      for (int p = lane; p < s.points; p += 32)
+        esc += escaped(__ldg(idx + static_cast<int64_t>(it) * s.points + p),
+                       start, win.rows);
+    }
+    add_escapes(win, esc);
+  }
+}
+
 // One kernel over the samples; kP == 0: the generic kernel.
-template <typename T, typename WT, int kP, int kG>
+template <typename T, typename WT, int kP, int kG, bool kCountEscapes>
 cudaError_t run(const T* table, const int* idx, const WT* w, T* out,
-                const Shape& s, cudaStream_t stream) {
-  void (*kernel)(const T*, const int*, const WT*, T*, Shape);
+                const Shape& s, const Window& win, cudaStream_t stream) {
+  void (*kernel)(const T*, const int*, const WT*, T*, Shape, Window);
   int rows_per_block = kThreads / 32;
   if constexpr (kP == 0) {
-    kernel = gather_weighted_generic<T, WT>;
+    kernel = gather_weighted_generic<T, WT, kCountEscapes>;
   } else {
-    kernel = gather_weighted_kernel<T, WT, kP, kG>;
+    kernel = gather_weighted_kernel<T, WT, kP, kG, kCountEscapes>;
     rows_per_block *= 32 / kG;
   }
   const int blocks = (s.items + rows_per_block - 1) / rows_per_block;
-  kernel<<<blocks, kThreads, 0, stream>>>(table, idx, w, out, s);
+  kernel<<<blocks, kThreads, 0, stream>>>(table, idx, w, out, s, win);
   return cudaGetLastError();
 }
 
-template <typename T, typename WT>
+template <typename T, typename WT, bool kCountEscapes>
 cudaError_t dispatch(const void* table, const void* idx, const void* w,
-                     void* out, const Shape& s, cudaStream_t stream) {
+                     void* out, const Shape& s, const Window& win,
+                     cudaStream_t stream) {
   const T* t = static_cast<const T*>(table);
   const int* i = static_cast<const int*>(idx);
   const WT* wt = static_cast<const WT*>(w);
   T* o = static_cast<T*>(out);
   // the flagship's rows (D = 32: 32 f32 or 16 bf16 vectors) and P = 4
-  if (s.points == 4 && s.nv == 32) return run<T, WT, 4, 32>(t, i, wt, o, s,
-                                                            stream);
-  if (s.points == 4 && s.nv == 16) return run<T, WT, 4, 16>(t, i, wt, o, s,
-                                                            stream);
-  return run<T, WT, 0, 32>(t, i, wt, o, s, stream);
+  if (s.points == 4 && s.nv == 32)
+    return run<T, WT, 4, 32, kCountEscapes>(t, i, wt, o, s, win, stream);
+  if (s.points == 4 && s.nv == 16)
+    return run<T, WT, 4, 16, kCountEscapes>(t, i, wt, o, s, win, stream);
+  return run<T, WT, 0, 32, kCountEscapes>(t, i, wt, o, s, win, stream);
 }
 
-template <typename T>
+template <typename T, bool kCountEscapes>
 int entry(const void* table, const void* idx, const void* w, void* out,
           int64_t batch, int64_t queries, int64_t heads, int64_t points,
           int64_t table_rows, int64_t d4, int64_t stride_b, int64_t stride_s,
-          int64_t stride_h, int64_t w_bf16, void* stream) {
+          int64_t stride_h, int64_t w_bf16, const Window& win, void* stream) {
   constexpr int kV = 16 / sizeof(T);
   const int64_t items = batch * queries * heads;
   if (items == 0) return static_cast<int>(cudaSuccess);
@@ -250,14 +344,22 @@ int entry(const void* table, const void* idx, const void* w, void* out,
                 static_cast<int>(d4 / 4 / kV), stride_b, stride_s, stride_h};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      w_bf16 ? dispatch<T, __nv_bfloat16>(table, idx, w, out, s, st)
-             : dispatch<T, float>(table, idx, w, out, s, st));
+      w_bf16 ? dispatch<T, __nv_bfloat16, kCountEscapes>(table, idx, w, out,
+                                                         s, win, st)
+             : dispatch<T, float, kCountEscapes>(table, idx, w, out, s, win,
+                                                 st));
+}
+
+Window window_of(const void* starts, void* escapes, int64_t tile_q,
+                 int64_t window) {
+  return Window{static_cast<const int*>(starts), static_cast<int*>(escapes),
+                static_cast<int>(tile_q), static_cast<int>(window)};
 }
 
 }  // namespace
 
 // Entry points, one per table type; w_bf16 says whether w is bf16 (else
-// f32). Strides are in elements. Returns cudaGetLastError() after the
+// f32). Strides are in elements. Each returns cudaGetLastError() after its
 // launch.
 extern "C" int gather_weighted_f32(const void* table, const void* idx,
                                    const void* w, void* out, int64_t batch,
@@ -266,9 +368,9 @@ extern "C" int gather_weighted_f32(const void* table, const void* idx,
                                    int64_t d4, int64_t stride_b,
                                    int64_t stride_s, int64_t stride_h,
                                    int64_t w_bf16, void* stream) {
-  return entry<float>(table, idx, w, out, batch, queries, heads, points,
-                      table_rows, d4, stride_b, stride_s, stride_h, w_bf16,
-                      stream);
+  return entry<float, false>(table, idx, w, out, batch, queries, heads,
+                             points, table_rows, d4, stride_b, stride_s,
+                             stride_h, w_bf16, Window{}, stream);
 }
 
 extern "C" int gather_weighted_bf16(const void* table, const void* idx,
@@ -278,7 +380,37 @@ extern "C" int gather_weighted_bf16(const void* table, const void* idx,
                                     int64_t d4, int64_t stride_b,
                                     int64_t stride_s, int64_t stride_h,
                                     int64_t w_bf16, void* stream) {
-  return entry<__nv_bfloat16>(table, idx, w, out, batch, queries, heads,
-                              points, table_rows, d4, stride_b, stride_s,
-                              stride_h, w_bf16, stream);
+  return entry<__nv_bfloat16, false>(table, idx, w, out, batch, queries,
+                                     heads, points, table_rows, d4, stride_b,
+                                     stride_s, stride_h, w_bf16, Window{},
+                                     stream);
+}
+
+// The windowed gather: the same function, and the samples outside their
+// tile's window [starts[q / tile_q], + window) added to `escapes` (one
+// device int32).
+extern "C" int fused_window_f32(
+    const void* table, const void* idx, const void* w, const void* starts,
+    void* out, void* escapes, int64_t batch, int64_t queries, int64_t heads,
+    int64_t points, int64_t tile_q, int64_t window, int64_t table_rows,
+    int64_t d4, int64_t stride_b, int64_t stride_s, int64_t stride_h,
+    int64_t w_bf16, void* stream) {
+  return entry<float, true>(table, idx, w, out, batch, queries, heads, points,
+                            table_rows, d4, stride_b, stride_s, stride_h,
+                            w_bf16, window_of(starts, escapes, tile_q, window),
+                            stream);
+}
+
+extern "C" int fused_window_bf16(
+    const void* table, const void* idx, const void* w, const void* starts,
+    void* out, void* escapes, int64_t batch, int64_t queries, int64_t heads,
+    int64_t points, int64_t tile_q, int64_t window, int64_t table_rows,
+    int64_t d4, int64_t stride_b, int64_t stride_s, int64_t stride_h,
+    int64_t w_bf16, void* stream) {
+  return entry<__nv_bfloat16, true>(table, idx, w, out, batch, queries, heads,
+                                    points, table_rows, d4, stride_b,
+                                    stride_s, stride_h, w_bf16,
+                                    window_of(starts, escapes, tile_q,
+                                              window),
+                                    stream);
 }

@@ -1,23 +1,22 @@
-// The windowed sampling family of multi-scale deformable attention: three
-// kernels, each in f32 and bf16.
+// The windowed row gather of multi-scale deformable attention and its
+// backward, each in f32 and bf16.
 //
 // Replaces:
 //   1. dskd_tpu/ops/window_gather.py `window_gather` forward (`fwd_kernel`,
 //      pallas_call at :115): window_gather_{f32,bf16};
-//   2. its backward (`bwd_kernel`, :138): window_gather_bwd_{f32,bf16};
-//   3. dskd_tpu/ops/fused_window.py `fused_window_sample` forward
-//      (`fwd_kernel`, :146): fused_window_{f32,bf16}.
-// The family's fourth kernel, the weighted backward of `fused_window_sample`
-// and of dskd_tpu/ops/window_bwd.py `windowed_bwd_sample`, is
-// gather_weighted_bwd.cu's windowed entry point: its function is
-// gather_weighted's backward with an escape count.
+//   2. its backward (`bwd_kernel`, :138): window_gather_bwd_{f32,bf16}.
+// The family's weighted kernels compute gather_weighted's function and its
+// backward with an escape count, so they are those kernels' windowed entry
+// points: the forward of dskd_tpu/ops/fused_window.py `fused_window_sample`
+// in gather_weighted.cu, the weighted backward of `fused_window_sample` and
+// of dskd_tpu/ops/window_bwd.py `windowed_bwd_sample` in
+// gather_weighted_bwd.cu.
 //
 // Every sample (b, q, hd, p) reads or adds the packed corner row
 // r = idx[b, q, hd, p]; query q lies in tile t = q / tile_q, whose window is
 // the rows [starts[t], starts[t] + window) of the table.
 //   1. out[b, q, hd, p, :]  = table[b, r, hd, :]
 //   2. dtable[b, r, hd, :] += g[b, q, hd, p, :]
-//   3. out[b, q, hd, e]     = sum_p w[b, q, hd, p, e / D] * table[b, r, hd, e]
 // An index outside [0, S) reads nothing and adds nothing, as in
 // gather_weighted.cu and mxu_gather.cu. Sums run in f32; dtable is an f32
 // buffer the wrapper zeroes (and casts once to the table's type).
@@ -30,14 +29,13 @@
 // input, and no host sync decides a branch. Each kernel adds the number of
 // samples outside their window to the device int32 `escapes`.
 //
-// What bounds them on the H100. The forwards read P rows of 4D elements
-// (512 B in f32) per (b, q, hd) at data-dependent addresses and do no
+// What bounds them on the H100. The forward reads P rows of 4D elements
+// (512 B in f32) per (b, q, hd) at data-dependent addresses and does no
 // matmul: the TPU needed the window to make a one-hot matmul affordable,
-// while Hopper gathers rows directly. So 1 and 3 are bound by bytes and read
-// the rows straight from device memory (a level-0 table is 27.5 MB per
-// image at 640x640 in f32, beside a 50 MB L2) with the designs of
-// mxu_gather.cu and gather_weighted.cu: one warp per row (1) or per
-// (b, q, hd) (3). The backward 2 reads g once and adds every element of it
+// while Hopper gathers rows directly. So 1 is bound by bytes and reads the
+// rows straight from device memory (a level-0 table is 27.5 MB per image at
+// 640x640 in f32, beside a 50 MB L2) with mxu_gather.cu's design: one warp
+// per row. The backward 2 reads g once and adds every element of it
 // into dtable: 52 M f32 adds at level 0 of 640x640 (409,600 sample rows of
 // 128) against 210 MB of g and 55 MB of dtable at B=2. The L2 performs
 // every device atomic, so the adds set the pace: by the atomic instructions
@@ -57,8 +55,8 @@
 // Layouts: the table is addressed through explicit batch, row and head
 // strides (elements; a row is contiguous), so pack_corners' (B, S, H, 4D)
 // output is read in place; the JAX (N, S, 4D) layout is the case H = 1. idx
-// (B, Q, H, P) int32, w (B, Q, H, P, 4) f32, g (B, Q, H, P, D), out and
-// the f32 dtable (B, S, H, D) are contiguous; starts holds ceil(Q / tile_q)
+// (B, Q, H, P) int32, g (B, Q, H, P, D), out (B, Q, H, P, D) and the f32
+// dtable (B, S, H, D) are contiguous; starts holds ceil(Q / tile_q)
 // int32. For 2 the wrapper checks that g and dtable are 16-byte aligned and
 // the row width D a multiple of 4, as its vector loads and atomics need.
 #include <cstdint>
@@ -79,19 +77,6 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&f)[4]) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
   f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-}
-
-__device__ __forceinline__ void store4(float* p, const float (&f)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&f)[4]) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(f[0], f[1]);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(f[2], f[3]);
-  uint2 q;
-  q.x = *reinterpret_cast<const unsigned*>(&a);
-  q.y = *reinterpret_cast<const unsigned*>(&b);
-  *reinterpret_cast<uint2*>(p) = q;
 }
 
 __device__ __forceinline__ bool in_window(int64_t r, int start, int window) {
@@ -127,50 +112,6 @@ __global__ void window_gather_kernel(
   }
   const U* row = table + b * stride_b + r * stride_s + hd * stride_h;
   for (int e = lane; e < d; e += 32) op[e] = __ldg(row + e);
-}
-
-// 3. Weighted gather, one warp per (b, q, hd); lane l owns 4 consecutive
-// elements of the row (one 16-byte f32 or 8-byte bf16 load per row).
-template <typename T>
-__global__ void fused_window_kernel(
-    const T* __restrict__ table, const int* __restrict__ idx,
-    const float* __restrict__ w, const int* __restrict__ starts,
-    T* __restrict__ out, int* __restrict__ escapes, int64_t rows,
-    int64_t queries, int heads, int points, int tile_q, int window,
-    int64_t table_rows, int d4, int d, int64_t stride_b, int64_t stride_s,
-    int64_t stride_h) {
-  const int64_t warp =
-      (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= rows) return;
-  const int hd = static_cast<int>(warp % heads);
-  const int64_t q = (warp / heads) % queries;
-  const int64_t b = warp / heads / queries;
-  const int* ip = idx + warp * points;
-  const float* wp = w + warp * points * 4;
-  if (lane == 0) {
-    const int start = __ldg(starts + q / tile_q);
-    int esc = 0;
-    for (int p = 0; p < points; ++p)
-      esc += !in_window(__ldg(ip + p), start, window);
-    if (esc) atomicAdd(escapes, esc);
-  }
-  const T* base = table + b * stride_b + hd * stride_h;
-  T* op = out + warp * d4;
-  for (int e = lane * 4; e < d4; e += 128) {
-    const int c = e / d;                    // corner of this lane's chunk
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int p = 0; p < points; ++p) {
-      const int r = __ldg(ip + p);
-      if (r < 0 || r >= table_rows) continue;
-      const float wt = __ldg(wp + p * 4 + c);
-      float f[4];
-      load4(base + r * stride_s + e, f);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] = fmaf(wt, f[i], acc[i]);
-    }
-    store4(op + e, acc);
-  }
 }
 
 // 2. Scatter-add of sample rows, one warp per (b, q, hd) with its points'
@@ -253,27 +194,6 @@ int launch_gather(const void* table, const void* idx, const void* starts,
 }
 
 template <typename T>
-int launch_fused(const void* table, const void* idx, const void* w,
-                 const void* starts, void* out, void* escapes, int64_t batch,
-                 int64_t queries, int64_t heads, int64_t points,
-                 int64_t tile_q, int64_t window, int64_t table_rows,
-                 int64_t d4, int64_t stride_b, int64_t stride_s,
-                 int64_t stride_h, void* stream) {
-  const int64_t rows = batch * queries * heads;
-  if (rows == 0) return static_cast<int>(cudaSuccess);
-  fused_window_kernel<T><<<warp_blocks(rows), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(table), static_cast<const int*>(idx),
-      static_cast<const float*>(w), static_cast<const int*>(starts),
-      static_cast<T*>(out), static_cast<int*>(escapes), rows, queries,
-      static_cast<int>(heads), static_cast<int>(points),
-      static_cast<int>(tile_q), static_cast<int>(window), table_rows,
-      static_cast<int>(d4), static_cast<int>(d4 / 4), stride_b, stride_s,
-      stride_h);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
 int launch_gather_bwd(const void* idx, const void* g, const void* starts,
                       void* dtable, void* escapes, int64_t batch,
                       int64_t queries, int64_t heads, int64_t points,
@@ -342,29 +262,4 @@ extern "C" int window_gather_bwd_bf16(
                                           batch, queries, heads, points,
                                           tile_q, window, table_rows, d,
                                           stream);
-}
-
-// 3. w (B, Q, H, P, 4) f32; out (B, Q, H, d4) in the table's type.
-extern "C" int fused_window_f32(
-    const void* table, const void* idx, const void* w, const void* starts,
-    void* out, void* escapes, int64_t batch, int64_t queries, int64_t heads,
-    int64_t points, int64_t tile_q, int64_t window, int64_t table_rows,
-    int64_t d4, int64_t stride_b, int64_t stride_s, int64_t stride_h,
-    void* stream) {
-  return launch_fused<float>(table, idx, w, starts, out, escapes, batch,
-                             queries, heads, points, tile_q, window,
-                             table_rows, d4, stride_b, stride_s, stride_h,
-                             stream);
-}
-
-extern "C" int fused_window_bf16(
-    const void* table, const void* idx, const void* w, const void* starts,
-    void* out, void* escapes, int64_t batch, int64_t queries, int64_t heads,
-    int64_t points, int64_t tile_q, int64_t window, int64_t table_rows,
-    int64_t d4, int64_t stride_b, int64_t stride_s, int64_t stride_h,
-    void* stream) {
-  return launch_fused<__nv_bfloat16>(table, idx, w, starts, out, escapes,
-                                     batch, queries, heads, points, tile_q,
-                                     window, table_rows, d4, stride_b,
-                                     stride_s, stride_h, stream);
 }

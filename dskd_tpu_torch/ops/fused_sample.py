@@ -22,10 +22,14 @@ the middle (a level slice of the value, read in place through its strides),
 idx (B, Q, H, P), weights (B, Q, H, P, 4) -> (B, Q, H, D). On CUDA tensors
 the forward and the backward launch ``csrc/fused_sample.cu``; on CPU tensors
 they run ``fused_msda_sample_plain`` and ``fused_msda_sample_bwd_plain``.
-Where D is a multiple of 4 the backward moves 4-element vectors of each tap
-and adds them into ``dtable`` with 16-byte vector f32 atomics, so the table,
-``g`` and ``dtable`` must then be 16-byte aligned and the table's strides
-multiples of 4 elements (the wrapper raises otherwise).
+Where D is a multiple of 4 the kernels move vectors of 4 (bf16: 8 where the
+rows and strides allow) elements of each tap: the forward from the table in
+device memory or from a slice staged in shared memory, summing in the first
+design's order (its output is that kernel's bit for bit), and the backward
+into ``dtable`` with 16-byte vector f32 atomics. The table (with the
+forward's ``idx`` and ``weights``, the backward's ``g`` and ``dtable``) must
+then be 16-byte aligned and the table's strides multiples of 4 elements (the
+wrappers raise otherwise).
 """
 from __future__ import annotations
 
@@ -105,9 +109,22 @@ def _check(name, table, idx, weights):
     return B, S, H, D, idx.shape[1], idx.shape[3]
 
 
+def _check_vectors(name, table, **tensors):
+    """The vector kernels' (D a multiple of 4) alignment: whole vectors of 4
+    elements in the table's strides, 16-byte aligned tensors (the forward
+    reads a point's weights, and at P = 4 a sample's indices, as one 16-byte
+    vector)."""
+    if any(s % 4 for s in table.stride()[:3]):
+        raise ValueError(f"{name}: table strides must be multiples of 4 "
+                         "elements")
+    check_aligned(name, table=table, **tensors)
+
+
 def _fused_sample_cuda(table, idx, weights, level_w):
     B, S, H, D, Q, P = _check("fused_msda_sample", table, idx, weights)
     idx, weights = idx.contiguous(), weights.contiguous()
+    if D % 4 == 0:                       # the vector kernels
+        _check_vectors("fused_msda_sample", table, idx=idx, weights=weights)
     out = torch.empty((B, Q, H, D), dtype=table.dtype, device=table.device)
     lib = _build.load("fused_sample", SIGNATURES)
     fn = getattr(lib, f"fused_sample_{_DTYPE_TAG[table.dtype]}")
@@ -137,11 +154,7 @@ def fused_msda_sample_bwd(table: torch.Tensor, idx: torch.Tensor,
     dtable = torch.zeros((B, S, H, D), dtype=torch.float32,
                          device=table.device)
     if D % 4 == 0:                       # the vector kernel
-        if any(s % 4 for s in table.stride()[:3]):
-            raise ValueError("fused_msda_sample_bwd: table strides must be "
-                             "multiples of 4 elements")
-        check_aligned("fused_msda_sample_bwd", table=table, g=g,
-                      dtable=dtable)
+        _check_vectors("fused_msda_sample_bwd", table, g=g, dtable=dtable)
     dw = torch.empty((B, Q, H, P, 4), dtype=torch.float32,
                      device=table.device)
     lib = _build.load("fused_sample", SIGNATURES)

@@ -6,12 +6,15 @@ ops/window_bwd.py.
 ``fused_window_sample(table, idx, weights, starts, window, tile_q)`` computes
 ``out[n, q, c*D:(c+1)*D] = sum_p weights[n, q, p, c]
 * table[n, idx[n, q, p], c*D:(c+1)*D]`` for table (N, S, 4D), idx (N, Q, P)
-and f32 weights (N, Q, P, 4), where query q lies in tile q // tile_q, whose
-window is the table rows ``[starts[t], starts[t] + window)``. Sums run in
-f32 and the output has the table's type. The Pallas kernel gave an escaped
-row zero and left the caller to fall back to a plain gather; here every row
-comes from the table, so the result is ``gather_weighted``'s for any index,
-and the CUDA kernels count the escapes (``fused_window_sample.escapes``,
+and weights (N, Q, P, 4) (f32 or bf16, read in their own type), where query
+q lies in tile q // tile_q, whose window is the table rows
+``[starts[t], starts[t] + window)``. Sums run in f32 and the output has the
+table's type. The Pallas kernel gave an escaped row zero and left the
+caller to fall back to a plain gather; here every row comes from the table,
+so the result is ``gather_weighted``'s for any index (on the card bit for
+bit: the forward is ``gather_weighted``'s kernel, through the windowed
+entry point of ``csrc/gather_weighted.cu``), and the CUDA kernels count the
+escapes (``fused_window_sample.escapes``,
 ``windowed_weighted_bwd.escapes``; see ops/window.py). An index outside
 [0, S) contributes nothing, as in ``gather_weighted``. Q need not be a
 multiple of tile_q: the last tile may be partial.
@@ -32,21 +35,19 @@ per-tile window sums have no counterpart.
 MSDA calls it in its own layout, table (B, S, H, 4D) (``pack_corners``'
 output, read in place), idx (B, Q, H, P), weights (B, Q, H, P, 4) ->
 (B, Q, H, 4D). On CUDA tensors the forward launches
-``csrc/window_sample.cu`` and the backward ``csrc/gather_weighted_bwd.cu``
-(with ``gather_weighted_bwd``'s checks: the table, ``g`` and ``dtable``
-16-byte aligned); on CPU tensors they run ``fused_window_sample_plain`` and
+``csrc/gather_weighted.cu`` and the backward ``csrc/gather_weighted_bwd.cu``,
+with those kernels' checks (the forward: corner chunks and table strides of
+whole 16-byte vectors; the backward: the table, ``g`` and ``dtable`` 16-byte
+aligned); on CPU tensors they run ``fused_window_sample_plain`` and
 ``windowed_weighted_bwd_plain``.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build
-from .mxu_gather import _check as _check_weighted
 from .mxu_gather import (gather_weighted_bwd_plain, gather_weighted_plain,
-                         weighted_bwd_cuda)
-from .window import (DTYPE_TAG, SIGNATURES, check_window, escape_counter,
-                     starts_tensor)
+                         weighted_bwd_cuda, weighted_fwd_cuda)
+from .window import check_window, escape_counter, starts_tensor
 
 
 def fused_window_sample_plain(table: torch.Tensor, idx: torch.Tensor,
@@ -68,29 +69,13 @@ def windowed_weighted_bwd_plain(table: torch.Tensor, idx: torch.Tensor,
     return gather_weighted_bwd_plain(table, idx, weights, g)
 
 
-def _check(name, table, idx, weights, starts, window, tile_q):
-    """gather_weighted's checks (the kernels share its row loads) and the
-    window's."""
-    B, S, H, D4, Q, P = _check_weighted(name, table, idx, weights)
-    starts = check_window(name, starts, Q, tile_q, window)
-    return B, S, H, D4, Q, P, starts
-
-
 def _fused_window_cuda(table, idx, weights, starts, window, tile_q):
-    B, S, H, D4, Q, P, starts = _check("fused_window_sample", table, idx,
-                                       weights, starts, window, tile_q)
-    idx = idx.contiguous()
-    weights = weights.to(torch.float32).contiguous()
-    out = torch.empty((B, Q, H, D4), dtype=table.dtype, device=table.device)
-    lib = _build.load("window_sample", SIGNATURES)
-    fn = getattr(lib, f"fused_window_{DTYPE_TAG[table.dtype]}")
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    escapes = escape_counter(fused_window_sample, table.device)
-    _build.check(fn(table.data_ptr(), idx.data_ptr(), weights.data_ptr(),
-                    starts_tensor(starts, table.device).data_ptr(),
-                    out.data_ptr(), escapes.data_ptr(), B, Q, H, P, tile_q,
-                    window, S, D4, table.stride(0), table.stride(1),
-                    table.stride(2), stream), "fused_window_sample")
+    starts = check_window("fused_window_sample", starts, idx.shape[1],
+                          tile_q, window)
+    out = weighted_fwd_cuda(
+        "fused_window_sample", table, idx, weights,
+        (starts_tensor(starts, table.device), tile_q, window,
+         escape_counter(fused_window_sample, table.device)))
     fused_window_sample.launches += 1
     return out
 

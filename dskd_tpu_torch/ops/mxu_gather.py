@@ -49,7 +49,12 @@ import torch
 from . import _build
 
 _ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 10 + (ctypes.c_void_p,)
-_SIGNATURES = {"gather_weighted_f32": _ARGS, "gather_weighted_bf16": _ARGS}
+# the windowed entry point adds the window starts and the escape counter,
+# tile_q and the window's rows (ops/fused_window.py fused_window_sample)
+_WIN_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int64,) * 12 + (
+    ctypes.c_void_p,)
+_SIGNATURES = {"gather_weighted_f32": _ARGS, "gather_weighted_bf16": _ARGS,
+               "fused_window_f32": _WIN_ARGS, "fused_window_bf16": _WIN_ARGS}
 _BWD_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int64,) * 9 + (
     ctypes.c_void_p,)
 # the windowed entry point adds the window starts and the escape counter,
@@ -138,25 +143,43 @@ def check_aligned(name, **tensors):
 
 
 def _gather_weighted_cuda(table, idx, w):
-    B, S, H, D4, Q, P = _check("gather_weighted", table, idx, w)
+    out = weighted_fwd_cuda("gather_weighted", table, idx, w)
+    gather_weighted.launches += 1
+    return out
+
+
+def weighted_fwd_cuda(name, table, idx, w, window=None):
+    """Launch ``csrc/gather_weighted.cu`` on CUDA tensors, with ``w`` read
+    in its own type. With ``window = (starts, tile_q, rows, escapes)`` (as
+    for ``weighted_bwd_cuda``) its windowed entry point, which gives the
+    same output and adds the samples outside their tile's window of
+    ``rows`` rows to ``escapes``."""
+    B, S, H, D4, Q, P = _check(name, table, idx, w)
     es = table.element_size()
     if D4 // 4 * es % 16 or any(s * es % 16 for s in table.stride()[:3]):
-        raise ValueError("gather_weighted: corner chunks and table strides "
-                         "must be whole 16-byte vectors")
+        raise ValueError(f"{name}: corner chunks and table strides must be "
+                         "whole 16-byte vectors")
     if w.dtype not in _DTYPE_TAG:
-        raise TypeError(f"gather_weighted: unsupported weight dtype "
-                        f"{w.dtype}")
+        raise TypeError(f"{name}: unsupported weight dtype {w.dtype}")
     idx, w = idx.contiguous(), w.contiguous()
     out = torch.empty((B, Q, H, D4), dtype=table.dtype, device=table.device)
     lib = _build.load("gather_weighted", _SIGNATURES)
-    fn = getattr(lib, f"gather_weighted_{_DTYPE_TAG[table.dtype]}")
+    tag = _DTYPE_TAG[table.dtype]
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    _build.check(fn(table.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                    out.data_ptr(), B, Q, H, P, S, D4, table.stride(0),
-                    table.stride(1), table.stride(2),
-                    int(w.dtype == torch.bfloat16), stream),
-                 "gather_weighted")
-    gather_weighted.launches += 1
+    shape = (B, Q, H, P)
+    tail = (S, D4, table.stride(0), table.stride(1), table.stride(2),
+            int(w.dtype == torch.bfloat16), stream)
+    if window is None:
+        code = getattr(lib, f"gather_weighted_{tag}")(
+            table.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
+            *shape, *tail)
+    else:
+        starts, tile_q, rows, escapes = window
+        code = getattr(lib, f"fused_window_{tag}")(
+            table.data_ptr(), idx.data_ptr(), w.data_ptr(),
+            starts.data_ptr(), out.data_ptr(), escapes.data_ptr(), *shape,
+            tile_q, rows, *tail)
+    _build.check(code, name)
     return out
 
 

@@ -25,14 +25,14 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-# the three entry points of csrc/window_sample.cu, in f32 and bf16: pointers
+# the two entry points of csrc/window_sample.cu, in f32 and bf16: pointers
 # (with the escape counter), then int64 shapes and strides, then the stream
-# (the windowed weighted backward is bound in ops/mxu_gather.py)
+# (the windowed weighted forward and backward are gather_weighted's, bound in
+# ops/mxu_gather.py)
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int64
 SIGNATURES = {f"{name}_{tag}": (_PTR,) * n_ptr + (_INT,) * n_int + (_PTR,)
               for name, n_ptr, n_int in (("window_gather", 5, 11),
-                                         ("window_gather_bwd", 5, 8),
-                                         ("fused_window", 6, 11))
+                                         ("window_gather_bwd", 5, 8))
               for tag in ("f32", "bf16")}
 DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
 

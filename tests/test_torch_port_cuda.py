@@ -678,3 +678,117 @@ def test_pack_corners_cases(cuda_device, dtype, case):
     got = pack_corners(v, h, w)
     assert pack_corners.launches == before + 1
     assert torch.equal(got, pack_corners_plain(v, h, w))
+
+
+# fused_msda_sample's forward (B4) beyond the flagship's shapes: unclipped
+# corners below 0, past the table and wrapping at W and W + 1, P other than
+# 4, rows of 30 (the first design), 36 (bf16: 8-byte lanes), 32 and 64
+# elements, a level read in place after 7 rows, and on the 80 rows of
+# 640x480's level 3 both the slice staged in shared memory (Q=700) and the
+# taps streamed from device memory (Q=64: too few samples to pay for
+# staging).
+_FWD_CASES = [(case, 700) for case in
+              ("random", "one_row", "ends", "outside", "wrap", "strided",
+               "P1", "P3", "P8", "D30", "D36", "D64")] + \
+             [(case, 64) for case in ("random", "outside", "wrap", "P3")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case,Q", _FWD_CASES)
+def test_fused_sample_forward_adversarial(cuda_device, dtype, case, Q):
+    from dskd_tpu_torch.ops.fused_sample import fused_msda_sample, \
+        fused_msda_sample_plain
+
+    rng = np.random.RandomState(17)
+    B, H, (h, w) = 2, 8, (10, 8)
+    P = int(case[1:]) if case[0] == "P" else 4
+    D = int(case[1:]) if case[0] == "D" else 32
+    extra = 7 if case == "strided" else 0
+    value = torch.from_numpy(rng.randn(B, extra + h * w, H, D).astype(
+        np.float32)).to(cuda_device, _TORCH[dtype])
+    v = value[:, extra:]
+    c00 = torch.from_numpy(_fused_taps(rng, case, B, Q, H, P, h, w)).to(
+        cuda_device)
+    wts = rng.rand(B, Q, H, P, 4).astype(np.float32)
+    wts[rng.rand(*wts.shape) < 0.125] = 0.0
+    wts = torch.from_numpy(wts).to(cuda_device)
+    before = fused_msda_sample.launches
+    got = fused_msda_sample(v, c00, wts, w)
+    assert fused_msda_sample.launches == before + 1
+    want = fused_msda_sample_plain(v.float(), c00, wts, w)
+    torch.cuda.synchronize()
+    assert got.dtype == v.dtype and got.shape == (B, Q, H, D)
+    # f32: summation order only; bf16: one rounding of the f32 sum
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else \
+        dict(rtol=2 ** -7, atol=1e-5)
+    torch.testing.assert_close(got.float(), want, **tol)
+    if case == "outside":          # nothing read: exactly the taps in range
+        rows = c00[..., None].long() + torch.tensor([0, 1, w, w + 1],
+                                                    device=cuda_device)
+        keep = (rows >= 0) & (rows < h * w)
+        assert (~keep).any() and keep.any()
+        assert torch.equal(got, fused_msda_sample(
+            v, c00.clamp(-w - 1, h * w - 1), wts * keep, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("what", ["table", "strides"])
+def test_fused_sample_forward_refuses_misaligned(cuda_device, dtype, what):
+    """The forward's vector loads and its staging copies need a 16-byte
+    aligned table with strides of whole 4-element vectors: a view one
+    element off, or a head stride of D + 2, raises and launches nothing."""
+    from dskd_tpu_torch.ops.fused_sample import fused_msda_sample
+
+    B, S, H, D, Q, P, w = 2, 40, 8, 32, 16, 4, 8
+    dt_type = _TORCH[dtype]
+    if what == "table":
+        n = B * S * H * D
+        table = torch.zeros(n + 8, dtype=dt_type, device=cuda_device)[
+            1:1 + n].view(B, S, H, D)
+    else:
+        table = torch.zeros((B, S, H, D + 2), dtype=dt_type,
+                            device=cuda_device)[..., :D]
+    idx = torch.zeros((B, Q, H, P), dtype=torch.int32, device=cuda_device)
+    wts = torch.zeros((B, Q, H, P, 4), device=cuda_device)
+    before = fused_msda_sample.launches
+    with pytest.raises(ValueError, match="16-byte aligned|multiples of 4"):
+        fused_msda_sample(table, idx, wts, w)
+    assert fused_msda_sample.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("wtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P", [4, 3])
+@pytest.mark.parametrize("escape", [False, True])
+def test_fused_window_is_gather_weighted(cuda_device, dtype, wtype, P,
+                                         escape):
+    """fused_window (B6) is gather_weighted's kernel with an escape count:
+    on the same inputs its output is gather_weighted's bit for bit, the
+    weights read in their own type, and its count is the plain count (0
+    with every sample in its window). P=3 takes the generic kernel."""
+    from dskd_tpu_torch.ops.fused_window import fused_window_sample
+    from dskd_tpu_torch.ops.window import window_escapes
+
+    rng = np.random.RandomState(18)
+    B, H, D4, S, Q, tile_q, window = 2, 8, 128, 3000, 700, 128, 64
+    table, idx, starts = _window_case(rng, cuda_device, dtype, B, H, D4, S,
+                                      Q, P, tile_q, window, escape)
+    if escape:                    # and some far below and past the table
+        far = torch.from_numpy(rng.rand(B, Q, H, P) < 0.02).to(cuda_device)
+        idx = torch.where(far, idx + 10 ** 6 * (2 * (idx % 2) - 1), idx)
+    cw = torch.from_numpy(rng.rand(B, Q, H, P, 4).astype(np.float32)).to(
+        cuda_device, _TORCH[wtype])
+    want_esc = int(window_escapes(idx, starts, tile_q, window))
+    assert (want_esc > 0) == escape
+    fused_window_sample.escapes = None
+    before = (fused_window_sample.launches, gather_weighted.launches)
+    got = fused_window_sample(table, idx, cw, starts, window, tile_q)
+    assert (fused_window_sample.launches, gather_weighted.launches) == (
+        before[0] + 1, before[1])
+    want = gather_weighted(table, idx, cw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(fused_window_sample.escapes) == want_esc

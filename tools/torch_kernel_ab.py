@@ -20,10 +20,12 @@ spin kernel: what they take on the card) and CUDA events around the calls
 (``cuda_ms``, which also count the host whenever it launches slower than
 the card runs). Each turn then profiles one full-width bf16 training step
 (``run_train`` of its ``chip_smoke.py``, B=2, 640x480) under
-``DSKD_FUSED_ROWS=1200`` and under ``DSKD_WINBWD=1``: the device's busy time
-and the device ms of each of the port's backward kernels in the step, by
-kernel name. CHANGE_DIR defaults to the checkout that holds this script.
-Prints the card's name and power limit, one JSON line per turn, and for
+``DSKD_FUSED_ROWS=1200``, ``DSKD_WINBWD=1`` and ``DSKD_FWIN=1``: the
+device's busy time and the device ms of each of the port's sampling kernels
+in the step (forward and backward), by kernel name, and the
+``fused_sample`` and ``fused_window`` forwards summed over their launches
+(their kernels' names differ between sides). CHANGE_DIR defaults to the
+checkout that holds this script. Prints the card's name and power limit, one JSON line per turn, and for
 every timing the two sides' means and their ratio (change / parent), on one
 card in one run, so that run-to-run spread between cards does not enter the
 ratio.
@@ -50,8 +52,9 @@ def timers():
 
 
 def step_profile(chip_smoke) -> dict:
-    """{name: ms} of one bf16 training step under each backward switch: the
-    device's busy time and each backward kernel's device time."""
+    """{name: ms} of one bf16 training step under each sampling switch: the
+    device's busy time and each of the port's sampling kernels' device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -59,7 +62,7 @@ def step_profile(chip_smoke) -> dict:
 
     cfg = load_config(chip_smoke.CONFIG)
     out = {}
-    for switch in ("fused", "winbwd"):
+    for switch in ("fused", "winbwd", "fwin"):
         with chip_smoke.switched(chip_smoke.TRAIN_SWITCHES[switch]):
             state, step, teacher, batch, _ = chip_smoke.run_train(
                 cfg, torch.bfloat16, 2, f"bf16 {switch}", switch)
@@ -71,9 +74,18 @@ def step_profile(chip_smoke) -> dict:
         out[f"bf16 step {switch} device busy"] = sum(
             e.self_device_time_total for e in kernels) / 1e3
         for e in kernels:
-            if "_bwd" in e.key and e.key.split("<")[0].endswith("_kernel"):
+            if any(k in e.key for k in ("fused_sample", "gather_weighted",
+                                        "window")):
                 out[f"bf16 step {switch} {e.key[:90]} x{e.count}"] = \
                     e.self_device_time_total / 1e3
+        # the two forwards whose kernels changed names, summed by function
+        for what, hit in (
+                ("fused_sample forward", lambda k: "fused_sample" in k
+                 and "bwd" not in k),
+                ("fused_window forward", lambda k: "fused_window_kernel" in k
+                 or ("gather_weighted_kernel<" in k and ", true>" in k))):
+            out[f"bf16 step {switch} {what}, all launches"] = sum(
+                e.self_device_time_total for e in kernels if hit(e.key)) / 1e3
     return out
 
 
@@ -138,8 +150,9 @@ def main(argv) -> int:
             print(f"  {key}: (change only) {c[0]:.4f} {c[1]:.4f}")
             continue
         p = [r.get(key, float("nan")) for r in runs["parent"]]
+        ratio = f"{sum(c) / sum(p):.3f}" if sum(p) else "-"
         print(f"  {key}: {p[0]:.4f} {p[1]:.4f} | {c[0]:.4f} {c[1]:.4f} | "
-              f"{sum(c) / sum(p):.3f}")
+              f"{ratio}")
     for key in runs["parent"][0]:
         if key not in runs["change"][0]:
             p = [r.get(key, float("nan")) for r in runs["parent"]]

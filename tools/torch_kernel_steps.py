@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time the design steps of the port's ``gather_weighted`` kernel and of
-``fused_msda_sample``'s backward on one CUDA card.
+``fused_msda_sample``'s forward and backward on one CUDA card.
 
     python3 tools/torch_kernel_steps.py
 
@@ -25,8 +25,23 @@ times each step and the production backward in device ms over levels 1-3 of
 the 640x480 canvas at B=2 (what ``DSKD_FUSED_ROWS=1200`` sends the kernel),
 f32 and bf16, for random locations with Q=6380 (what ``chip_smoke.py``
 times) and the encoder's raster queries (Q=6380), whole and level by level,
-with each timing's f32 adds into ``dtable`` per second. Prints the card's
-name and power limit first.
+with each timing's f32 adds into ``dtable`` per second.
+
+Then builds ``tools/fused_sample_steps.cu`` (the design steps of the
+forward in ``dskd_tpu_torch/csrc/fused_sample.cu``; its header lists them),
+holds every step against the production forward with the tolerances of
+``chip_smoke.py``, and times each step, the production forward and its
+``F.embedding_bag`` yardstick in device ms over levels 1-3, whole and level
+by level, f32 and bf16 (steps 0, 5 and 6 sum in the kernel's order and are
+held to its output bit for bit): of the 640x480 canvas for random locations
+with Q=6380, the encoder's raster queries (Q=6380) and random locations with
+Q=300 (the decoder's), and of the 640x640 canvas for random locations with
+Q=8500 (what ``DSKD_FUSED_ROWS=1600`` sends it in serving). Prints the
+card's name and power limit first.
+
+    python3 tools/torch_kernel_steps.py [fused_sample]
+
+With ``fused_sample`` it runs only the forward's steps.
 """
 from __future__ import annotations
 
@@ -49,6 +64,11 @@ STEPS = {1: "P rows in flight", 2: "+ 16-byte bf16 lanes",
 FUSED_STEPS = {0: "the first design, one tap at a time",
                1: "four taps per warp instruction, vector atomics",
                2: "+ four points in flight", 3: "+ float4 weights"}
+FWD_STEPS = {0: "the first design", 1: "B4' lanes, 16 rows in flight",
+             2: "+ 16-byte bf16 lanes", 3: "+ taps from shared memory",
+             4: "+ batched indices and weights",
+             5: "lanes over elements, staged",
+             6: "lanes over elements, streamed"}
 
 
 def build(name: str, fn: str, argtypes) -> ctypes.CDLL:
@@ -216,15 +236,98 @@ def fused_sample_bwd_steps(gen) -> None:
                                   for key, ms in times.items()))
 
 
-def main() -> int:
+def run_fwd_step(lib, k, v, c00, wts, level_w):
+    B, S, H, D = v.shape
+    out = torch.empty((B, c00.shape[1], H, D), dtype=v.dtype,
+                      device=v.device)
+    _build.check(lib.fused_sample_step(
+        k, int(v.dtype == torch.bfloat16), v.data_ptr(), c00.data_ptr(),
+        wts.data_ptr(), out.data_ptr(), B, c00.shape[1], H, S, level_w, D,
+        v.stride(0), v.stride(1), v.stride(2),
+        torch.cuda.current_stream().cuda_stream), f"forward step {k}")
+    return out
+
+
+def fwd_cases(gen, dtype):
+    """(name, [(v, c00, wts, level_w, (h, w), bags)] for levels 1-3) of the
+    four sample sets; v is the level's slice of the value, read in place."""
+    from dskd_tpu_torch.ops.msda import fused_index_and_weights
+
+    def per_level(levels, value, locs_attn):
+        out, start = [], levels[0][0] * levels[0][1]
+        for (h, w), (loc, attn) in zip(levels[1:], locs_attn):
+            c00, wts = fused_index_and_weights(loc, attn, h, w, dtype)
+            out.append((value[:, start:start + h * w], c00, wts, w, (h, w),
+                        cs.fused_sample_bags(value, start, (h, w), c00,
+                                             wts)))
+            start += h * w
+        return out
+
+    for levels, Q in ((cs.TRAIN_LEVELS, cs.Q_TRAIN),
+                      (cs.TRAIN_LEVELS, cs.Q_DEC), (cs.LEVELS, cs.Q_ENC)):
+        value, pl = cs.level_inputs(gen, dtype, Q, levels)
+        canvas = "640x480" if levels == cs.TRAIN_LEVELS else "640x640"
+        yield f"{canvas} random Q={Q}", per_level(levels, value, pl[1:])
+        if Q == cs.Q_TRAIN:
+            value, locs, attn = (t.to(cs.DEVICE) for t in
+                                 cs.raster_msda_inputs(gen, levels))
+            yield f"{canvas} raster Q={Q}", per_level(
+                levels, value.to(dtype),
+                [(locs[:, :, :, lvl], attn[:, :, :, lvl])
+                 for lvl in range(1, len(levels))])
+
+
+def fused_sample_steps(gen) -> None:
+    from dskd_tpu_torch.ops.fused_sample import fused_msda_sample
+
+    lib = build("fused_sample_steps", "fused_sample_step",
+                [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 4
+                + [ctypes.c_int64] * 9 + [ctypes.c_void_p])
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        tol = cs.F32_TOL if dtype == torch.float32 else cs.BF16_TOL
+        for name, lv in fwd_cases(gen, dtype):
+            for v, c00, wts, w, _, _ in lv:
+                want = fused_msda_sample(v, c00, wts, w)
+                for k in FWD_STEPS:
+                    got = run_fwd_step(lib, k, v, c00, wts, w)
+                    torch.testing.assert_close(
+                        got.float(), want.float(), **tol,
+                        msg=f"forward step {k} ({tag} {name})")
+                    # the first design's order: bit for bit the kernel's
+                    if k in (0, 5, 6) and not torch.equal(got, want):
+                        raise AssertionError(f"forward step {k} is not the "
+                                             f"kernel's bit for bit ({tag} "
+                                             f"{name})")
+            for what, sub in [("levels 1-3", lv)] + [
+                    (f"level {i} ({hw[0]}x{hw[1]})", [a])
+                    for i, a in enumerate(lv, start=1) for hw in [a[4]]]:
+                times = {f"step {k} ({desc})": cs.device_ms(
+                    lambda: [run_fwd_step(lib, k, v, c, wt, w)
+                             for v, c, wt, w, _, _ in sub])
+                    for k, desc in FWD_STEPS.items()}
+                times["the kernel"] = cs.device_ms(
+                    lambda: [fused_msda_sample(v, c, wt, w)
+                             for v, c, wt, w, _, _ in sub])
+                times["F.embedding_bag"] = cs.device_ms(
+                    lambda: [cs.embedding_bag(bg, c.shape[:3] + (cs.D,))
+                             for _, c, _, _, _, bg in sub])
+                print(f"fused_sample {tag} {name}, {what}, B={cs.B}: "
+                      + "; ".join(f"{key} {ms:.4f} ms"
+                                  for key, ms in times.items()))
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
     print(f"card: {cs.card_line()}")
     gen = torch.Generator().manual_seed(0)
-    gather_weighted_steps(gen)
-    fused_sample_bwd_steps(gen)
+    if argv[1:] != ["fused_sample"]:
+        gather_weighted_steps(gen)
+        fused_sample_bwd_steps(gen)
+    fused_sample_steps(gen)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))
