@@ -51,7 +51,20 @@ Phases; the first failure raises and the script exits non-zero:
      launches; and one full-width f32 step whose losses and named gradients
      are held against the default path on the card (same weights, batch,
      dropout generator, teacher and assignment);
-  7. times: kernels against twins (and against one PyTorch library call
+  7. incremental: the incremental training loop end to end
+     (dskd_tpu_torch.train.incremental.run_incremental through the
+     train_increment CLI's config path) on a synthetic COCO written with PIL
+     (24 train images, half 480x640 and half 640x480, 8 val images, 2-8
+     boxes each over all 80 classes): the flagship config at full width and
+     depth, f32, two tasks of the 40+40 split of 4 steps each at B=2 on both
+     aspect canvases, loaded by two spawned workers, each task followed by
+     COCO eval on the 640x640 canvas and a checkpoint; every step's launches
+     held to expected_launches, ms/step and eval ms/image, the val rows, the
+     train loader alone for two epochs (ms/batch, the first with its workers
+     starting), and the task-2 checkpoint restored by init_detector to the
+     final model's detections bit for bit; each number beside the card's
+     name and power limit;
+  8. times: kernels against twins (and against one PyTorch library call
      where one computes the same function: index_select, index_add, or
      F.embedding_bag for gather_weighted, fused_sample and fused_window) in
      device ms (device_ms: the calls queued behind a spin kernel, so that no
@@ -1568,7 +1581,7 @@ def profile(fn, what):
 
 
 def report_kernel_times(card, gen):
-    """Time every kernel (phase 7) and print each timing beside its plain
+    """Time every kernel (phase 8) and print each timing beside its plain
     twin, library call, bound and, for a backward, its add rate. Returns
     the timings of time_kernels, time_sampling_kernels and
     time_window_kernels."""
@@ -1611,6 +1624,213 @@ def ptxas(log):
             regs = ln.split("Used", 1)[1].split(",")[0].strip()
             out.append(f"{name}: {regs}, {spills}")
     return out
+
+
+# --- incremental ---------------------------------------------------------
+
+# the synthetic COCO of the incremental phase: (h, w) of each image, half
+# landscape and half portrait, so both aspect canvases train
+INC_TRAIN_SHAPES = ((480, 640), (640, 480)) * 12
+INC_VAL_SHAPES = ((480, 640), (640, 480)) * 4
+INC_SETS = ("data.samples_per_device=2", "data.num_workers=2",
+            "train.max_iters_per_task=4", "train.eval_interval=1",
+            "train.log_interval=1")
+
+
+def write_coco(root, split, shapes, cat_ids, seed, n_boxes=(2, 8)):
+    """A COCO-format split under ``root``: one PNG (written by PIL) per
+    (h, w) of ``shapes``, uint8 noise with ``n_boxes`` filled rectangles,
+    which are its GT boxes; their classes cycle through ``cat_ids``.
+    Returns (annotation file, image directory)."""
+    from PIL import Image
+
+    from dskd_tpu_torch.data.coco import COCO_CLASSES_MMDET_ORDER
+
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(root, split)
+    os.makedirs(img_dir, exist_ok=True)
+    images, anns = [], []
+    for i, (h, w) in enumerate(shapes):
+        arr = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        for _ in range(rng.randint(n_boxes[0], n_boxes[1] + 1)):
+            bw, bh = rng.randint(w // 10, w // 2), rng.randint(h // 10, h // 2)
+            x, y = rng.randint(0, w - bw), rng.randint(0, h - bh)
+            arr[y:y + bh, x:x + bw] = rng.randint(0, 256, 3)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": int(cat_ids[len(anns) % len(cat_ids)]),
+                         "bbox": [int(x), int(y), int(bw), int(bh)],
+                         "area": int(bw * bh), "iscrowd": 0})
+        name = f"{split}_{i:04d}.png"
+        Image.fromarray(arr).save(os.path.join(img_dir, name))
+        images.append({"id": i + 1, "file_name": name, "height": h,
+                       "width": w})
+    ann_file = os.path.join(root, f"{split}.json")
+    with open(ann_file, "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": [
+            {"id": cid, "name": n} for n, cid in COCO_CLASSES_MMDET_ORDER]},
+            f)
+    return ann_file, img_dir
+
+
+def check_incremental(card, config=CONFIG, sets=(),
+                      train_shapes=INC_TRAIN_SHAPES,
+                      val_shapes=INC_VAL_SHAPES):
+    """The incremental training loop end to end, through the CLI's config path
+    (``--set`` overrides) and ``run_incremental``: two tasks of the 40+40
+    split, each of ``max_iters_per_task`` steps on both aspect canvases
+    followed by COCO eval, with checkpoints. Checks each step's launches,
+    the val rows and the checkpoint, which ``init_detector`` restores to
+    the in-memory model's detections bit for bit. Returns the launches of
+    the whole run."""
+    import tempfile
+
+    from dskd_tpu_torch.apis.inference import inference_detector, \
+        init_detector
+    from dskd_tpu_torch.data.coco import COCO_CLASSES_ALPHA_ORDER
+    from dskd_tpu_torch.data.loader import DataLoader
+    from dskd_tpu_torch.data.pipeline import load_image
+    from dskd_tpu_torch.eval import evaluator
+    from dskd_tpu_torch.tools.train_increment import build_parser, \
+        config_from_args
+    from dskd_tpu_torch.train import family, incremental
+
+    steps, evals = [], []
+    make_step, evaluate = family.make_family_train_step, evaluator.evaluate
+
+    def counted_step(arch, model, cfg, num_prev, has_teacher, **kw):
+        # teacher and student forwards, the student's backward
+        want = model_launches("default", cfg, 2 if has_teacher else 1, 1)
+        step = make_step(arch, model, cfg, num_prev, has_teacher, **kw)
+
+        def run(state, batch, teacher=None):
+            start = read_counts()
+            t0 = time.perf_counter()
+            state, losses = step(state, batch, teacher)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            now = read_counts()
+            per_step = {k: now[k] - start[k] for k in now}
+            if per_step != want:
+                raise AssertionError(f"incremental: launches per step "
+                                     f"{per_step}, expected {want}")
+            steps.append((num_prev, tuple(batch.images.shape[1:3]), ms))
+            return state, losses
+        return run
+
+    def counted_evaluate(model, dataset, loader, **kw):
+        start = read_counts()
+        t0 = time.perf_counter()
+        stats = evaluate(model, dataset, loader, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        now = read_counts()
+        launched = {k: now[k] - start[k] for k in now}
+        want = model_launches("default", cfg, len(loader))
+        if launched != want:
+            raise AssertionError(f"incremental: eval launches {launched}, "
+                                 f"expected {want}")
+        evals.append((len(dataset), ms))
+        return stats
+
+    with tempfile.TemporaryDirectory() as root:
+        cats = [cid for _, cid in COCO_CLASSES_ALPHA_ORDER]
+        train_ann, train_dir = write_coco(root, "train", train_shapes, cats,
+                                          seed=0)
+        val_ann, val_dir = write_coco(root, "val", val_shapes, cats, seed=1)
+        work = os.path.join(root, "work")
+        args = build_parser().parse_args([
+            config, "--work-dir", work, "--seed", "0", "--set",
+            f"data.train_ann={train_ann}", f"data.val_ann={val_ann}",
+            f"data.train_img_prefix={train_dir}",
+            f"data.val_img_prefix={val_dir}", *INC_SETS, *sets])
+        cfg = config_from_args(args)
+        family.make_family_train_step = counted_step
+        evaluator.evaluate = counted_evaluate
+        t0 = time.perf_counter()
+        try:
+            reset_counts()
+            model = incremental.run_incremental(cfg, device=DEVICE)
+            launches = read_counts()
+        finally:
+            family.make_family_train_step = make_step
+            evaluator.evaluate = evaluate
+        wall = time.perf_counter() - t0
+        rows = [json.loads(line) for name in sorted(os.listdir(work))
+                if name.endswith(".log.json")
+                for line in open(os.path.join(work, name))]
+
+        for task, num_prev in ((1, 0), (2, cfg.data.catsplit[0])):
+            ms = [t for n, _, t in steps if n == num_prev]
+            canvases = sorted({hw for n, hw, _ in steps if n == num_prev})
+            train = [r for r in rows if r["mode"] == "train"
+                     and r["task"] == task]
+            val = [r for r in rows if r["mode"] == "val" and r["task"] == task]
+            if len(ms) != cfg.train.max_iters_per_task or \
+                    len(train) != len(ms) or len(val) != 1:
+                raise AssertionError(f"incremental: task {task}: {len(ms)} "
+                                     f"steps, {len(train)} train rows, "
+                                     f"{len(val)} val rows")
+            if not all(np.isfinite(r["loss"]) for r in train) or \
+                    not 0.0 <= val[0]["bbox_mAP"] <= 1.0:
+                raise AssertionError(f"incremental: task {task} rows "
+                                     f"{train} {val}")
+            n_img, ev_ms = evals[task - 1]
+            print(f"incremental: task {task} (num_prev {num_prev}): "
+                  f"{len(ms)} steps on canvases {canvases}, ms/step "
+                  f"{[round(t, 3) for t in ms]} (host clock around "
+                  f"synchronised steps; mean of steps 2-{len(ms)} "
+                  f"{np.mean(ms[1:]):.3f}) [{card}]")
+            print(f"incremental: task {task} eval {n_img} images in "
+                  f"{ev_ms:.3f} ms, {ev_ms / n_img:.3f} ms/image; val row "
+                  f"bbox_mAP {val[0]['bbox_mAP']} bbox_mAP_50 "
+                  f"{val[0]['bbox_mAP_50']} [{card}]")
+            seen = sorted({hw for _, hw, _ in steps})
+        if cfg.data.aspect_buckets and \
+                seen != sorted(map(tuple, cfg.data.aspect_buckets)):
+            raise AssertionError(f"incremental: trained on canvases {seen}")
+        print(f"incremental: launches over the run {launches} (every step "
+              f"held to expected_launches); run_incremental {wall:.3f} s "
+              f"[{card}]")
+
+        # the train loader alone: task 1's batches, two epochs (the first
+        # includes starting the workers)
+        train_ds, _ = incremental.make_datasets(cfg, 1,
+                                                len(cfg.data.catsplit))
+        loader = DataLoader(train_ds, cfg.data.samples_per_device,
+                            incremental.pipeline_config(cfg), train=True,
+                            num_workers=cfg.data.num_workers,
+                            aspect_buckets=cfg.data.aspect_buckets,
+                            gt_buckets=cfg.data.gt_buckets,
+                            pin_memory=DEVICE == "cuda")
+        try:
+            for epoch in range(2):
+                t0 = time.perf_counter()
+                n = sum(1 for _ in loader)
+                ms = (time.perf_counter() - t0) * 1e3
+                print(f"incremental: train loader epoch {epoch}: {n} batches "
+                      f"of {cfg.data.samples_per_device} in {ms:.3f} ms, "
+                      f"{ms / n:.3f} ms/batch ({cfg.data.num_workers} "
+                      f"workers{'' if epoch else ', started in this epoch'}) "
+                      f"[{card}]")
+        finally:
+            loader.close()
+
+        # the task-2 checkpoint restores to the final model's detections
+        ckpt = os.path.join(work, f"task_{len(cfg.data.catsplit)}_epoch_1")
+        restored, _ = init_detector(cfg, ckpt, device=DEVICE)
+        imgs = [load_image(os.path.join(val_dir, f"val_{i:04d}.png"))
+                for i in range(2)]
+        want = inference_detector(model.eval(), cfg, imgs)
+        got = inference_detector(restored, cfg, imgs)
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                if not np.array_equal(a, b):
+                    raise AssertionError("incremental: the restored "
+                                         "checkpoint's detections differ")
+        print(f"incremental: init_detector({os.path.basename(ckpt)}) gives "
+              f"the final model's detections bit for bit on "
+              f"{len(imgs)} val images "
+              f"({sum(len(a) for g in got for a in g)} detections) [{card}]")
+    return launches
 
 
 def main() -> int:
@@ -1701,6 +1921,8 @@ def main() -> int:
             # parameters still have a zero gradient and have not moved
             run_train(cfg, torch.bfloat16, 2, f"bf16 {switch}", switch)
         check_train_switch_vs_default(cfg, switch)
+
+    check_incremental(card)
 
     ktimes, kbounds, sampling, wtimes = report_kernel_times(card, gen)
     stimes = time_slice(model, cfg, {1: imgs[:1], 4: imgs})

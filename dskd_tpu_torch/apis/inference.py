@@ -3,8 +3,9 @@
 
 ``init_detector(config, checkpoint=None, task=None)`` takes JAX's arguments
 in JAX's order and builds the flagship detector on the card (or on the
-device the caller names, ``device="cpu"`` in the tests) with either
-JAX-layout ``variables`` or seeded random weights; it returns
+device the caller names, ``device="cpu"`` in the tests) with the weights of
+a ``task_{t}_epoch_{e}`` checkpoint of the port's training loop, or
+JAX-layout ``variables``, or seeded random weights; it returns
 ``(model, cfg)``, where JAX returns ``(model, variables, cfg)``: the
 weights live in the ``nn.Module``. ``inference_detector`` takes one image
 or a sequence of them, each a path (decoded by ``data.pipeline.load_image``)
@@ -33,21 +34,23 @@ def init_detector(config: Union[str, ExperimentConfig],
                   device="cuda", seed: int = 0):
     """Build the detector on ``device``; returns (model, cfg).
 
-    ``checkpoint``: restoring a training checkpoint is not ported yet, so
-    any checkpoint raises NotImplementedError. ``task`` is accepted and
-    unused, as in the JAX package. ``variables``: the JAX package's
-    ``{"params", "batch_stats"}`` tree, or None for seeded random weights
-    (``models.detector.init_weights``).
+    ``checkpoint``: a ``.../task_{t}_epoch_{e}`` directory written by the
+    port's ``train.checkpoint.save_checkpoint``, whose weights replace the
+    others; an mmdet ``.pth`` file raises NotImplementedError. ``task`` is
+    accepted and unused, as in the JAX package. ``variables``: the JAX
+    package's ``{"params", "batch_stats"}`` tree, or None for seeded random
+    weights (``models.detector.init_weights``).
     """
-    if checkpoint is not None:
-        raise NotImplementedError("restoring a dskd_tpu checkpoint is not "
-                                  "ported yet")
+    from ..train.incremental import load_checkpoint
+
     cfg = load_config(config) if isinstance(config, str) else config
     model = build_detector(cfg.model, torch.device(device))
     if variables is None:
         init_weights(model, seed)
     else:
         model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    if checkpoint:
+        load_checkpoint(model, checkpoint)
     return model.eval(), cfg
 
 

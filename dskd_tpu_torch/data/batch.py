@@ -18,5 +18,6 @@ class Batch(NamedTuple):
     gt_labels: torch.Tensor
     gt_valid: torch.Tensor
 
-    def to(self, device) -> "Batch":
-        return Batch(*(t.to(device) for t in self))
+    def to(self, device, non_blocking: bool = False) -> "Batch":
+        return Batch(*(t.to(device, non_blocking=non_blocking)
+                       for t in self))

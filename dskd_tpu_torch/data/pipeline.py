@@ -1,12 +1,23 @@
-"""Test-time image preprocessing on the device (port of the test path of
-dskd_tpu/data/pipeline.py ``preprocess``, with the port's own copies of its
-``PipelineConfig``, ``rescale_size`` and ``load_image``).
+"""Image preprocessing (port of dskd_tpu/data/pipeline.py ``preprocess``,
+with the port's own copies of its ``PipelineConfig``, ``rescale_size`` and
+``load_image``), on two routes:
+
+* ``preprocess``: the test path of one image on the device, for
+  ``apis.inference``;
+* ``preprocess_sample``: JAX's ``preprocess(img, boxes, labels, cfg, rng,
+  train)`` on the host, for the data loader's workers. With ``train=True``
+  it draws from the numpy ``RandomState`` the same values in the same
+  order as JAX's (flip, then the ``multi_scales`` choice), flips and
+  rescales the boxes, clips them to the valid size and pads the GT to
+  ``max_gt``. The flagship recipe's options are ported; every other
+  augmentation raises NotImplementedError, naming the option.
 
 Rescale to ``img_scale`` keeping the aspect ratio (``rescale_size``),
 bilinear resize, normalize with the COCO mean/std, pad into the static
 ``bucket`` canvas. The JAX package resizes with OpenCV on the host; the port
 resizes with ``F.interpolate(mode="bilinear", align_corners=False,
-antialias=False)`` on the device, which is the same half-pixel bilinear map.
+antialias=False)`` (``resize_bilinear``), on the device or on the host's
+CPU, which is the same half-pixel bilinear map; it does not count on OpenCV.
 A uint8 image is rounded back to whole grey levels after the resize, as
 OpenCV's uint8 output is; OpenCV's fixed-point weights put it within one
 grey level of this.
@@ -125,3 +136,75 @@ def preprocess(img: Union[np.ndarray, torch.Tensor], cfg: PipelineConfig,
         img_hw=torch.tensor([new_h, new_w], dtype=torch.int32, device=device),
         scale_factor=torch.tensor([w_scale, h_scale, w_scale, h_scale],
                                   dtype=torch.float32, device=device))
+
+
+# PipelineConfig fields of augmentations the port lacks, with the value that
+# turns each off
+_UNPORTED = {"photo_metric_distortion": False, "mosaic": False,
+             "mixup": False, "expand": False, "min_iou_crop": False,
+             "resize_ratio_range": None, "random_crop": None,
+             "corruption": None, "auto_augment": False, "with_mask": False,
+             "with_semantic": False}
+
+
+def check_ported(cfg: PipelineConfig) -> None:
+    """Raise NotImplementedError on an augmentation the port lacks."""
+    for name, off in _UNPORTED.items():
+        if getattr(cfg, name) != off:
+            raise NotImplementedError(f"the pipeline option {name}="
+                                      f"{getattr(cfg, name)!r} is not ported")
+
+
+def preprocess_sample(img: np.ndarray, boxes: np.ndarray, labels: np.ndarray,
+                      cfg: PipelineConfig,
+                      rng: Optional[np.random.RandomState],
+                      train: bool = True) -> Dict[str, np.ndarray]:
+    """One sample -> static-shape numpy arrays on the host (JAX's
+    ``preprocess``): dict(image (H, W, 3) f32, img_hw (2,) i32 valid shape,
+    gt_bboxes (max_gt, 4), gt_labels (max_gt,), gt_valid (max_gt,),
+    scale_factor (4,) f32, ori_hw (2,) i32, flip bool)."""
+    check_ported(cfg)
+    h0, w0 = img.shape[:2]
+    flip = bool(train and rng is not None
+                and rng.rand() < cfg.flip_ratio)
+    if flip:
+        img = img[:, ::-1]
+        if len(boxes):
+            x1 = w0 - boxes[:, 2]
+            x2 = w0 - boxes[:, 0]
+            boxes = np.stack([x1, boxes[:, 1], x2, boxes[:, 3]], -1)
+
+    scale = cfg.img_scale
+    if train and rng is not None and cfg.multi_scales:
+        scale = cfg.multi_scales[rng.randint(len(cfg.multi_scales))]
+    new_h, new_w, _ = rescale_size(h0, w0, scale)
+    if (new_h, new_w) == (h0, w0):      # OpenCV returns such an image as is
+        img = img.astype(np.float32)
+    else:
+        img = resize_bilinear(torch.from_numpy(np.ascontiguousarray(img)),
+                              new_h, new_w).numpy()
+    w_scale, h_scale = new_w / w0, new_h / h0
+    scale_factor = np.array([w_scale, h_scale, w_scale, h_scale], np.float32)
+    if len(boxes):
+        boxes = boxes * scale_factor
+        boxes[:, 0::2] = boxes[:, 0::2].clip(0, new_w)
+        boxes[:, 1::2] = boxes[:, 1::2].clip(0, new_h)
+
+    img = (img.astype(np.float32) - cfg.mean) / cfg.std
+
+    H, W = cfg.bucket
+    canvas = np.zeros((H, W, 3), np.float32)
+    canvas[:new_h, :new_w] = img[:H, :W]
+
+    n = min(len(boxes), cfg.max_gt)
+    gt_bboxes = np.zeros((cfg.max_gt, 4), np.float32)
+    gt_labels = np.zeros((cfg.max_gt,), np.int32)
+    gt_valid = np.zeros((cfg.max_gt,), bool)
+    gt_bboxes[:n] = boxes[:n]
+    gt_labels[:n] = labels[:n]
+    gt_valid[:n] = True
+    return dict(image=canvas,
+                img_hw=np.array([new_h, new_w], np.int32),
+                gt_bboxes=gt_bboxes, gt_labels=gt_labels, gt_valid=gt_valid,
+                scale_factor=scale_factor,
+                ori_hw=np.array([h0, w0], np.int32), flip=flip)

@@ -9,8 +9,8 @@ reference's quirks kept as the JAX package keeps them by default: corr
 selects student rows by the teacher's counts (the student division is
 guarded), and the fg KL puts the teacher-masked features on the pred side
 with the student's detached, so the student's gradient comes only through
-the semantic mask (the JAX package's ``fix_fg_grad_direction`` switch is not
-ported).
+the semantic mask (the JAX package's ``fix_fg_grad_direction=True`` is not
+ported and raises).
 The other branches (soft, ld_bbox, ld_logit, kldv, memory, sg_out, fg_only)
 raise ``NotImplementedError`` (ROADMAP A5).
 """
@@ -45,12 +45,19 @@ class DistillConfig(NamedTuple):
     fg_weight: float = 1.0
     fg_T: float = 2.0
     corr_weight: float = 1.0
+    reg_max: int = 16
+    fix_fg_grad_direction: bool = False
 
     @classmethod
     def from_flags(cls, cates_distill: str = "", locat_distill: str = "",
                    feats_distill: str = "", memory_distill: str = "",
                    **kw) -> "DistillConfig":
-        """Bridge from the reference's flag-string option space."""
+        """Bridge from the reference's flag-string option space; ``kw`` sets
+        the other fields (the JAX registry passes ``num_prev``, ``reg_max``
+        and ``fix_fg_grad_direction``)."""
+        if kw.get("fix_fg_grad_direction"):
+            raise NotImplementedError("distill.fix_fg_grad_direction=True "
+                                      "is not ported")
         fg_mode = ""
         if "fg_info" in feats_distill and "bg_info" not in feats_distill:
             for mode in ("decode_v1", "decode_v2", "sg_out", "fg_only"):

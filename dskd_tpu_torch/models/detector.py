@@ -61,10 +61,14 @@ class GFLDeformableDETR(nn.Module):
                                            for f in neck))
 
 
+# the archs the port builds: the flagship family of the JAX registry
+ARCHS = ("gfl_deformable_detr", "deformable_detr_il")
+
+
 def build_detector(model_cfg, device="cuda") -> GFLDeformableDETR:
     """``ModelConfig`` -> detector; raises on options the port lacks."""
     m = model_cfg
-    if m.arch not in ("gfl_deformable_detr", "deformable_detr_il"):
+    if m.arch not in ARCHS:
         raise ValueError(f"the port has no arch {m.arch!r}")
     if any(m.dcn_stages) or any(m.gcb_stages) or any(m.gen_attn_stages) \
             or m.with_box_refine or m.as_two_stage or m.backbone:

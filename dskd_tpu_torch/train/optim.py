@@ -1,10 +1,11 @@
 """Optimizer of the flagship recipe (port of dskd_tpu/train/optim.py
 ``default_param_labels`` and ``make_optimizer``).
 
-AdamW with weight decay 1e-4 over two groups, ``base`` at the scheduled
-learning rate and ``lr01`` at 0.1x of it; ``frozen`` parameters are not in
-the optimizer. Before the update every gradient is clipped to a global norm
-of 0.1, as ``optax.clip_by_global_norm`` does ahead of the JAX package's
+AdamW (weight decay 1e-4 in the flagship recipe) over two groups, ``base``
+at the scheduled learning rate and ``lr01`` at 0.1x of it; ``frozen``
+parameters are not in the optimizer. Before the update every gradient is
+clipped to a global norm (0.1 in the flagship recipe), as
+``optax.clip_by_global_norm`` does ahead of the JAX package's
 ``multi_transform``: the norm runs over every parameter that has a gradient,
 the frozen backbone BatchNorm affines of stages 2-4 included (only the stem
 and layer1 are detached), and gradients are divided by the norm exactly,
@@ -102,12 +103,13 @@ class Optimizer:
         return norm
 
 
-def make_optimizer(model: nn.Module,
-                   lr_schedule: Callable[[int], float]) -> Optimizer:
-    """The flagship optimizer over ``model``'s parameters: AdamW with weight
-    decay 1e-4 after a clip to global norm 0.1, freezing what the
-    backbone's ``frozen_stages`` detaches."""
+def make_optimizer(model: nn.Module, lr_schedule: Callable[[int], float],
+                   weight_decay: float = 1e-4, max_norm: float = 0.1,
+                   frozen_stages: int = 1) -> Optimizer:
+    """The flagship optimizer over ``model``'s parameters, with the JAX
+    package's arguments: AdamW with ``weight_decay`` after a clip to global
+    norm ``max_norm``, freezing the stem, the stages up to
+    ``frozen_stages`` and the backbone's BatchNorm affines."""
     return Optimizer(dict(model.named_parameters()), lr_schedule,
-                     weight_decay=1e-4, max_norm=0.1,
-                     label_fn=default_param_labels(
-                         model.backbone.frozen_stages))
+                     weight_decay=weight_decay, max_norm=max_norm,
+                     label_fn=default_param_labels(frozen_stages))

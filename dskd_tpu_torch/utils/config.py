@@ -1,7 +1,8 @@
 """Typed experiment configuration (the port's own copy of
 dskd_tpu/utils/config.py: ``ModelConfig``, ``DataConfig``, ``TrainConfig``,
 ``DistillFlags``, ``ExperimentConfig``, ``dskd_flagship_config``,
-``update_data_root`` and ``load_config``, with the same fields and defaults).
+``update_data_root``, ``load_config`` and ``apply_overrides``, with the same
+fields and defaults).
 
 The repository's config files are Python modules that export
 ``get_config() -> ExperimentConfig`` and import their dataclasses with
@@ -17,7 +18,7 @@ import dataclasses
 import os
 import sys
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 # the module the repository's config files import their dataclasses from
 CONFIG_MODULE = "dskd_tpu.utils.config"
@@ -208,3 +209,21 @@ def load_config(path: str) -> ExperimentConfig:
                                   "__import__": _config_import}}
     exec(compile(source, str(path), "exec"), namespace)
     return update_data_root(namespace["get_config"]())
+
+
+def apply_overrides(cfg: ExperimentConfig, overrides: Sequence[str]):
+    """'a.b.c=value' dotted assignment with literal-eval values (the
+    ``--set`` flag of the CLIs)."""
+    import ast
+    for ov in overrides:
+        path, _, raw = ov.partition("=")
+        keys = path.strip().split(".")
+        obj = cfg
+        for k in keys[:-1]:
+            obj = getattr(obj, k)
+        try:
+            val = ast.literal_eval(raw)
+        except (SyntaxError, ValueError):
+            val = raw
+        setattr(obj, keys[-1], val)
+    return cfg

@@ -2,7 +2,11 @@
 Flax or the JAX package: a fresh interpreter loads the flagship config file
 through the port's ``load_config``, builds a tiny model from the port's own
 config classes, runs init_detector + inference_detector and one incremental
-train step, and reports which modules it loaded."""
+train step, imports every module of the port, runs the
+``dskd_tpu_torch.tools.train_increment`` CLI (two tasks with eval and
+checkpoints on a synthetic COCO, tiny model, ``--device cpu``) and the
+``dskd_tpu_torch.tools.test`` CLI on its last checkpoint, and reports which
+modules it loaded."""
 import json
 import os
 import subprocess
@@ -47,7 +51,42 @@ batch = Batch(torch.randn(2, 128, 128, 3), torch.tensor([[128, 100],
               torch.tensor([[[10., 10., 60., 50.]] * 2] * 2),
               torch.tensor([[1, 2]] * 2), torch.tensor([[True, False]] * 2))
 state, losses = step(state, batch, frozen_copy(model))
+
+import glob, importlib, os, pkgutil, runpy, tempfile
+import chip_smoke
+import dskd_tpu_torch
+for mod in pkgutil.walk_packages(dskd_tpu_torch.__path__, "dskd_tpu_torch."):
+    importlib.import_module(mod.name)
+root = tempfile.mkdtemp()
+from dskd_tpu_torch.data.coco import COCO_CLASSES_ALPHA_ORDER
+cats = [c for _, c in COCO_CLASSES_ALPHA_ORDER]
+ann, img_dir = chip_smoke.write_coco(root, "train", ((48, 64), (64, 48)) * 6,
+                                     cats[:8], seed=0)
+work = os.path.join(root, "work")
+sets = ["model.depth=18", "model.num_encoder_layers=1",
+        "model.num_decoder_layers=1", "model.num_query=12",
+        "data.bucket=(64,64)", "data.img_scale=(64,64)",
+        "data.aspect_buckets=((64,48),(48,64))", "data.catsplit=(4,4)",
+        "model.num_classes=8", "data.num_workers=0",
+        "data.samples_per_device=2", f"data.train_ann={ann}",
+        f"data.val_ann={ann}", f"data.train_img_prefix={img_dir}",
+        f"data.val_img_prefix={img_dir}", "train.max_iters_per_task=2",
+        "train.log_interval=1"]
+cfg_file = "configs/gfl_deformable_detr_40_40_il.py"
+sys.argv = ["train_increment", cfg_file, "--work-dir", work, "--seed", "1",
+            "--device", "cpu", "--set", *sets]
+runpy.run_module("dskd_tpu_torch.tools.train_increment", run_name="__main__")
+rows = [json.loads(l) for f in glob.glob(os.path.join(work, "*.log.json"))
+        for l in open(f)]
+out = os.path.join(root, "dets.json")
+sys.argv = ["test", cfg_file, "--work-dir", work, "--device", "cpu",
+            "--classwise", "--out", out, "--set", *sets]
+runpy.run_module("dskd_tpu_torch.tools.test", run_name="__main__")
 print(json.dumps({
+    "ckpts": sorted(os.path.basename(p) for p in
+                    glob.glob(os.path.join(work, "task_*"))),
+    "rows": sorted((r["mode"], r["task"]) for r in rows),
+    "dets": len(json.load(open(out))),
     "trained": bool(torch.isfinite(losses["loss"])),
     "n_images": len(res), "n_classes": len(res[0]),
     "shapes_ok": all(r.ndim == 2 and r.shape[1] == 5 for per in res
@@ -74,3 +113,7 @@ def test_port_slice_imports_no_jax():
                                   [640, 480]]
     assert report["n_images"] == 2 and report["n_classes"] == 7
     assert report["shapes_ok"] and report["finite"] and report["trained"]
+    assert report["ckpts"] == ["task_1_epoch_1", "task_2_epoch_1"]
+    assert [tuple(r) for r in report["rows"]] == [
+        ("train", 1)] * 2 + [("train", 2)] * 2 + [("val", 1), ("val", 2)]
+    assert report["dets"] > 0
