@@ -23,6 +23,7 @@ import torch
 from ..data.pipeline import PipelineConfig, load_image, preprocess
 from ..models.detector import GFLDeformableDETR, build_detector, init_weights
 from ..models.gfl_detr_head import get_bboxes
+from ..train.checkpoint import load_weights
 from ..utils.config import ExperimentConfig, load_config
 from ..utils.weights import state_dict_from_jax
 
@@ -41,8 +42,6 @@ def init_detector(config: Union[str, ExperimentConfig],
     package's ``{"params", "batch_stats"}`` tree, or None for seeded random
     weights (``models.detector.init_weights``).
     """
-    from ..train.incremental import load_checkpoint
-
     cfg = load_config(config) if isinstance(config, str) else config
     model = build_detector(cfg.model, torch.device(device))
     if variables is None:
@@ -50,7 +49,7 @@ def init_detector(config: Union[str, ExperimentConfig],
     else:
         model.load_state_dict(state_dict_from_jax(variables), strict=True)
     if checkpoint:
-        load_checkpoint(model, checkpoint)
+        load_weights(model, checkpoint)
     return model.eval(), cfg
 
 

@@ -208,8 +208,11 @@ class DataLoader:
             yield from iter(self)
 
     def close(self) -> None:
-        """Stop the worker processes (they also stop with the process)."""
-        it = getattr(self._loader, "_iterator", None)
-        if it is not None and hasattr(it, "_shutdown_workers"):
+        """Stop the worker processes (they also stop with the process).
+        torch keeps a persistent-worker iterator in the private
+        ``_iterator``; a torch that renames it fails here, loudly, rather
+        than leave the workers running."""
+        it = self._loader._iterator
+        if it is not None:
             it._shutdown_workers()
-        self._loader._iterator = None
+            self._loader._iterator = None

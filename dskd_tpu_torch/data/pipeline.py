@@ -7,7 +7,8 @@ with the port's own copies of its ``PipelineConfig``, ``rescale_size`` and
 * ``preprocess_sample``: JAX's ``preprocess(img, boxes, labels, cfg, rng,
   train)`` on the host, for the data loader's workers. With ``train=True``
   it draws from the numpy ``RandomState`` the same values in the same
-  order as JAX's (flip, then the ``multi_scales`` choice), flips and
+  order as JAX's (flip, then the ``multi_scales`` choice), prepares the
+  flipped image through ``preprocess`` on the CPU at the drawn scale,
   rescales the boxes, clips them to the valid size and pads the GT to
   ``max_gt``. The flagship recipe's options are ported; every other
   augmentation raises NotImplementedError, naming the option.
@@ -24,7 +25,7 @@ grey level of this.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -177,24 +178,13 @@ def preprocess_sample(img: np.ndarray, boxes: np.ndarray, labels: np.ndarray,
     scale = cfg.img_scale
     if train and rng is not None and cfg.multi_scales:
         scale = cfg.multi_scales[rng.randint(len(cfg.multi_scales))]
-    new_h, new_w, _ = rescale_size(h0, w0, scale)
-    if (new_h, new_w) == (h0, w0):      # OpenCV returns such an image as is
-        img = img.astype(np.float32)
-    else:
-        img = resize_bilinear(torch.from_numpy(np.ascontiguousarray(img)),
-                              new_h, new_w).numpy()
-    w_scale, h_scale = new_w / w0, new_h / h0
-    scale_factor = np.array([w_scale, h_scale, w_scale, h_scale], np.float32)
+    out = {k: v.numpy() for k, v in preprocess(
+        img, replace(cfg, img_scale=scale), "cpu").items()}
+    new_h, new_w = (int(v) for v in out["img_hw"])
     if len(boxes):
-        boxes = boxes * scale_factor
+        boxes = boxes * out["scale_factor"]
         boxes[:, 0::2] = boxes[:, 0::2].clip(0, new_w)
         boxes[:, 1::2] = boxes[:, 1::2].clip(0, new_h)
-
-    img = (img.astype(np.float32) - cfg.mean) / cfg.std
-
-    H, W = cfg.bucket
-    canvas = np.zeros((H, W, 3), np.float32)
-    canvas[:new_h, :new_w] = img[:H, :W]
 
     n = min(len(boxes), cfg.max_gt)
     gt_bboxes = np.zeros((cfg.max_gt, 4), np.float32)
@@ -203,8 +193,6 @@ def preprocess_sample(img: np.ndarray, boxes: np.ndarray, labels: np.ndarray,
     gt_bboxes[:n] = boxes[:n]
     gt_labels[:n] = labels[:n]
     gt_valid[:n] = True
-    return dict(image=canvas,
-                img_hw=np.array([new_h, new_w], np.int32),
-                gt_bboxes=gt_bboxes, gt_labels=gt_labels, gt_valid=gt_valid,
-                scale_factor=scale_factor,
-                ori_hw=np.array([h0, w0], np.int32), flip=flip)
+    return dict(out, gt_bboxes=gt_bboxes, gt_labels=gt_labels,
+                gt_valid=gt_valid, ori_hw=np.array([h0, w0], np.int32),
+                flip=flip)

@@ -33,7 +33,7 @@ def so_path() -> Path:
 
 def load_library() -> ctypes.CDLL:
     """Compile on first use (raises RuntimeError if ``c++`` fails) and
-    return the library with ``coco_match`` and ``bbox_iou`` declared."""
+    return the library with ``coco_match`` declared."""
     global _lib
     with _lock:
         if _lib is not None:
@@ -58,7 +58,5 @@ def load_library() -> ctypes.CDLL:
         lib.coco_match.argtypes = [c, ctypes.c_int64, c, c, c,
                                    ctypes.c_int64, c, ctypes.c_int64, c, c]
         lib.coco_match.restype = None
-        lib.bbox_iou.argtypes = [c, ctypes.c_int64, c, c, ctypes.c_int64, c]
-        lib.bbox_iou.restype = None
         _lib = lib
         return lib

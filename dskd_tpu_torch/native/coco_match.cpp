@@ -64,13 +64,4 @@ void coco_match(const double* dts, int64_t D,
     }
 }
 
-// Pairwise IoU kernel for general use: dts (D,4), gts (G,4), out (D*G).
-void bbox_iou(const double* dts, int64_t D, const double* gts,
-              const uint8_t* gt_crowd, int64_t G, double* out) {
-    for (int64_t d = 0; d < D; ++d)
-        for (int64_t g = 0; g < G; ++g)
-            out[d * G + g] = iou_xywh(dts + 4 * d, gts + 4 * g,
-                                      gt_crowd && gt_crowd[g]);
-}
-
 }  // extern "C"

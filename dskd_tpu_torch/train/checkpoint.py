@@ -37,23 +37,28 @@ def save_checkpoint(work_dir: str, task: int, epoch: int, state) -> str:
     return os.path.join(path, FILE)
 
 
-def restore_checkpoint(work_dir: str, task: int, epoch: int, model=None,
-                       state=None) -> dict:
-    """Read a task checkpoint onto the CPU and return its payload. With
-    ``model``, load its weights (the reference's load_checkpoint); with
-    ``state``, also the optimizer, the update count and the generator (the
-    reference's runner.resume)."""
-    path = os.path.join(ckpt_dir(work_dir, task, epoch), FILE)
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    if state is not None:
-        model = state.model
-    if model is not None:
-        model.load_state_dict(payload["model"], strict=True)
-    if state is not None:
-        state.optimizer.adamw.load_state_dict(payload["optimizer"])
-        state.step = int(payload["step"])
-        state.generator.set_state(payload["generator"])
+def load_weights(model, path: str) -> dict:
+    """Load the weights of the checkpoint directory ``path``
+    (``.../task_{t}_epoch_{e}``) into ``model`` (the reference's
+    load_checkpoint) and return the payload, read onto the CPU. An mmdet
+    ``.pth`` file raises NotImplementedError."""
+    if path.endswith((".pth", ".pt")):
+        raise NotImplementedError(f"loading an mmdet .pth checkpoint is not "
+                                  f"ported: {path}")
+    payload = torch.load(os.path.join(path, FILE), map_location="cpu",
+                         weights_only=True)
+    model.load_state_dict(payload["model"], strict=True)
     return payload
+
+
+def restore_checkpoint(work_dir: str, task: int, epoch: int, state) -> None:
+    """Resume ``state`` (a ``train.state.TrainState``) from a task
+    checkpoint: the weights, the optimizer, the update count and the
+    generator (the reference's runner.resume)."""
+    payload = load_weights(state.model, ckpt_dir(work_dir, task, epoch))
+    state.optimizer.adamw.load_state_dict(payload["optimizer"])
+    state.step = int(payload["step"])
+    state.generator.set_state(payload["generator"])
 
 
 def find_latest_checkpoint(work_dir: str, task: Optional[int] = None):

@@ -32,8 +32,6 @@ import contextlib
 import dataclasses
 import itertools
 import logging
-import os
-import re
 import time
 from typing import Any, Dict, Optional
 
@@ -50,8 +48,8 @@ from ..utils.logging import MetricsLogger, collect_env, dump_config
 from ..utils.seed import init_random_seed, set_random_seed
 from ..utils.weights import state_dict_from_jax
 from . import family
-from .checkpoint import (find_latest_checkpoint, restore_checkpoint,
-                         save_checkpoint)
+from .checkpoint import find_latest_checkpoint, load_weights, \
+    save_checkpoint
 from .hooks import assert_loss_keys_consistent, check_invalid_loss, \
     ema_update
 from .optim import make_optimizer
@@ -264,19 +262,6 @@ def train_one_task(model: nn.Module, cfg: ExperimentConfig, tid: int,
     return model
 
 
-def load_checkpoint(model: nn.Module, path: str) -> None:
-    """Load a ``.../task_T_epoch_E`` checkpoint of the port into ``model``."""
-    if path.endswith((".pth", ".pt")):
-        raise NotImplementedError(f"loading an mmdet .pth checkpoint is not "
-                                  f"ported: {path}")
-    m = re.search(r"task_(\d+)_epoch_(\d+)", path)
-    if not m:
-        raise ValueError(f"checkpoint path must contain task_T_epoch_E: "
-                         f"{path}")
-    restore_checkpoint(os.path.dirname(path.rstrip("/")) or ".",
-                       int(m.group(1)), int(m.group(2)), model=model)
-
-
 def run_incremental(cfg: ExperimentConfig, student_ckpt: Optional[str] = None,
                     teacher_ckpt: Optional[str] = None, *,
                     variables: Optional[Dict[str, Any]] = None,
@@ -298,11 +283,11 @@ def run_incremental(cfg: ExperimentConfig, student_ckpt: Optional[str] = None,
     init_variables(model, cfg, cfg.train.seed, variables)
     teacher = None
     if student_ckpt:
-        load_checkpoint(model, student_ckpt)
+        load_weights(model, student_ckpt)
         log.info("student initialized from %s", student_ckpt)
     if teacher_ckpt:
         external = build_model(cfg, device)
-        load_checkpoint(external, teacher_ckpt)
+        load_weights(external, teacher_ckpt)
         teacher = frozen_copy(external)
         log.info("external teacher loaded from %s", teacher_ckpt)
 
@@ -310,8 +295,7 @@ def run_incremental(cfg: ExperimentConfig, student_ckpt: Optional[str] = None,
         if tid < cfg.train.resume_by_task:
             ck = find_latest_checkpoint(cfg.train.work_dir, task=tid)
             if ck:
-                restore_checkpoint(cfg.train.work_dir, ck[0], ck[1],
-                                   model=model)
+                load_weights(model, ck[2])
             log.info("Task %d skipped (resume_by_task)", tid)
             teacher = frozen_copy(model)
             continue

@@ -150,6 +150,22 @@ def test_resume_by_task_continues_from_the_checkpoint(coco, port_run):
             assert g[k] == want[key][k], (key, k)
 
 
+def test_init_detector_restores_the_task_checkpoint(coco, port_run):
+    """init_detector(checkpoint=task_2_epoch_1) loads the weights the run
+    saved there, in place of its seeded random ones."""
+    from dskd_tpu_torch.apis.inference import init_detector
+
+    path = os.path.join(port_run, "task_2_epoch_1")
+    want = torch.load(os.path.join(path, ckpt.FILE),
+                      weights_only=True)["model"]
+    model, _ = init_detector(_cfg(pconfig, coco, port_run, num_workers=0),
+                             path, device="cpu")
+    got = model.state_dict()
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
 def test_use_ema_returns_the_averaged_weights(coco):
     """use_ema: after one step the model holds ema_update's average of the
     initial weights and those the same step gives without EMA."""
