@@ -65,7 +65,20 @@ Phases; the first failure raises and the script exits non-zero:
      its workers starting), and the task-2 checkpoint restored by
      init_detector to the final model's detections bit for bit; each number
      beside the card's name and power limit;
-  8. times: kernels against twins (and against one PyTorch library call
+  8. distill menu: every distill branch beyond the flagship's corr +
+     decode_v1, in four configs (DISTILL_MENU: soft + ld_bbox + ld_logit +
+     kldv + memory; corr + sg_out with the pre-merge GT; fg_only and
+     decode_v2 with fix_fg_grad_direction), each in full-width f32 steps
+     (dropout 0, launches held to expected_launches, loss keys and ms/step)
+     and at 2+2 layers against the CPU; one full-width step with the
+     exact JV matcher (its C++ solve's total cost against the plain
+     lap_jv twin and not above the auction's on the same cost stacks,
+     with the host ms of its solves beside the auction's); and the
+     forgetting A/B of dskd_tpu_torch/tools/ab_forgetting.py at the 400/600
+     horizon (ResNet-18, 1+1 layers, 128x128), old / new mAP held to
+     tests/test_forgetting_ab.py's margins, ms/step per phase and the
+     wall time, each beside the card's name and power limit;
+  9. times: kernels against twins (and against one PyTorch library call
      where one computes the same function: index_select, index_add, or
      F.embedding_bag for gather_weighted, fused_sample and fused_window) in
      device ms (device_ms: the calls queued behind a spin kernel, so that no
@@ -1035,7 +1048,9 @@ def build_models(cfg, device, **overrides):
     return student, frozen_copy(teacher)
 
 
-def train_setup(cfg, student, compute_dtype):
+def train_setup(cfg, student, compute_dtype, dcfg=None, matcher="auction"):
+    """(state, step, det_cfg, dcfg) of the flagship step; ``dcfg`` replaces
+    the config's corr + decode_v1 distills, ``matcher`` the auction."""
     from dskd_tpu_torch.distill.losses import DistillConfig
     from dskd_tpu_torch.models.gfl_detr_loss import DetLossConfig
     from dskd_tpu_torch.train.optim import make_optimizer
@@ -1049,11 +1064,12 @@ def train_setup(cfg, student, compute_dtype):
     state = TrainState.create(student, make_optimizer(student, sched),
                               seed=1)
     det_cfg = DetLossConfig(num_classes=cfg.model.num_classes,
-                            reg_max=cfg.model.reg_max)
-    dcfg = DistillConfig.from_flags(
-        cates_distill=cfg.distill.cates_distill,
-        feats_distill=cfg.distill.feats_distill,
-        num_prev=cfg.data.catsplit[0])
+                            reg_max=cfg.model.reg_max, matcher=matcher)
+    if dcfg is None:
+        dcfg = DistillConfig.from_flags(
+            cates_distill=cfg.distill.cates_distill,
+            feats_distill=cfg.distill.feats_distill,
+            num_prev=cfg.data.catsplit[0])
     step = make_train_step(det_cfg, dcfg, cfg.distill.teacher_score_thr,
                            cfg.distill.teacher_max_per_img,
                            compute_dtype=compute_dtype)
@@ -1132,9 +1148,10 @@ def random_msda_kernels(model, seed):
                         lin.weight.shape, generator=g) * MSDA_WEIGHT_STD)
 
 
-def check_train_card_vs_cpu(cfg):
+def check_train_card_vs_cpu(cfg, dcfg=None, tag="train"):
     """One step at full width with 2+2 layers, f32, dropout 0: every loss
-    key and the gradients of GRAD_PARAMS, card against CPU."""
+    key and the gradients of GRAD_PARAMS, card against CPU, with the
+    config's distills or ``dcfg``'s."""
     from dskd_tpu_torch.train.step import compute_losses, parse_losses, \
         teacher_info
 
@@ -1143,7 +1160,7 @@ def check_train_card_vs_cpu(cfg):
     cpu_student, cpu_teacher = build_models(cfg, "cpu", **small)
     for model in (student, cpu_student):
         random_msda_kernels(model, seed=3)
-    _, _, det_cfg, dcfg = train_setup(cfg, student, torch.float32)
+    _, _, det_cfg, dcfg = train_setup(cfg, student, torch.float32, dcfg)
     thr, kmax = cfg.distill.teacher_score_thr, cfg.distill.teacher_max_per_img
     batch = train_batch(DEVICE)
     cpu_batch = batch.to("cpu")
@@ -1166,11 +1183,11 @@ def check_train_card_vs_cpu(cfg):
         tinfo.det[4:], c_tinfo.det[4:]))            # keep_qid, valid
     same_assign = torch.equal(targets.assigned_gt.cpu(),
                               c_targets.assigned_gt)
-    print(f"train card vs CPU (2+2 layers): teacher kept "
+    print(f"{tag} card vs CPU (2+2 layers): teacher kept "
           f"{int(tinfo.det.valid.sum())} detections, same on both devices: "
           f"{same_teacher}; same auction assignments: {same_assign}")
     if not (same_teacher and same_assign):
-        print("train card vs CPU: the devices differ at near-ties; the CPU "
+        print(f"{tag} card vs CPU: the devices differ at near-ties; the CPU "
               "losses are recomputed under the card's teacher and "
               "assignments")
         cpu_student.zero_grad(set_to_none=True)
@@ -1182,7 +1199,7 @@ def check_train_card_vs_cpu(cfg):
         got = losses[k].detach().cpu()
         torch.testing.assert_close(got, v.detach(), **LOSS_TOL, msg=k)
         loss_err[k] = float((got - v.detach()).abs())
-    print(f"train card vs CPU: {len(loss_err)} loss keys within {LOSS_TOL}, "
+    print(f"{tag} card vs CPU: {len(loss_err)} loss keys within {LOSS_TOL}, "
           f"largest abs err {max(loss_err.values()):.3e} "
           f"({max(loss_err, key=loss_err.get)})")
     grad_err, bad = {}, {}
@@ -1192,7 +1209,7 @@ def check_train_card_vs_cpu(cfg):
         grad_err[n] = rel
         if not rel <= GRAD_REL_TOL:
             bad[n] = rel
-        print(f"train card vs CPU: grad {n}: relative L2 err {rel:.3e} "
+        print(f"{tag} card vs CPU: grad {n}: relative L2 err {rel:.3e} "
               f"(tolerance {GRAD_REL_TOL}); max abs err "
               f"{float(diff.abs().max()):.3e} of max abs "
               f"{float(ref.abs().max()):.3e}")
@@ -1582,7 +1599,7 @@ def profile(fn, what):
 
 
 def report_kernel_times(card, gen):
-    """Time every kernel (phase 8) and print each timing beside its plain
+    """Time every kernel (phase 9) and print each timing beside its plain
     twin, library call, bound and, for a backward, its add rate. Returns
     the timings of time_kernels, time_sampling_kernels and
     time_window_kernels."""
@@ -1840,6 +1857,195 @@ def check_incremental(card, config=CONFIG, sets=(),
     return launches
 
 
+# --- distill menu ------------------------------------------------------------
+
+# the distill-menu phase's configurations (flag strings, fix_fg_grad_direction)
+# and the distill losses each must produce; together they run every branch
+# beyond the flagship's corr + decode_v1
+DISTILL_MENU = {
+    "soft + ld + kldv + memory": (dict(
+        cates_distill="hard + teacher-first + soft",
+        locat_distill="bbox + logit", feats_distill="kldv",
+        memory_distill="memory"), False, (
+        "loss_kd", "loss_ld_bbox", "loss_ld_logit", "loss_fd",
+        "loss_memory")),
+    "corr + sg_out": (dict(cates_distill="hard + teacher-first",
+                           feats_distill="corr + fg_info + sg_out"), False,
+                      ("loss_corr", "loss_fg_feature")),
+    "fg_only, fixed direction": (dict(cates_distill="hard + teacher-first",
+                                      feats_distill="fg_info + fg_only"),
+                                 True, ("loss_fg_feature",)),
+    "decode_v2, fixed direction": (dict(cates_distill="hard + teacher-first",
+                                        feats_distill="fg_info + decode_v2"),
+                                   True, ("loss_fg_feature",)),
+}
+JV_COST_RTOL = 1e-5      # C++ JV against the plain twin, total cost
+# the forgetting A/B on the card: the pinned horizon of
+# tests/test_forgetting_ab.py, whose margins it must meet
+AB_STEPS = (400, 600)
+AB_RECIPE = dict(cates_distill="hard + teacher-first + soft",
+                 feats_distill="corr + fg_info + decode_v1",
+                 teacher_score_thr=0.3)
+
+
+def menu_distill_cfg(cfg, flags, fix):
+    from dskd_tpu_torch.distill.losses import DistillConfig
+
+    return DistillConfig.from_flags(**flags, num_prev=cfg.data.catsplit[0],
+                                    reg_max=cfg.model.reg_max,
+                                    fix_fg_grad_direction=fix)
+
+
+def timed_steps(cfg, card, tag, dcfg=None, matcher="auction", n_steps=2):
+    """``n_steps`` full-width f32 steps with dropout 0 (student seed 0,
+    teacher seed 1), each held to expected_launches; prints each step's
+    ms and the last step's loss keys with the card line. Returns the last
+    step's losses."""
+    student, teacher = build_models(cfg, DEVICE, dropout=0.0)
+    state, step, _, _ = train_setup(cfg, student, torch.float32, dcfg,
+                                    matcher)
+    batch = train_batch(DEVICE)
+    want = model_launches("default", cfg, 2, 1)
+    ms = []
+    for i in range(n_steps):
+        reset_counts()
+        t0 = time.perf_counter()
+        state, losses = step(state, batch, teacher)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        per_step = read_counts()
+        if per_step != want:
+            raise AssertionError(f"{tag}: launches per step {per_step}, "
+                                 f"expected {want}")
+        bad = {k: v for k, v in losses.items() if not torch.isfinite(v)}
+        if bad:
+            raise AssertionError(f"{tag}: non-finite losses {bad}")
+    print(f"{tag}: ms/step {[round(t, 3) for t in ms]} (host clock, "
+          f"synchronised), last loss {float(losses['loss']):.5f}, keys "
+          f"{sorted(k for k in losses if k.startswith('loss_'))}; launches "
+          f"{ {k: v for k, v in per_step.items() if v} } [{card}]")
+    return losses
+
+
+def check_jv(cfg, card):
+    """The exact JV matcher (``matcher="jv"``) in a full-width f32 step:
+    the step's launches, the host ms of its JV solves (cost copied to the
+    host and back) beside the auction's on the same cost stack, the C++
+    solve's total cost against the plain ``lap_jv`` twin (JV_COST_RTOL) and
+    not above the auction's."""
+    from dskd_tpu_torch.core import matching
+    from dskd_tpu_torch.models import gfl_detr_loss
+    from dskd_tpu_torch.native.build import load_lap_jv
+
+    t0 = time.perf_counter()
+    load_lap_jv()                  # c++ at first use, outside the timings
+    print(f"jv matcher: native/lap_jv.cpp built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    solves, valid_rows = [], []
+    native, assign = matching.lap_jv_native, gfl_detr_loss.hungarian_assign
+
+    def timed_native(cost):
+        t0 = time.perf_counter()
+        cols = native(cost)
+        solves.append((cost, cols, (time.perf_counter() - t0) * 1e3))
+        return cols
+
+    def recording_assign(cost, gt_valid, gt_labels, solver="auction"):
+        valid_rows.append(gt_valid)
+        return assign(cost, gt_valid, gt_labels, solver)
+
+    matching.lap_jv_native = timed_native
+    gfl_detr_loss.hungarian_assign = recording_assign
+    try:
+        timed_steps(cfg, card, "jv matcher", matcher="jv")
+    finally:
+        matching.lap_jv_native = native
+        gfl_detr_loss.hungarian_assign = assign
+    cost, cols, jv_ms = solves[-1]
+    N, R, C = cost.shape
+    valid = valid_rows[-1]
+    if tuple(valid.shape) != (N, R):     # the G <= Q branch: GT are rows
+        raise AssertionError(f"jv: cost {tuple(cost.shape)}, GT mask "
+                             f"{tuple(valid.shape)}")
+
+    def auction():
+        return matching.lap_auction(cost, row_mask=valid)
+
+    auc_cols, _ = auction()
+    auc_ms = cuda_ms(auction, iters=5, warmup=1)
+
+    def totals(c, k):
+        return torch.gather(c, 2, k[..., None])[..., 0].sum(1).double()
+
+    jv_tot = totals(cost, cols).cpu()
+    auc_tot = totals(cost, auc_cols).cpu()
+    cpu_cost = cost.cpu()
+    plain_tot = torch.stack([totals(cpu_cost[n:n + 1], matching.lap_jv(
+        cpu_cost[n])[None])[0] for n in range(N)])
+    rel = float(((jv_tot - plain_tot).abs() / plain_tot.abs()).max())
+    print(f"jv matcher: {N} problems of {R} x {C} per step (merged GT x "
+          f"queries); total cost, C++ JV {float(jv_tot.sum()):.6f}, plain "
+          f"lap_jv {float(plain_tot.sum()):.6f} (largest rel err {rel:.3e}, "
+          f"tolerance {JV_COST_RTOL}), auction "
+          f"{float(auc_tot.sum()):.6f} [{card}]")
+    print(f"jv matcher: host ms of the step's JV solves (copy to host, C++ "
+          f"solve, copy back) {[round(t, 3) for _, _, t in solves]}; the "
+          f"auction on the same cost stack {auc_ms:.3f} ms (CUDA events "
+          f"around the call: device time and its host syncs) [{card}]")
+    if not rel <= JV_COST_RTOL:
+        raise AssertionError(f"jv: C++ and plain totals differ, {rel}")
+    worse = jv_tot > auc_tot + JV_COST_RTOL * auc_tot.abs()
+    if worse.any():
+        raise AssertionError(f"jv: total cost above the auction's in "
+                             f"{int(worse.sum())} problems")
+    return jv_ms, auc_ms
+
+
+def check_forgetting_ab(card, steps):
+    """The forgetting A/B (dskd_tpu_torch.tools.ab_forgetting) on the card
+    at ``steps``: old / new mAP of teacher, distilled and fine-tuned
+    students, ms/step per phase and the wall time; at the pinned 400/600
+    horizon each of tests/test_forgetting_ab.py's margins must hold."""
+    from dskd_tpu_torch.tools.ab_forgetting import margins, \
+        run_forgetting_ab
+
+    r = run_forgetting_ab(*steps, n_eval=12, device=DEVICE, **AB_RECIPE)
+    print(f"forgetting A/B {steps[0]}/{steps[1]} steps: old/new mAP "
+          f"teacher {r['teacher_old']:.2f}/{r['teacher_new']:.2f}, distill "
+          f"{r['distill_old']:.2f}/{r['distill_new']:.2f}, finetune "
+          f"{r['finetune_old']:.2f}/{r['finetune_new']:.2f}; combined "
+          f"distill {r['distill_old'] + r['distill_new']:.2f} vs finetune "
+          f"{r['finetune_old'] + r['finetune_new']:.2f} [{card}]")
+    print(f"forgetting A/B: ms/step task1 {r['task1_ms']:.3f}, distill "
+          f"{r['distill_ms']:.3f}, finetune {r['finetune_ms']:.3f} (host "
+          f"clock, synchronised); wall {r['wall_s']:.1f} s [{card}]")
+    if tuple(steps) == (400, 600):
+        held = margins(r)
+        print(f"forgetting A/B margins (tests/test_forgetting_ab.py): "
+              f"{held}")
+        if not all(held.values()):
+            raise AssertionError(f"forgetting A/B margins failed: {held}")
+    return r
+
+
+def check_distill_menu(cfg, card):
+    """Phase 8: every distill branch beyond corr + decode_v1 in a full-width
+    f32 step (launches held to expected_launches) and card against CPU at
+    2+2 layers; the JV matcher; the forgetting A/B."""
+    for name, (flags, fix, keys) in DISTILL_MENU.items():
+        dcfg = menu_distill_cfg(cfg, flags, fix)
+        tag = f"distill menu [{name}]"
+        losses = timed_steps(cfg, card, tag, dcfg)
+        missing = [k for k in keys if k not in losses]
+        if missing:
+            raise AssertionError(f"{tag}: no {missing} in {sorted(losses)}")
+        print(f"{tag}: " + ", ".join(f"{k} {float(losses[k]):.6g}"
+                                     for k in keys))
+        check_train_card_vs_cpu(cfg, dcfg, tag)
+    check_jv(cfg, card)
+    check_forgetting_ab(card, AB_STEPS)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; "
@@ -1930,6 +2136,7 @@ def main() -> int:
         check_train_switch_vs_default(cfg, switch)
 
     check_incremental(card)
+    check_distill_menu(cfg, card)
 
     ktimes, kbounds, sampling, wtimes = report_kernel_times(card, gen)
     stimes = time_slice(model, cfg, {1: imgs[:1], 4: imgs})

@@ -1,7 +1,9 @@
 """Detection losses with the weight + avg_factor protocol (port of
 dskd_tpu/core/losses.py ``weight_reduce_loss``,
-``binary_cross_entropy_with_logits``, ``l1_loss``, ``mse_loss``,
-``giou_loss``, ``quality_focal_loss`` and ``distribution_focal_loss``).
+``binary_cross_entropy_with_logits``, ``l1_loss``, ``smooth_l1_loss``,
+``mse_loss``, ``giou_loss``, ``iou_loss``, ``diou_loss``, ``ciou_loss``,
+``quality_focal_loss``, ``distribution_focal_loss``, ``kd_kl_div_loss``,
+``sigmoid_focal_loss``, ``gaussian_focal_loss`` and ``varifocal_loss``).
 
 Every loss is ``loss(pred, target, weight=None, reduction='mean',
 avg_factor=None)``: the elementwise loss is multiplied by ``weight``; without
@@ -11,6 +13,8 @@ avg_factor=None)``: the elementwise loss is multiplied by ``weight``; without
 ported yet (ROADMAP A3).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -61,6 +65,13 @@ def l1_loss(pred, target):
 
 
 @_weighted
+def smooth_l1_loss(pred, target, beta: float = 1.0):
+    diff = (pred - target).abs()
+    return torch.where(diff < beta, 0.5 * diff * diff / beta,
+                       diff - 0.5 * beta)
+
+
+@_weighted
 def mse_loss(pred, target):
     return (pred - target) ** 2
 
@@ -70,6 +81,53 @@ def giou_loss(pred, target, eps: float = 1e-7):
     """1 - GIoU of aligned xyxy boxes."""
     return 1.0 - bbox_overlaps(pred, target, mode="giou", is_aligned=True,
                                eps=eps)
+
+
+@_weighted
+def iou_loss(pred, target, eps: float = 1e-6, linear: bool = True):
+    """1 - IoU (``linear``) or -log IoU of aligned xyxy boxes, the IoU
+    clamped at ``eps``."""
+    ious = bbox_overlaps(pred, target, mode="iou", is_aligned=True,
+                         eps=eps).clamp(min=eps)
+    return 1 - ious if linear else -torch.log(ious)
+
+
+def _diou_terms(pred, target, eps):
+    """IoU and the centre-distance penalty rho^2 / c^2 of aligned boxes,
+    c the diagonal of the enclosing box."""
+    ious = bbox_overlaps(pred, target, mode="iou", is_aligned=True, eps=eps)
+    enclose_lt = torch.minimum(pred[..., :2], target[..., :2])
+    enclose_rb = torch.maximum(pred[..., 2:], target[..., 2:])
+    cw = (enclose_rb[..., 0] - enclose_lt[..., 0]).clamp(min=0)
+    ch = (enclose_rb[..., 1] - enclose_lt[..., 1]).clamp(min=0)
+    c2 = cw ** 2 + ch ** 2 + eps
+    px = (pred[..., 0] + pred[..., 2]) / 2
+    py = (pred[..., 1] + pred[..., 3]) / 2
+    tx = (target[..., 0] + target[..., 2]) / 2
+    ty = (target[..., 1] + target[..., 3]) / 2
+    rho2 = (px - tx) ** 2 + (py - ty) ** 2
+    return ious, rho2 / c2
+
+
+@_weighted
+def diou_loss(pred, target, eps: float = 1e-7):
+    """Distance-IoU: 1 - IoU + rho^2 / c^2."""
+    ious, penalty = _diou_terms(pred, target, eps)
+    return 1 - ious + penalty
+
+
+@_weighted
+def ciou_loss(pred, target, eps: float = 1e-7):
+    """Complete-IoU: DIoU + alpha * v, v the aspect-ratio term and alpha
+    detached."""
+    ious, penalty = _diou_terms(pred, target, eps)
+    w1 = pred[..., 2] - pred[..., 0] + eps
+    h1 = pred[..., 3] - pred[..., 1] + eps
+    w2 = target[..., 2] - target[..., 0] + eps
+    h2 = target[..., 3] - target[..., 1] + eps
+    v = (4 / math.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+    alpha = (v / (1 - ious + v + eps)).detach()
+    return 1 - ious + penalty + alpha * v
 
 
 @_weighted
@@ -109,3 +167,52 @@ def distribution_focal_loss(pred, label):
     ce_right = -torch.gather(logp, -1, dis_right.clamp(0, n_bins - 1)
                              .long()[..., None])[..., 0]
     return ce_left * weight_left + ce_right * weight_right
+
+
+@_weighted
+def kd_kl_div_loss(pred, soft_label, T: float = 10.0, detach_target=True):
+    """KL(softmax(t/T) || softmax(s/T)) * T^2, mean over the class axis,
+    with 0 * log 0 := 0."""
+    target = torch.softmax(soft_label / T, dim=-1)
+    if detach_target:
+        target = target.detach()
+    logp = torch.log_softmax(pred / T, dim=-1)
+    log_t = torch.where(target > 0, torch.log(target.clamp(min=_F32_EPS)),
+                        torch.zeros_like(target))
+    return (target * (log_t - logp)).mean(dim=-1) * (T * T)
+
+
+@_weighted
+def sigmoid_focal_loss(pred, target, gamma: float = 2.0, alpha: float = 0.25):
+    """Sigmoid focal loss on logits; target one-hot or of pred's shape."""
+    p = torch.sigmoid(pred)
+    ce = binary_cross_entropy_with_logits(pred, target)
+    p_t = p * target + (1 - p) * (1 - target)
+    alpha_t = alpha * target + (1 - alpha) * (1 - target)
+    return alpha_t * (1 - p_t) ** gamma * ce
+
+
+@_weighted
+def gaussian_focal_loss(pred, gaussian_target, alpha: float = 2.0,
+                        gamma: float = 4.0):
+    """CornerNet/CenterNet heatmap focal loss on post-sigmoid ``pred``:
+    exact-1 targets are positives, the rest are discounted by
+    (1 - target)^gamma."""
+    eps = 1e-12
+    pos_w = (gaussian_target == 1.0).to(pred.dtype)
+    neg_w = (1 - gaussian_target) ** gamma
+    pos = -torch.log(pred + eps) * (1 - pred) ** alpha * pos_w
+    neg = -torch.log(1 - pred + eps) * pred ** alpha * neg_w * (1 - pos_w)
+    return pos + neg
+
+
+@_weighted
+def varifocal_loss(pred, target, alpha: float = 0.75, gamma: float = 2.0,
+                   iou_weighted: bool = True):
+    """Varifocal loss on logits: positives (target = IoU quality > 0)
+    weighted by the quality (or 1), negatives by alpha * p^gamma."""
+    p = torch.sigmoid(pred)
+    pos = (target > 0).to(pred.dtype)
+    focal_w = (target if iou_weighted else 1.0) * pos \
+        + alpha * (p ** gamma) * (1 - pos)
+    return binary_cross_entropy_with_logits(pred, target) * focal_w

@@ -1,24 +1,44 @@
-"""Hungarian matching with the auction solver and the GFL-DETR cost stack
-(port of dskd_tpu/core/matching.py ``lap_auction``, ``_tie_jitter``,
-``AssignResult``, ``gfl_match_cost`` and ``hungarian_assign``).
+"""Hungarian matching: the auction and JV solvers and the DETR cost stacks
+(port of dskd_tpu/core/matching.py ``lap_jv``, ``lap_auction``,
+``_tie_jitter``, ``AssignResult``, ``gfl_match_cost``, ``hungarian_assign``,
+``gfl_hungarian_assign``, ``focal_loss_cost``, ``classification_cost``,
+``detr_match_cost``, ``distill_hungarian_assign`` and
+``distribution_focal_loss_cost``).
 
-Every function takes a leading batch axis of independent problems: the
-train step solves all (decoder layer, image) assignments of a step in one
-auction loop, where the JAX package ``vmap``s them. Semantics follow the JAX
-functions: ``torch.argmax`` takes the first maximum as ``jnp.argmax`` does,
-``.at[].max`` / ``.at[].min`` are ``scatter_reduce`` with ``amax`` / ``amin``,
-and the tie-break jitter is the same hash, bit for bit. ``lap_jv`` is not
-ported (ROADMAP A3): the flagship matcher is the auction.
+Every function but ``lap_jv`` takes a leading batch axis of independent
+problems: the train step solves all (decoder layer, image) assignments of a
+step at once, where the JAX package ``vmap``s them. Semantics follow the
+JAX functions: ``torch.argmax`` takes the first maximum as ``jnp.argmax``
+does, ``.at[].max`` / ``.at[].min`` are ``scatter_reduce`` with ``amax`` /
+``amin``, and the tie-break jitter is the same hash, bit for bit.
+
+Two solvers (``hungarian_assign(solver=...)``, ``DetLossConfig.matcher``):
+  * ``"auction"`` (the flagship's): Bertsekas' auction, one vectorized
+    round over all N problems per iteration, on the tensors' device;
+  * ``"jv"``: the exact Jonker-Volgenant solve of ``native/lap_jv.cpp``.
+    ``hungarian_assign`` copies the (N, R, C) cost to the host explicitly,
+    solves the N problems there and copies the columns back. This is the
+    design, not a fallback: JAX runs JV as a sequential ``lax.while_loop``
+    and the reference solves with scipy on the host
+    (gfl_hungarian_assigner.py:142-151); on the card a Python loop of
+    tensor ops would sync with the host once per augmenting step.
+``lap_jv`` below is the plain-torch twin of JAX's e-maxx formulation, one
+problem at a time: the tests hold the C++ solve against it, and nothing
+else calls it.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
+from ..native.build import load_lap_jv
 from .boxes import bbox_cxcywh_to_xyxy, bbox_overlaps, bbox_xyxy_to_cxcywh
 from .losses import binary_cross_entropy_with_logits
 
+_INF = 1e9
+_BIG_M = 1e6             # cost of an invalid GT column when G > Q
 _MASK32 = 0xFFFFFFFF
 _EPS_FRAC = 1 / 100      # auction eps as a share of the cost span
 _TIEBREAK = 1e-6         # tie-break jitter as a share of the cost span
@@ -44,6 +64,63 @@ def _tie_jitter(shape, device=None) -> torch.Tensor:
     h = _mul32(h, 2246822519)
     h = _mul32(h ^ (h >> 15), 2654435761)
     return (h >> 8).to(torch.float32) / float(1 << 24)
+
+
+def lap_jv(cost: torch.Tensor) -> torch.Tensor:
+    """Exact assignment of one (R, C) problem, R <= C: the plain twin of
+    JAX's ``lap_jv`` (e-maxx potentials, f32, columns scanned in order,
+    the first minimum taken). Returns (R,) int64 columns."""
+    R, C = cost.shape
+    if R > C:
+        raise ValueError(f"lap_jv needs R <= C, got {R} x {C}")
+    dev = cost.device
+    cost1 = F.pad(cost.to(torch.float32), (1, 0, 1, 0))   # 1-indexed
+    u = torch.zeros(R + 1, device=dev)
+    v = torch.zeros(C + 1, device=dev)
+    p = torch.zeros(C + 1, dtype=torch.int64, device=dev)  # column -> row
+    col_range = torch.arange(C + 1, device=dev)
+    for i in range(1, R + 1):
+        p[0] = i
+        minv = torch.full((C + 1,), _INF, device=dev)
+        used = torch.zeros(C + 1, dtype=torch.bool, device=dev)
+        way = torch.zeros(C + 1, dtype=torch.int64, device=dev)
+        j0 = 0
+        while int(p[j0]) != 0:
+            used[j0] = True
+            i0 = p[j0]
+            cur = cost1[i0] - u[i0] - v
+            scan = ~used & (col_range >= 1)
+            better = scan & (cur < minv)
+            minv = torch.where(better, cur, minv)
+            way = torch.where(better, j0, way)
+            masked = torch.where(scan, minv, torch.full_like(minv, _INF))
+            j1 = int(torch.argmin(masked))
+            delta = masked[j1]
+            u = u.index_add(0, p, torch.where(used, delta, 0.0))
+            v = torch.where(used, v - delta, v)
+            minv = torch.where(used, minv, minv - delta)
+            j0 = j1
+        while j0 != 0:
+            j1 = int(way[j0])
+            p[j0] = p[j1]
+            j0 = j1
+    row2col = torch.full((R + 1,), -1, dtype=torch.int64, device=dev)
+    row2col[p[1:]] = torch.arange(C, device=dev)    # free columns -> row 0
+    return row2col[1:]
+
+
+def lap_jv_native(cost: torch.Tensor) -> torch.Tensor:
+    """Exact assignment of N (R, C) problems, R <= C, by the C++ JV solve:
+    the cost is copied to the host as f64, solved there, and the (N, R)
+    int64 columns come back to the cost's device."""
+    N, R, C = cost.shape
+    if R > C:
+        raise ValueError(f"lap_jv needs R <= C, got {R} x {C}")
+    host = cost.detach().to("cpu", torch.float64).contiguous()
+    out = torch.empty((N, R), dtype=torch.int64)
+    if load_lap_jv().lap_jv(host.data_ptr(), N, R, C, out.data_ptr()) != 0:
+        raise RuntimeError("lap_jv refused the problem")
+    return out.to(cost.device)
 
 
 def lap_auction(cost: torch.Tensor, max_iters: int = 1500,
@@ -137,6 +214,12 @@ class AssignResult(NamedTuple):
     num_fallback: torch.Tensor
 
 
+def _at_labels(t, gt_labels):
+    """t (N, Q, K) at each GT's class -> (N, Q, G)."""
+    safe = gt_labels.clamp(0, t.shape[-1] - 1).long()
+    return torch.gather(t, 2, safe[:, None, :].expand(-1, t.shape[1], -1))
+
+
 def gfl_match_cost(cls_logits, bbox_cxcywh, gt_bboxes, gt_labels, img_hw,
                    cls_weight: float = 2.0, reg_weight: float = 5.0,
                    iou_weight: float = 2.0, beta: float = 2.0):
@@ -156,36 +239,54 @@ def gfl_match_cost(cls_logits, bbox_cxcywh, gt_bboxes, gt_labels, img_hw,
     pred_xyxy = bbox_cxcywh_to_xyxy(bbox_cxcywh)
     iou_cost = -bbox_overlaps(pred_xyxy * factor, gt_bboxes, mode="giou")
     score = bbox_overlaps(pred_xyxy, gt_norm)                  # (N, Q, G)
-    safe = gt_labels.clamp(0, cls_logits.shape[-1] - 1).long()
-    logit_at = torch.gather(
-        cls_logits, 2, safe[:, None, :].expand(-1, cls_logits.shape[1], -1))
+    logit_at = _at_labels(cls_logits, gt_labels)
     cls_cost = binary_cross_entropy_with_logits(logit_at, score) * (
         score - torch.sigmoid(logit_at)).abs() ** beta
     return cls_weight * cls_cost + reg_weight * reg_cost + \
         iou_weight * iou_cost
 
 
-def hungarian_assign(cost: torch.Tensor, gt_valid: torch.Tensor,
-                     gt_labels: torch.Tensor) -> AssignResult:
-    """One-to-one assignment of queries to GT for N problems with the
-    auction solver. cost (N, Q, G); gt_valid, gt_labels (N, G).
+def _solve(cost_rows, solver, row_mask=None):
+    """(N, R, C) -> ((N, R) columns, (N,) completion-fallback count)."""
+    if solver == "auction":
+        return lap_auction(cost_rows, row_mask=row_mask)
+    if solver == "jv":
+        cols = lap_jv_native(cost_rows)
+        return cols, torch.zeros(cols.shape[0], dtype=torch.int64,
+                                 device=cols.device)
+    raise ValueError(f"unknown solver {solver!r}")
 
-    G <= Q: GT are the rows; padded GT rows are zeroed and never bid
-    (``row_mask``). G > Q: queries are the rows and invalid GT columns cost
-    1e6, so min(Q, G) pairs are matched as scipy's rectangular solve does.
-    A jitter of 1e-6 of the cost span breaks exact ties.
+
+def _jittered(cost_rows):
+    """Add 1e-6 of each problem's cost span (at least 1e-3) times the
+    tie-break jitter."""
+    _, R, C = cost_rows.shape
+    span = torch.clamp(cost_rows.amax((1, 2)) - cost_rows.amin((1, 2)),
+                       min=1e-3)
+    return cost_rows + span[:, None, None] * _TIEBREAK * \
+        _tie_jitter((R, C), cost_rows.device)
+
+
+def hungarian_assign(cost: torch.Tensor, gt_valid: torch.Tensor,
+                     gt_labels: torch.Tensor,
+                     solver: str = "auction") -> AssignResult:
+    """One-to-one assignment of queries to GT for N problems. cost
+    (N, Q, G); gt_valid, gt_labels (N, G); ``solver`` "auction" or "jv"
+    (the module docstring says where each runs).
+
+    G <= Q: GT are the rows; padded GT rows are zeroed (and, for the
+    auction, never bid). G > Q: queries are the rows and invalid GT columns
+    cost 1e6, so min(Q, G) pairs are matched as scipy's rectangular solve
+    does. A jitter of 1e-6 of the cost span breaks exact ties, before
+    either solver.
     """
     N, Q, G = cost.shape
     dev = cost.device
     ar = torch.arange(N, device=dev)[:, None]
     if G > Q:
-        cost_rows = torch.where(gt_valid[:, None, :], cost,
-                                torch.full_like(cost, 1e6))    # (N, Q, G)
-        span = torch.clamp(cost_rows.amax((1, 2)) - cost_rows.amin((1, 2)),
-                           min=1e-3)
-        cost_rows = cost_rows + span[:, None, None] * _TIEBREAK * \
-            _tie_jitter((Q, G), dev)
-        q2g, n_fb = lap_auction(cost_rows)
+        cost_rows = _jittered(torch.where(gt_valid[:, None, :], cost,
+                                          torch.full_like(cost, _BIG_M)))
+        q2g, n_fb = _solve(cost_rows, solver)                 # (N, Q)
         hit = gt_valid[ar, q2g]
         assigned_gt = torch.where(hit, q2g, -1)
         assigned_labels = torch.where(hit, gt_labels[ar, q2g].long(), -1)
@@ -193,13 +294,10 @@ def hungarian_assign(cost: torch.Tensor, gt_valid: torch.Tensor,
         return AssignResult(assigned_gt, assigned_labels, pos_mask,
                             pos_mask.sum(1), n_fb)
 
-    cost_rows = torch.where(gt_valid[:, :, None], cost.transpose(1, 2),
-                            torch.zeros((), device=dev))       # (N, G, Q)
-    span = torch.clamp(cost_rows.amax((1, 2)) - cost_rows.amin((1, 2)),
-                       min=1e-3)
-    cost_rows = cost_rows + span[:, None, None] * _TIEBREAK * \
-        _tie_jitter((G, Q), dev)
-    row2col, n_fb = lap_auction(cost_rows, row_mask=gt_valid)  # (N, G)
+    cost_rows = _jittered(torch.where(gt_valid[:, :, None],
+                                      cost.transpose(1, 2),
+                                      torch.zeros((), device=dev)))
+    row2col, n_fb = _solve(cost_rows, solver, row_mask=gt_valid)  # (N, G)
     cols = torch.where(gt_valid, row2col, Q)                   # Q = dropped
     gidx = torch.arange(G, device=dev).expand(N, G)
     assigned_gt = torch.full((N, Q + 1), -1, dtype=torch.int64, device=dev)
@@ -211,3 +309,87 @@ def hungarian_assign(cost: torch.Tensor, gt_valid: torch.Tensor,
     pos_mask = assigned_gt >= 0
     return AssignResult(assigned_gt, assigned_labels, pos_mask,
                         gt_valid.sum(1), n_fb)
+
+
+def gfl_hungarian_assign(cls_logits, bbox_cxcywh, gt_bboxes, gt_labels,
+                         gt_valid, img_hw) -> AssignResult:
+    """The GFL-DETR cost stack and its exact (JV) assignment for N images,
+    as JAX's function solves with its ``hungarian_assign`` default."""
+    cost = gfl_match_cost(cls_logits, bbox_cxcywh, gt_bboxes, gt_labels,
+                          img_hw)
+    return hungarian_assign(cost, gt_valid, gt_labels, "jv")
+
+
+def focal_loss_cost(cls_logits, gt_labels, weight=1.0, alpha=0.25,
+                    gamma=2.0, eps=1e-12):
+    """FocalLossCost: the positive minus the negative focal term at the GT
+    classes. cls_logits (N, Q, K), gt_labels (N, G) -> (N, Q, G)."""
+    p = torch.sigmoid(cls_logits)
+    neg = -torch.log(1 - p + eps) * (1 - alpha) * p ** gamma
+    pos = -torch.log(p + eps) * alpha * (1 - p) ** gamma
+    return (_at_labels(pos, gt_labels) - _at_labels(neg, gt_labels)) * weight
+
+
+def classification_cost(cls_logits, gt_labels, weight=1.0):
+    """ClassificationCost: minus the softmax probability of the GT class,
+    (N, Q, G)."""
+    return -_at_labels(torch.softmax(cls_logits, dim=-1), gt_labels) * weight
+
+
+def detr_match_cost(cls_logits, bbox_cxcywh, gt_bboxes, gt_labels, img_hw,
+                    cls_cost: str = "focal", cls_weight: float = 2.0,
+                    reg_weight: float = 5.0, iou_weight: float = 2.0):
+    """The standard DETR HungarianAssigner cost stack for N images: focal
+    (or softmax classification) cost + normalized-cxcywh L1 + GIoU."""
+    hw = img_hw.to(cls_logits.dtype)
+    factor = torch.stack([hw[:, 1], hw[:, 0], hw[:, 1], hw[:, 0]],
+                         -1)[:, None, :]
+    gt_norm = gt_bboxes / factor
+    reg = (bbox_cxcywh[:, :, None] - bbox_xyxy_to_cxcywh(gt_norm)[:, None]
+           ).abs().sum(-1)
+    iou = -bbox_overlaps(bbox_cxcywh_to_xyxy(bbox_cxcywh) * factor,
+                         gt_bboxes, mode="giou")
+    if cls_cost == "focal":
+        cls = focal_loss_cost(cls_logits, gt_labels)
+    else:
+        cls = classification_cost(cls_logits, gt_labels)
+    return cls_weight * cls + reg_weight * reg + iou_weight * iou
+
+
+def distill_hungarian_assign(cls_logits, bbox_cxcywh, teacher_bboxes,
+                             teacher_labels, teacher_valid,
+                             img_hw) -> AssignResult:
+    """DistillHungarianAssigner: student predictions matched one to one to
+    the teacher's, classification + L1 + GIoU costs of weight 1 (JV, as in
+    JAX)."""
+    cost = detr_match_cost(cls_logits, bbox_cxcywh, teacher_bboxes,
+                           teacher_labels, img_hw, cls_cost="softmax",
+                           cls_weight=1.0, reg_weight=1.0, iou_weight=1.0)
+    return hungarian_assign(cost, teacher_valid, teacher_labels, "jv")
+
+
+def distribution_focal_loss_cost(pred_corner: torch.Tensor,
+                                 target_corner: torch.Tensor,
+                                 weight: float = 1.0) -> torch.Tensor:
+    """DistributionFocalLossCost for N problems: pred_corner (N, Q*4,
+    reg_max+1) logits, target_corner (N, G*4) bin targets -> (N, Q, G), the
+    DFL of each query's corner c against the GT's corner c averaged over
+    the four corners and scaled by 1 / (G*4) (the reference's
+    normalization; JAX's intended semantics of the reference's dead
+    code)."""
+    N, Q4, n_bins = pred_corner.shape
+    Q, G = Q4 // 4, target_corner.shape[1] // 4
+    logp = torch.log_softmax(pred_corner, dim=-1)             # (N, Q*4, n)
+    t = target_corner
+    dis_left = t.to(torch.int32).clamp(0, n_bins - 1)
+    dis_right = (dis_left + 1).clamp(0, n_bins - 1)
+    w_left = (dis_left + 1).to(logp.dtype) - t
+    w_right = t - dis_left.to(logp.dtype)
+
+    def at(idx):                                               # (N, Q*4, G*4)
+        return torch.gather(logp, 2, idx.long()[:, None, :].expand(
+            -1, Q4, -1))
+
+    loss = -at(dis_left) * w_left[:, None] - at(dis_right) * w_right[:, None]
+    diag = torch.diagonal(loss.reshape(N, Q, 4, G, 4), dim1=2, dim2=4)
+    return diag.mean(-1) / (G * 4) * weight                    # (N, Q, G)

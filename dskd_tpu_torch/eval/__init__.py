@@ -1,1 +1,1 @@
-"""COCO-protocol evaluation of the port."""
+"""COCO-protocol and VOC mAP evaluation of the port."""

@@ -3,11 +3,12 @@ dskd_tpu/models/gfl_detr_loss.py ``DetLossConfig``, ``LayerTargets``,
 ``assign_all_layers``, ``single_layer_losses`` and ``detection_loss``).
 
 Per decoder layer: one-to-one Hungarian assignment on the QFL + L1 + GIoU
-cost (all nl * B solves in one batched auction), then QFL against the IoU
-score (not detached, as in the reference), L1 on normalized cxcywh, GIoU on
-image-scaled xyxy and DFL on the sigmoided bins against (w, w, h, h) / 2,
-each averaged over the global count of valid GT (clamped at 1). Padded GT
-carry zero weight.
+cost (all nl * B solves at once, by the auction or the exact JV solve of
+``DetLossConfig.matcher``), then QFL against the IoU score (not detached,
+as in the reference), L1 on normalized cxcywh, GIoU on image-scaled xyxy
+and DFL on the sigmoided bins against (w, w, h, h) / 2, each averaged over
+the global count of valid GT (clamped at 1). Padded GT carry zero
+weight.
 """
 from __future__ import annotations
 
@@ -32,6 +33,9 @@ class DetLossConfig(NamedTuple):
     cost_cls_weight: float = 2.0
     cost_reg_weight: float = 5.0
     cost_iou_weight: float = 2.0
+    # "auction": the batched auction on the device; "jv": the exact
+    # Jonker-Volgenant solve on the host (core/matching.py)
+    matcher: str = "auction"
 
 
 class LayerTargets(NamedTuple):
@@ -46,9 +50,9 @@ class LayerTargets(NamedTuple):
 def assign_all_layers(cls_scores, bbox_cxcywh, gt_bboxes, gt_labels,
                       gt_valid, img_hw, cfg: DetLossConfig
                       ) -> Tuple[LayerTargets, torch.Tensor]:
-    """Hungarian-assign every (layer, image) pair in one batched auction
-    solve (the JAX package's default matcher; ``lap_jv`` is not ported).
-    Returns the targets and the total count of fallback-placed rows."""
+    """Hungarian-assign every (layer, image) pair in one batched solve with
+    ``cfg.matcher``. Returns the targets and the total count of rows the
+    auction's completion fallback placed (0 for JV)."""
     nl, B, Q, K = cls_scores.shape
     G = gt_bboxes.shape[1]
 
@@ -61,7 +65,7 @@ def assign_all_layers(cls_scores, bbox_cxcywh, gt_bboxes, gt_labels,
         cls_scores.reshape(nl * B, Q, K), bbox_cxcywh.reshape(nl * B, Q, 4),
         boxes, labels, hw, cls_weight=cfg.cost_cls_weight,
         reg_weight=cfg.cost_reg_weight, iou_weight=cfg.cost_iou_weight)
-    res = hungarian_assign(cost, valid, labels)
+    res = hungarian_assign(cost, valid, labels, cfg.matcher)
     safe = res.assigned_gt.clamp(0, G - 1)
     hwf = hw.to(bbox_cxcywh.dtype)
     factor = torch.stack([hwf[:, 1], hwf[:, 0], hwf[:, 1], hwf[:, 0]],

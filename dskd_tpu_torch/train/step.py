@@ -4,9 +4,10 @@ dskd_tpu/train/step.py ``teacher_info``, ``compute_losses``,
 
 One step: the frozen teacher's forward under ``no_grad`` -> the student's
 forward with dropout -> the merged-GT ("hard + teacher-first") Hungarian
-assignment -> QFL/DFL/GIoU/L1 on every decoder layer -> the corr and
-semantic-guided fg distills -> the sum of every key holding "loss" ->
-backward -> global-norm clip 0.1 -> AdamW. Where the JAX ``compute_losses``
+assignment -> QFL/DFL/GIoU/L1 on every decoder layer -> the configured
+distills (``DistillConfig``; sg_out also reads the pre-merge GT) -> the
+sum of every key holding "loss" -> backward -> global-norm clip 0.1 ->
+AdamW. Where the JAX ``compute_losses``
 takes the teacher's variables, the port's takes its ``teacher_info``.
 
 ``compute_dtype=torch.bfloat16`` mirrors the JAX package's ``_cast_floats``:
@@ -96,7 +97,9 @@ def compute_losses(model: nn.Module, batch: Batch, det_cfg: DetLossConfig,
         losses.update(distill_losses(
             out.head, out.neck_feats, tinfo, targets, batch.img_hw,
             det_cfg.num_classes, distill_cfg,
-            num_merged=gt_bboxes.shape[1]))
+            num_merged=gt_bboxes.shape[1],
+            gt_bboxes_original=batch.gt_bboxes,
+            gt_valid_original=batch.gt_valid))
     return losses, targets
 
 

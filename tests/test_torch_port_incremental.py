@@ -321,8 +321,8 @@ def test_make_optimizer_takes_jax_arguments():
 
 def test_distill_from_flags_takes_registry_arguments():
     """D2: the JAX registry's from_flags call, reg_max and
-    fix_fg_grad_direction included, gives JAX's values on the port's
-    fields; fix_fg_grad_direction=True is not ported and raises."""
+    fix_fg_grad_direction included (both values), gives JAX's values on
+    the port's fields."""
     from dskd_tpu.distill.losses import DistillConfig as JDistill
     from dskd_tpu_torch.distill.losses import DistillConfig
 
@@ -330,11 +330,12 @@ def test_distill_from_flags_takes_registry_arguments():
                  feats_distill="corr + fg_info + decode_v1",
                  memory_distill="", num_prev=40, reg_max=8,
                  fix_fg_grad_direction=False)
-    got, want = DistillConfig.from_flags(**flags), JDistill.from_flags(**flags)
-    for k in got._fields:
-        assert getattr(got, k) == getattr(want, k), k
-    with pytest.raises(NotImplementedError, match="fix_fg_grad_direction"):
-        DistillConfig.from_flags(**dict(flags, fix_fg_grad_direction=True))
+    for fix in (False, True):
+        kw = dict(flags, fix_fg_grad_direction=fix)
+        got, want = DistillConfig.from_flags(**kw), JDistill.from_flags(**kw)
+        assert got._fields == want._fields
+        for k in got._fields:
+            assert getattr(got, k) == getattr(want, k), k
 
 
 def test_family_step_refuses_what_the_port_lacks():
@@ -345,9 +346,10 @@ def test_family_step_refuses_what_the_port_lacks():
                                use_dropout=False)
     with pytest.raises(ValueError, match="no train step"):
         make_family_train_step("yolof", model, cfg, 5, True)
+    # fix_fg_grad_direction is ported now: the step builds
     cfg.distill.fix_fg_grad_direction = True
-    with pytest.raises(NotImplementedError):
-        make_family_train_step(cfg.model.arch, model, cfg, 5, True)
+    assert callable(make_family_train_step(cfg.model.arch, model, cfg, 5,
+                                           True))
 
 
 def test_entry_points_need_cuda_unless_asked_for_the_cpu(coco):

@@ -236,5 +236,20 @@ def test_query_of_merged_gt_and_unported_branches_raise():
     cfg = TD.DistillConfig.from_flags(cates_distill="hard + soft",
                                       feats_distill="corr")
     assert cfg.soft and cfg.hard and cfg.corr and cfg.fg_mode == ""
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        TD.distill_losses(None, None, None, None, None, K, cfg, 0)
+    # every branch of the menu is ported (test_torch_port_distill_menu.py
+    # holds each against JAX); an fg mode outside the menu raises
+    from dskd_tpu_torch.distill.teacher import TeacherInfo
+    from dskd_tpu_torch.models.gfl_detr_head import DetResults, HeadOutputs
+    from dskd_tpu_torch.models.gfl_detr_loss import LayerTargets
+
+    idx = torch.zeros(B, KT, dtype=torch.int64)
+    det = DetResults(torch.zeros(B, KT, 4), torch.zeros(B, KT), idx, None,
+                     idx, torch.ones(B, KT, dtype=torch.bool))
+    student = HeadOutputs(torch.zeros(1, B, Q, K), None, None, None, None)
+    targets = LayerTargets(None, None, None,
+                           torch.full((1, B, Q), -1, dtype=torch.int64))
+    with pytest.raises(ValueError, match="fg mode"):
+        TD.distill_losses(student, None, TeacherInfo(*[None] * 5, det),
+                          targets, None, K, cfg._replace(
+                              soft=False, corr=False, fg_mode="bg_only"),
+                          KT)

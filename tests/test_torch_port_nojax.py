@@ -4,9 +4,10 @@ through the port's ``load_config``, builds a tiny model from the port's own
 config classes, runs init_detector + inference_detector and one incremental
 train step, imports every module of the port, runs the
 ``dskd_tpu_torch.tools.train_increment`` CLI (two tasks with eval and
-checkpoints on a synthetic COCO, tiny model, ``--device cpu``) and the
-``dskd_tpu_torch.tools.test`` CLI on its last checkpoint, and reports which
-modules it loaded."""
+checkpoints on a synthetic COCO, tiny model, ``--device cpu``), the
+``dskd_tpu_torch.tools.test`` CLI on its last checkpoint, a one-step
+forgetting A/B (``tools/ab_forgetting.py``) and a JV assignment, and
+reports which modules it loaded."""
 import json
 import os
 import subprocess
@@ -78,6 +79,12 @@ sys.argv = ["train_increment", cfg_file, "--work-dir", work, "--seed", "1",
 runpy.run_module("dskd_tpu_torch.tools.train_increment", run_name="__main__")
 rows = [json.loads(l) for f in glob.glob(os.path.join(work, "*.log.json"))
         for l in open(f)]
+from dskd_tpu_torch.core.matching import hungarian_assign
+from dskd_tpu_torch.tools.ab_forgetting import run_forgetting_ab
+ab = run_forgetting_ab(1, 1, n_eval=2, device="cpu",
+                       cates_distill="hard + teacher-first + soft")
+jv = hungarian_assign(torch.rand(2, 9, 5), torch.ones(2, 5, dtype=bool),
+                      torch.zeros(2, 5, dtype=torch.int64), solver="jv")
 out = os.path.join(root, "dets.json")
 sys.argv = ["test", cfg_file, "--work-dir", work, "--device", "cpu",
             "--classwise", "--out", out, "--set", *sets]
@@ -87,6 +94,8 @@ print(json.dumps({
                     glob.glob(os.path.join(work, "task_*"))),
     "rows": sorted((r["mode"], r["task"]) for r in rows),
     "dets": len(json.load(open(out))),
+    "ab": sorted(k for k, v in ab.items() if np.isfinite(v)),
+    "jv_pos": int(jv.pos_mask.sum()),
     "trained": bool(torch.isfinite(losses["loss"])),
     "n_images": len(res), "n_classes": len(res[0]),
     "shapes_ok": all(r.ndim == 2 and r.shape[1] == 5 for per in res
@@ -117,3 +126,8 @@ def test_port_slice_imports_no_jax():
     assert [tuple(r) for r in report["rows"]] == [
         ("train", 1)] * 2 + [("train", 2)] * 2 + [("val", 1), ("val", 2)]
     assert report["dets"] > 0
+    assert report["ab"] == sorted([
+        "teacher_old", "teacher_new", "distill_old", "distill_new",
+        "finetune_old", "finetune_new", "task1_ms", "distill_ms",
+        "finetune_ms", "wall_s"])
+    assert report["jv_pos"] == 10
