@@ -90,7 +90,20 @@ Phases; the first failure raises and the script exits non-zero:
      of f32 adds into dtable (G adds/s); the serving slice in ms/image (host
      clock and CUDA events), the train step in ms/step and img/s under each
      switch, and profiler tables of one serving forward and one bf16 train
-     step.
+     step;
+ 10. detr-il: the DETR-IL family (configs/detr_40_40_il.py: ResNet-50, 6+6
+     full-attention layers, 100 queries, 80 classes, seeded weights, f32)
+     through the port's family registry, which launches none of the
+     port's kernels (every count held at 0): the registry's eval step at
+     B=1 and B=8 on the 640x640 canvas with images of four aspect ratios
+     (finite outputs; the last layer's head outputs against the CPU;
+     ms/image); three family steps at B=8 with a frozen teacher ("hard +
+     soft" + "kldv", exact JV on the 100 queries x 132 merged GT) and
+     dropout 0.1 (ms/step, img/s, the host ms of the JV solves), a profile
+     of one step, one 2+2-layer step against the CPU (losses and four named
+     gradients); and the train_increment path for two tasks of 4 steps at
+     B=2 with COCO eval after each and the task-2 checkpoint restored by
+     init_detector, through the registry's eval step, bit for bit.
 The last three lines are the card, the kernel report as JSON and the result
 as JSON.
 """
@@ -349,6 +362,38 @@ def model_launches(switch, cfg, forwards, backwards=0):
     n_dec = cfg.model.num_decoder_layers
     return expected_launches(switch, forwards * n_enc, forwards * n_dec,
                              backwards * n_enc, backwards * n_dec)
+
+
+def path_launches(cfg, forwards, backwards=0):
+    """The kernels' launches on the default path of ``cfg``'s family:
+    the flagship's model_launches; none for a family without MSDA
+    (DETR-IL)."""
+    from dskd_tpu_torch.models.detector import FLAGSHIP_ARCHS
+
+    if cfg.model.arch in FLAGSHIP_ARCHS:
+        return model_launches("default", cfg, forwards, backwards)
+    return dict.fromkeys(counters(), 0)
+
+
+@contextlib.contextmanager
+def timed_jv(solves):
+    """Append (cost, columns, host ms) of every C++ JV solve to ``solves``
+    (the cost copied to the host, the solve and the copy back)."""
+    from dskd_tpu_torch.core import matching
+
+    native = matching.lap_jv_native
+
+    def timed(cost):
+        t0 = time.perf_counter()
+        cols = native(cost)
+        solves.append((cost, cols, (time.perf_counter() - t0) * 1e3))
+        return cols
+
+    matching.lap_jv_native = timed
+    try:
+        yield solves
+    finally:
+        matching.lap_jv_native = native
 
 
 @contextlib.contextmanager
@@ -1048,21 +1093,29 @@ def build_models(cfg, device, **overrides):
     return student, frozen_copy(teacher)
 
 
+def train_state(cfg, student):
+    """The TrainState of ``student`` with ``cfg.train``'s optimizer (clip,
+    AdamW, the step schedule over epochs of 1000 steps), dropout seed 1."""
+    from dskd_tpu_torch.train.optim import make_optimizer
+    from dskd_tpu_torch.train.schedule import step_lr_schedule
+    from dskd_tpu_torch.train.state import TrainState
+
+    t = cfg.train
+    sched = step_lr_schedule(t.base_lr, t.warmup_iters, t.warmup_ratio,
+                             t.step_epochs, iters_per_epoch=1000)
+    return TrainState.create(student, make_optimizer(
+        student, sched, weight_decay=t.weight_decay, max_norm=t.grad_clip,
+        frozen_stages=cfg.model.frozen_stages), seed=1)
+
+
 def train_setup(cfg, student, compute_dtype, dcfg=None, matcher="auction"):
     """(state, step, det_cfg, dcfg) of the flagship step; ``dcfg`` replaces
     the config's corr + decode_v1 distills, ``matcher`` the auction."""
     from dskd_tpu_torch.distill.losses import DistillConfig
     from dskd_tpu_torch.models.gfl_detr_loss import DetLossConfig
-    from dskd_tpu_torch.train.optim import make_optimizer
-    from dskd_tpu_torch.train.schedule import step_lr_schedule
-    from dskd_tpu_torch.train.state import TrainState
     from dskd_tpu_torch.train.step import make_train_step
 
-    t = cfg.train
-    sched = step_lr_schedule(t.base_lr, t.warmup_iters, t.warmup_ratio,
-                             t.step_epochs, iters_per_epoch=1000)
-    state = TrainState.create(student, make_optimizer(student, sched),
-                              seed=1)
+    state = train_state(cfg, student)
     det_cfg = DetLossConfig(num_classes=cfg.model.num_classes,
                             reg_max=cfg.model.reg_max, matcher=matcher)
     if dcfg is None:
@@ -1702,8 +1755,7 @@ def check_incremental(card, config=CONFIG, sets=(),
     the whole run."""
     import tempfile
 
-    from dskd_tpu_torch.apis.inference import inference_detector, \
-        init_detector
+    from dskd_tpu_torch.apis.inference import init_detector, prepare_batch
     from dskd_tpu_torch.data.coco import COCO_CLASSES_ALPHA_ORDER
     from dskd_tpu_torch.data.loader import DataLoader
     from dskd_tpu_torch.data.pipeline import load_image
@@ -1717,7 +1769,7 @@ def check_incremental(card, config=CONFIG, sets=(),
 
     def counted_step(arch, model, cfg, num_prev, has_teacher, **kw):
         # teacher and student forwards, the student's backward
-        want = model_launches("default", cfg, 2 if has_teacher else 1, 1)
+        want = path_launches(cfg, 2 if has_teacher else 1, 1)
         step = make_step(arch, model, cfg, num_prev, has_teacher, **kw)
 
         def run(state, batch, teacher=None):
@@ -1746,7 +1798,7 @@ def check_incremental(card, config=CONFIG, sets=(),
             ms.append((time.perf_counter() - t0) * 1e3)
             now = read_counts()
             launched = {k: now[k] - start[k] for k in now}
-            want = model_launches("default", cfg, len(loader))
+            want = path_launches(cfg, len(loader))
             if launched != want:
                 raise AssertionError(f"incremental: eval launches "
                                      f"{launched}, expected {want}")
@@ -1838,22 +1890,27 @@ def check_incremental(card, config=CONFIG, sets=(),
         finally:
             loader.close()
 
-        # the task-2 checkpoint restores to the final model's detections
+        # the task-2 checkpoint restores to the final model's detections,
+        # through the family registry's eval step
         ckpt = os.path.join(work, f"task_{len(cfg.data.catsplit)}_epoch_1")
         restored, _ = init_detector(cfg, ckpt, device=DEVICE)
         imgs = [load_image(os.path.join(val_dir, f"val_{i:04d}.png"))
                 for i in range(2)]
-        want = inference_detector(model.eval(), cfg, imgs)
-        got = inference_detector(restored, cfg, imgs)
-        for g, w in zip(got, want):
-            for a, b in zip(g, w):
-                if not np.array_equal(a, b):
-                    raise AssertionError("incremental: the restored "
-                                         "checkpoint's detections differ")
+        batch = prepare_batch(cfg, imgs, DEVICE)
+
+        def detections(m):
+            return evaluator.make_eval_step(
+                m, cfg.model.reg_max, cfg.test_score_thr,
+                cfg.test_max_per_img, cfg.model.arch)(*batch)
+        want, got = detections(model.eval()), detections(restored)
+        for name, a, b in zip(got._fields, got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"incremental: the restored "
+                                     f"checkpoint's {name} differ")
         print(f"incremental: init_detector({os.path.basename(ckpt)}) gives "
               f"the final model's detections bit for bit on "
-              f"{len(imgs)} val images "
-              f"({sum(len(a) for g in got for a in g)} detections) [{card}]")
+              f"{len(imgs)} val images ({int(got.valid.sum())} valid "
+              f"detections) [{card}]")
     return launches
 
 
@@ -1942,24 +1999,17 @@ def check_jv(cfg, card):
     print(f"jv matcher: native/lap_jv.cpp built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
     solves, valid_rows = [], []
-    native, assign = matching.lap_jv_native, gfl_detr_loss.hungarian_assign
+    assign = gfl_detr_loss.hungarian_assign
 
-    def timed_native(cost):
-        t0 = time.perf_counter()
-        cols = native(cost)
-        solves.append((cost, cols, (time.perf_counter() - t0) * 1e3))
-        return cols
-
-    def recording_assign(cost, gt_valid, gt_labels, solver="auction"):
+    def recording_assign(cost, gt_valid, gt_labels, *, solver):
         valid_rows.append(gt_valid)
-        return assign(cost, gt_valid, gt_labels, solver)
+        return assign(cost, gt_valid, gt_labels, solver=solver)
 
-    matching.lap_jv_native = timed_native
     gfl_detr_loss.hungarian_assign = recording_assign
     try:
-        timed_steps(cfg, card, "jv matcher", matcher="jv")
+        with timed_jv(solves):
+            timed_steps(cfg, card, "jv matcher", matcher="jv")
     finally:
-        matching.lap_jv_native = native
         gfl_detr_loss.hungarian_assign = assign
     cost, cols, jv_ms = solves[-1]
     N, R, C = cost.shape
@@ -2044,6 +2094,235 @@ def check_distill_menu(cfg, card):
         check_train_card_vs_cpu(cfg, dcfg, tag)
     check_jv(cfg, card)
     check_forgetting_ab(card, AB_STEPS)
+
+
+# --- DETR-IL -------------------------------------------------------------
+
+DETR_CONFIG = os.path.join(ROOT, "configs", "detr_40_40_il.py")
+DETR_HW = (640, 640)                # DETR's one canvas (DataConfig.bucket)
+# valid (h, w) on the canvas: four aspect ratios, so the key mask acts
+DETR_VALID = ((480, 640), (427, 640), (640, 512), (512, 640))
+DETR_INC_SETS = ("data.num_workers=0",)
+
+
+def detr_batch(device, n, hw=DETR_HW):
+    """n images of the canvas ``hw`` whose valid (h, w) cycle through
+    DETR_VALID (scaled to ``hw``), MAX_GT GT of which 5-29 are valid, in
+    classes 40-79 and inside each image's valid region."""
+    from dskd_tpu_torch.data.batch import Batch
+
+    H, W = hw
+    rng = np.random.RandomState(7)
+    images = rng.randn(n, H, W, 3).astype(np.float32) * 0.5
+    img_hw = np.array([DETR_VALID[i % len(DETR_VALID)] for i in range(n)],
+                      np.int32) * np.array([H, W]) // 640
+    img_hw = img_hw.astype(np.int32)
+    wh = rng.rand(n, MAX_GT, 2) * 0.3 + 0.05
+    xy = rng.rand(n, MAX_GT, 2) * (1 - wh)
+    scale = img_hw[:, None, ::-1].astype(np.float32)
+    gt = (np.concatenate([xy, xy + wh], -1) * np.tile(scale, 2)).astype(
+        np.float32)
+    labels = rng.randint(40, 80, (n, MAX_GT)).astype(np.int64)
+    valid = np.arange(MAX_GT)[None] < rng.randint(5, 30, (n, 1))
+    return Batch(*(torch.from_numpy(a) for a in (
+        images, img_hw, gt, labels, valid))).to(device)
+
+
+def detr_models(cfg, device, **overrides):
+    """Student (seed 0) and frozen teacher (seed 1) of the DETR config
+    through the family registry. The teacher stands for a model trained on
+    the old classes: its class weights are 8x wider and the new classes'
+    bias is -20, so it keeps confident old-class detections."""
+    from dskd_tpu_torch.registry import get_family
+    from dskd_tpu_torch.train.state import frozen_copy
+
+    spec = get_family("detr")
+    mcfg = dataclasses.replace(cfg.model, **overrides)
+    student = spec["build"](mcfg, torch.device(device))
+    spec["init_weights"](student, 0)
+    teacher = spec["build"](mcfg, torch.device(device))
+    spec["init_weights"](teacher, 1)
+    n_old = cfg.data.catsplit[0]
+    with torch.no_grad():
+        fc = teacher.bbox_head.fc_cls
+        fc.weight.mul_(8.0)
+        fc.bias[n_old:cfg.model.num_classes] = -20.0
+    return student, frozen_copy(teacher)
+
+
+DETR_GRAD_PARAMS = (
+    "bbox_head.input_proj.weight",
+    "bbox_head.transformer.decoder.layers.1.attentions.1.attn."
+    "in_proj_weight",
+    "bbox_head.fc_cls.weight",
+    "bbox_head.query_embedding.weight")
+
+
+def check_detr_card_vs_cpu(cfg, card, n=2):
+    """One DETR-IL step's losses and DETR_GRAD_PARAMS at 2+2 layers, B=n,
+    f32, dropout 0, card against CPU (LOSS_TOL, GRAD_REL_TOL), through the
+    registry's losses_fn."""
+    from dskd_tpu_torch.registry import get_family
+    from dskd_tpu_torch.train.step import parse_losses
+
+    small = dict(num_encoder_layers=2, num_decoder_layers=2, dropout=0.0)
+    losses_fn = get_family("detr")["losses"](
+        None, cfg, num_prev=cfg.data.catsplit[0], has_teacher=True,
+        use_dropout=False)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        student, teacher = detr_models(cfg, dev, **small)
+        student.train()
+        losses = losses_fn(student, detr_batch(dev, n), teacher, None)
+        parse_losses(losses).backward()
+        params = dict(student.named_parameters())
+        out[dev] = ({k: v.detach().cpu() for k, v in losses.items()},
+                    {k: params[k].grad.cpu() for k in DETR_GRAD_PARAMS})
+    (losses, grads), (c_losses, c_grads) = out[DEVICE], out["cpu"]
+    loss_err = {}
+    for k, v in c_losses.items():
+        torch.testing.assert_close(losses[k], v, **LOSS_TOL, msg=k)
+        loss_err[k] = float((losses[k] - v).abs())
+    print(f"detr-il card vs CPU (2+2 layers, B={n}): {len(loss_err)} loss "
+          f"keys within {LOSS_TOL}, largest abs err "
+          f"{max(loss_err.values()):.3e} ({max(loss_err, key=loss_err.get)})"
+          f" [{card}]")
+    bad = {}
+    for k in DETR_GRAD_PARAMS:
+        rel = float((grads[k] - c_grads[k]).norm() / c_grads[k].norm())
+        print(f"detr-il card vs CPU: grad {k}: relative L2 err {rel:.3e} "
+              f"(tolerance {GRAD_REL_TOL})")
+        if not rel <= GRAD_REL_TOL:
+            bad[k] = rel
+    if bad:
+        raise AssertionError(f"detr-il: gradients differ card vs CPU: {bad}")
+
+
+def check_detr(card, config=DETR_CONFIG, sets=(), n_train=None, hw=DETR_HW,
+               inc_kw=None):
+    """Phase 10: the DETR-IL family through the registry at the config's
+    width and depth (ResNet-50, 6+6 layers, 100 queries, 80 classes), f32,
+    TF32 off, seeded weights. Serving: the registry's eval step at B=1 and
+    B=8 on the canvas, images of four aspect ratios, finite outputs, the
+    last layer's head outputs against the CPU (HEAD_TOL), ms/image. Train:
+    the family step with a frozen teacher ("hard + soft" + "kldv", JV) at
+    the config's samples_per_device, GT padded to MAX_GT: three steps with
+    dropout 0.1 (ms/step, img/s, the host ms of the JV solves), a 2+2-layer
+    step against the CPU, a profile of one step. Every run of the path is
+    held to no launch of the port's kernels. Incremental: the
+    train_increment CLI's path for two tasks of 4 steps at B=2, eval after
+    each, the task-2 checkpoint restored bit for bit."""
+    from dskd_tpu_torch.apis.inference import init_detector, prepare_batch
+    from dskd_tpu_torch.eval.evaluator import make_eval_step
+    from dskd_tpu_torch.train.family import make_family_train_step
+    from dskd_tpu_torch.utils.config import apply_overrides, load_config
+
+    cfg = apply_overrides(load_config(config), list(sets))
+    m = cfg.model
+    print(f"detr-il: {os.path.relpath(config, ROOT)}: arch {m.arch}, "
+          f"ResNet-{m.depth}, {m.num_encoder_layers}+{m.num_decoder_layers} "
+          f"layers, {m.num_query} queries, {m.num_classes} classes, "
+          f"distill {cfg.distill.cates_distill!r} + "
+          f"{cfg.distill.feats_distill!r} [{card}]")
+    none = dict.fromkeys(counters(), 0)
+
+    # serving
+    model, _ = init_detector(cfg, device=DEVICE, seed=0)
+    step = make_eval_step(model, cfg.model.reg_max, cfg.test_score_thr,
+                          cfg.test_max_per_img, arch=m.arch)
+    rng = np.random.RandomState(3)
+    imgs = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            for h, w in DETR_VALID * 2]
+    batches = {1: prepare_batch(cfg, imgs[:1], DEVICE),
+               8: prepare_batch(cfg, imgs, DEVICE)}
+    reset_counts()
+    for bsz, batch in batches.items():
+        det = step(*batch)
+        if not all(bool(torch.isfinite(t.float()).all()) for t in det):
+            raise AssertionError(f"detr-il serve B={bsz}: non-finite output")
+        if tuple(det.bboxes.shape) != (bsz, min(cfg.test_max_per_img,
+                                                m.num_query), 4):
+            raise AssertionError(f"detr-il serve: boxes {det.bboxes.shape}")
+    if read_counts() != none:
+        raise AssertionError(f"detr-il serve launched {read_counts()}")
+    images, img_hw, _ = batches[8]
+    print(f"detr-il serve: canvas {tuple(images.shape[1:3])}, valid (h, w) "
+          f"{img_hw.tolist()}; outputs finite at B=1 and B=8; no launch of "
+          f"the port's kernels")
+    cpu_model, _ = init_detector(cfg, device="cpu", seed=0)
+    with torch.inference_mode():
+        out = model(images, img_hw)
+        ref = cpu_model(images.cpu(), img_hw.cpu())
+    errs = {}
+    for name in ("cls_scores", "bbox_preds"):
+        got, want = getattr(out, name)[-1].cpu(), getattr(ref, name)[-1]
+        torch.testing.assert_close(got, want, **HEAD_TOL)
+        errs[name] = float((got - want).abs().max())
+    del cpu_model
+    print(f"detr-il serve: card vs CPU head outputs, last layer, B=8, max "
+          f"abs err {errs} (tolerance {HEAD_TOL})")
+    for bsz, batch in batches.items():
+        for _ in range(2):
+            step(*batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(*batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        print(f"  detr-il serve B={bsz}: eval step {ms / bsz:.3f} ms/image "
+              f"({ms:.3f} ms/batch; host clock around synchronised calls, "
+              f"f32) [{card}]")
+    del model
+
+    # training
+    n = n_train or cfg.data.samples_per_device
+    student, teacher = detr_models(cfg, DEVICE)
+    state = train_state(cfg, student)
+    train = make_family_train_step(m.arch, student, cfg,
+                                   num_prev=cfg.data.catsplit[0],
+                                   has_teacher=True)
+    batch = detr_batch(DEVICE, n, hw)
+    solves = []
+    reset_counts()
+    with timed_jv(solves):
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, losses = train(state, batch, teacher)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            bad = {k: v for k, v in losses.items() if not torch.isfinite(v)}
+            if bad:
+                raise AssertionError(f"detr-il train: non-finite {bad}")
+            cost, _, jv_ms = solves[-1]
+            print(f"  detr-il train f32 B={n} {hw[0]}x{hw[1]} step {i}: "
+                  f"{ms:.3f} ms/step, {n / ms * 1e3:.3f} img/s, loss "
+                  f"{float(losses['loss']):.5f} (cls "
+                  f"{float(losses['loss_cls']):.5f}, kd "
+                  f"{float(losses['loss_kd']):.6f}, fd "
+                  f"{float(losses['loss_fd']):.6f}); JV solve {jv_ms:.3f} "
+                  f"ms of host time for {cost.shape[0]} problems of "
+                  f"{cost.shape[1]} x {cost.shape[2]} (rows x columns) "
+                  f"[{card}]")
+    launched = read_counts()
+    if launched != none:
+        raise AssertionError(f"detr-il train launched {launched}")
+    _, rows, cols = solves[-1][0].shape
+    if not cols > rows == m.num_query:
+        raise AssertionError(f"detr-il: JV solved {rows} x {cols}: the "
+                             f"merged GT should outnumber the queries")
+    print(f"detr-il train: {len(losses)} loss keys, no launch of the port's "
+          f"kernels in 3 steps; merged GT {cols} > {rows} queries: JV with "
+          f"queries as rows")
+    profile(lambda: train(state, batch, teacher),
+            f"one detr-il B={n} f32 train step")
+    del state, student, teacher, train
+    check_detr_card_vs_cpu(cfg, card)
+
+    # run_incremental through the train_increment CLI's config path
+    check_incremental(card, config, sets=(*sets, *DETR_INC_SETS),
+                      **(inc_kw or {}))
 
 
 def main() -> int:
@@ -2160,6 +2439,11 @@ def main() -> int:
                 f"one B={len(imgs)} serving forward (f32)")
     profile(lambda: step16(state16, batch, teacher16),
             f"one B={B} bf16 train step")
+    del state16, step16, teacher16, switch_states
+
+    t10 = time.perf_counter()
+    check_detr(card)
+    print(f"detr-il: phase 10 took {time.perf_counter() - t10:.1f} s")
 
     bwd_key = f"gather_weighted_bwd f32 Q={Q_TRAIN} 640x480"
     gw_key = f"gather_weighted f32 Q={Q_ENC}"

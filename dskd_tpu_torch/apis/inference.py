@@ -2,9 +2,10 @@
 ``inference_detector``).
 
 ``init_detector(config, checkpoint=None, task=None)`` takes JAX's arguments
-in JAX's order and builds the flagship detector on the card (or on the
-device the caller names, ``device="cpu"`` in the tests) with the weights of
-a ``task_{t}_epoch_{e}`` checkpoint of the port's training loop, or
+in JAX's order and builds the config's detector (its family registry's
+``build`` and weights) on the card (or on the device the caller names,
+``device="cpu"`` in the tests) with the weights of a
+``task_{t}_epoch_{e}`` checkpoint of the port's training loop, or
 JAX-layout ``variables``, or seeded random weights; it returns
 ``(model, cfg)``, where JAX returns ``(model, variables, cfg)``: the
 weights live in the ``nn.Module``. ``inference_detector`` takes one image
@@ -21,11 +22,11 @@ import numpy as np
 import torch
 
 from ..data.pipeline import PipelineConfig, load_image, preprocess
-from ..models.detector import GFLDeformableDETR, build_detector, init_weights
+from ..models.detector import GFLDeformableDETR
 from ..models.gfl_detr_head import get_bboxes
+from ..registry import get_family
 from ..train.checkpoint import load_weights
 from ..utils.config import ExperimentConfig, load_config
-from ..utils.weights import state_dict_from_jax
 
 
 def init_detector(config: Union[str, ExperimentConfig],
@@ -33,21 +34,24 @@ def init_detector(config: Union[str, ExperimentConfig],
                   task: Optional[int] = None, *,
                   variables: Optional[Dict[str, Any]] = None,
                   device="cuda", seed: int = 0):
-    """Build the detector on ``device``; returns (model, cfg).
+    """Build the detector of ``cfg.model.arch`` on ``device`` through the
+    family registry; returns (model, cfg).
 
     ``checkpoint``: a ``.../task_{t}_epoch_{e}`` directory written by the
     port's ``train.checkpoint.save_checkpoint``, whose weights replace the
     others; an mmdet ``.pth`` file raises NotImplementedError. ``task`` is
     accepted and unused, as in the JAX package. ``variables``: the JAX
-    package's ``{"params", "batch_stats"}`` tree, or None for seeded random
-    weights (``models.detector.init_weights``).
+    package's ``{"params", "batch_stats"}`` tree (the family's
+    ``from_jax``), or None for seeded random weights (its
+    ``init_weights``).
     """
     cfg = load_config(config) if isinstance(config, str) else config
-    model = build_detector(cfg.model, torch.device(device))
+    spec = get_family(cfg.model.arch)
+    model = spec["build"](cfg.model, torch.device(device))
     if variables is None:
-        init_weights(model, seed)
+        spec["init_weights"](model, seed)
     else:
-        model.load_state_dict(state_dict_from_jax(variables), strict=True)
+        model.load_state_dict(spec["from_jax"](variables), strict=True)
     if checkpoint:
         load_weights(model, checkpoint)
     return model.eval(), cfg
@@ -68,7 +72,13 @@ def inference_detector(model: GFLDeformableDETR, cfg: ExperimentConfig,
                        imgs: Union[str, np.ndarray, Sequence],
                        score_thr: float = 0.0) -> List:
     """Run inference on image paths or RGB arrays; returns per-image lists
-    of per-class (n, 5) arrays (one list when given one image)."""
+    of per-class (n, 5) arrays (one list when given one image). It decodes
+    the GFL-Deformable-DETR head, as JAX's does for every arch; a model of
+    another family raises, where JAX's would decode it as that head."""
+    if not isinstance(model, GFLDeformableDETR):
+        raise ValueError(f"inference_detector decodes the flagship's GFL "
+                         f"head only; arch {cfg.model.arch!r} has another "
+                         f"head (use its family's eval_step)")
     single = isinstance(imgs, (str, np.ndarray))
     if single:
         imgs = [imgs]

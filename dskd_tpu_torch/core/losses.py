@@ -3,7 +3,8 @@ dskd_tpu/core/losses.py ``weight_reduce_loss``,
 ``binary_cross_entropy_with_logits``, ``l1_loss``, ``smooth_l1_loss``,
 ``mse_loss``, ``giou_loss``, ``iou_loss``, ``diou_loss``, ``ciou_loss``,
 ``quality_focal_loss``, ``distribution_focal_loss``, ``kd_kl_div_loss``,
-``sigmoid_focal_loss``, ``gaussian_focal_loss`` and ``varifocal_loss``).
+``sigmoid_focal_loss``, ``gaussian_focal_loss``, ``varifocal_loss`` and
+``cross_entropy_loss``).
 
 Every loss is ``loss(pred, target, weight=None, reduction='mean',
 avg_factor=None)``: the elementwise loss is multiplied by ``weight``; without
@@ -216,3 +217,15 @@ def varifocal_loss(pred, target, alpha: float = 0.75, gamma: float = 2.0,
     focal_w = (target if iou_weighted else 1.0) * pos \
         + alpha * (p ** gamma) * (1 - pos)
     return binary_cross_entropy_with_logits(pred, target) * focal_w
+
+
+@_weighted
+def cross_entropy_loss(pred, label, class_weight=None):
+    """Softmax CE with integer labels, scaled by ``class_weight[label]``;
+    (N, C) x (N,) -> (N,)."""
+    label = label.long()
+    loss = -torch.gather(torch.log_softmax(pred, dim=-1), -1,
+                         label[..., None])[..., 0]
+    if class_weight is not None:
+        loss = loss * class_weight[label]
+    return loss

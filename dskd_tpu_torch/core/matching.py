@@ -13,9 +13,11 @@ does, ``.at[].max`` / ``.at[].min`` are ``scatter_reduce`` with ``amax`` /
 ``amin``, and the tie-break jitter is the same hash, bit for bit.
 
 Two solvers (``hungarian_assign(solver=...)``, ``DetLossConfig.matcher``):
-  * ``"auction"`` (the flagship's): Bertsekas' auction, one vectorized
-    round over all N problems per iteration, on the tensors' device;
-  * ``"jv"``: the exact Jonker-Volgenant solve of ``native/lap_jv.cpp``.
+  * ``"auction"`` (the flagship's, through ``DetLossConfig.matcher``):
+    Bertsekas' auction, one vectorized round over all N problems per
+    iteration, on the tensors' device;
+  * ``"jv"`` (``hungarian_assign``'s default, as JAX's): the exact
+    Jonker-Volgenant solve of ``native/lap_jv.cpp``.
     ``hungarian_assign`` copies the (N, R, C) cost to the host explicitly,
     solves the N problems there and copies the columns back. This is the
     design, not a fallback: JAX runs JV as a sequential ``lax.while_loop``
@@ -268,11 +270,12 @@ def _jittered(cost_rows):
 
 
 def hungarian_assign(cost: torch.Tensor, gt_valid: torch.Tensor,
-                     gt_labels: torch.Tensor,
-                     solver: str = "auction") -> AssignResult:
+                     gt_labels: torch.Tensor, *,
+                     solver: str = "jv") -> AssignResult:
     """One-to-one assignment of queries to GT for N problems. cost
-    (N, Q, G); gt_valid, gt_labels (N, G); ``solver`` "auction" or "jv"
-    (the module docstring says where each runs).
+    (N, Q, G); gt_valid, gt_labels (N, G); ``solver`` "jv" (JAX's default)
+    or "auction", by keyword only (the module docstring says where each
+    runs).
 
     G <= Q: GT are the rows; padded GT rows are zeroed (and, for the
     auction, never bid). G > Q: queries are the rows and invalid GT columns
@@ -317,7 +320,7 @@ def gfl_hungarian_assign(cls_logits, bbox_cxcywh, gt_bboxes, gt_labels,
     as JAX's function solves with its ``hungarian_assign`` default."""
     cost = gfl_match_cost(cls_logits, bbox_cxcywh, gt_bboxes, gt_labels,
                           img_hw)
-    return hungarian_assign(cost, gt_valid, gt_labels, "jv")
+    return hungarian_assign(cost, gt_valid, gt_labels)
 
 
 def focal_loss_cost(cls_logits, gt_labels, weight=1.0, alpha=0.25,
@@ -365,7 +368,7 @@ def distill_hungarian_assign(cls_logits, bbox_cxcywh, teacher_bboxes,
     cost = detr_match_cost(cls_logits, bbox_cxcywh, teacher_bboxes,
                            teacher_labels, img_hw, cls_cost="softmax",
                            cls_weight=1.0, reg_weight=1.0, iou_weight=1.0)
-    return hungarian_assign(cost, teacher_valid, teacher_labels, "jv")
+    return hungarian_assign(cost, teacher_valid, teacher_labels)
 
 
 def distribution_focal_loss_cost(pred_corner: torch.Tensor,

@@ -1,11 +1,9 @@
 """Model evaluation loop: the detector's forward -> COCO bbox metrics (port
-of dskd_tpu/eval/evaluator.py ``make_eval_step`` and ``evaluate`` for the
-flagship archs).
+of dskd_tpu/eval/evaluator.py ``make_eval_step`` and ``evaluate``).
 
-The eval step is the model's forward in eval mode plus
-``models.gfl_detr_head.get_bboxes`` with ``rescale=True``, as the JAX
-registry's ``eval_step`` (dskd_tpu/models/detector.py), under
-``torch.inference_mode()`` on the model's device. Box collection and COCO
+The eval step is the family registry's ``eval_step`` (the model's forward
+in eval mode and its family's decode with ``rescale=True``, under
+``torch.inference_mode()``), as the JAX registry's. Box collection and COCO
 matching run on the host. The scored classes are the dataset's
 PRED_CLASSES (the x-class IL protocol: prev+cur classes), padded duplicates
 of the last batch count once, and the ground truth comes from the
@@ -21,26 +19,22 @@ import torch
 
 from ..data.coco import TaskCocoDataset
 from ..data.loader import DataLoader
-from ..models.detector import ARCHS
-from ..models.gfl_detr_head import get_bboxes
+from ..registry import get_family
 from .coco_eval import CocoDetectionEval
 
 
 def make_eval_step(model, reg_max: int = 16, score_thr: float = 0.0,
                    max_per_img: int = 100, arch: str = "gfl_deformable_detr"):
-    """``step(images, img_hw, scale_factors) -> DetResults`` of ``model``,
-    which the caller puts in eval mode."""
-    if arch not in ARCHS:
-        raise ValueError(f"no eval step for arch: {arch}")
-
-    @torch.inference_mode()
-    def step(images, img_hw, scale_factors):
-        out = model(images, img_hw)
-        return get_bboxes(out.head.cls_scores[-1], out.head.bbox_preds[-1],
-                          img_hw, scale_factor=scale_factors,
-                          reg_max=reg_max, score_thr=score_thr,
-                          max_per_img=max_per_img, rescale=True)
-    return step
+    """``step(images, img_hw, scale_factors) -> detections`` of ``model``
+    (which the caller puts in eval mode): a lookup in the family registry,
+    whose ``eval_step`` returns ``bboxes``, ``scores``, ``labels`` and
+    ``valid``."""
+    try:
+        spec = get_family(arch)
+    except ValueError:
+        raise ValueError(f"no eval step for arch: {arch}") from None
+    return spec["eval_step"](model, score_thr=score_thr,
+                             max_per_img=max_per_img, reg_max=reg_max)
 
 
 def evaluate(model, dataset: TaskCocoDataset, loader: DataLoader,

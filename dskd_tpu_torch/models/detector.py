@@ -1,6 +1,8 @@
 """Detector assembly (port of dskd_tpu/models/detector.py
-``GFLDeformableDETR`` and its registry ``build``): ResNet -> ChannelMapper
--> GFL Deformable-DETR head.
+``GFLDeformableDETR`` and its registry entry): ResNet -> ChannelMapper ->
+GFL Deformable-DETR head, registered as ``gfl_deformable_detr`` and
+``deformable_detr_il`` with the flagship's own train step
+(``train.step.make_train_step``).
 
 ``model.train()`` turns on the transformer's dropout (its masks come from the
 generator passed to ``forward``); the backbone's BatchNorm stays frozen in
@@ -61,15 +63,15 @@ class GFLDeformableDETR(nn.Module):
                                            for f in neck))
 
 
-# the archs the port builds: the flagship family of the JAX registry
-ARCHS = ("gfl_deformable_detr", "deformable_detr_il")
+# the flagship family's archs in the registry
+FLAGSHIP_ARCHS = ("gfl_deformable_detr", "deformable_detr_il")
 
 
 def build_detector(model_cfg, device="cuda") -> GFLDeformableDETR:
     """``ModelConfig`` -> detector; raises on options the port lacks."""
     m = model_cfg
-    if m.arch not in ARCHS:
-        raise ValueError(f"the port has no arch {m.arch!r}")
+    if m.arch not in FLAGSHIP_ARCHS:
+        raise ValueError(f"arch {m.arch!r} is not the flagship's")
     if any(m.dcn_stages) or any(m.gcb_stages) or any(m.gen_attn_stages) \
             or m.with_box_refine or m.as_two_stage or m.backbone:
         raise NotImplementedError("backbone plugins, box refinement and "
@@ -80,6 +82,48 @@ def build_detector(model_cfg, device="cuda") -> GFLDeformableDETR:
         num_encoder_layers=m.num_encoder_layers,
         num_decoder_layers=m.num_decoder_layers, num_levels=m.num_levels,
         frozen_stages=m.frozen_stages, dropout=m.dropout)
+
+
+def put_(t: torch.Tensor, values: torch.Tensor) -> None:
+    t.copy_(values.to(t.dtype))
+
+
+def xavier_(t: torch.Tensor, g: torch.Generator) -> None:
+    """xavier-uniform over (out, in[, kh, kw]), drawn on the CPU."""
+    fan_out, fan_in = t.shape[0], t[0].numel()
+    if t.dim() > 2:
+        fan_out *= t[0, 0].numel()
+    bound = (6.0 / (fan_in + fan_out)) ** 0.5
+    put_(t, torch.empty(t.shape).uniform_(-bound, bound, generator=g))
+
+
+def lecun_(t: torch.Tensor, g: torch.Generator) -> None:
+    """normal(0, 1/fan_in): the scale of flax's default lecun_normal."""
+    put_(t, torch.empty(t.shape).normal_(0, t[0].numel() ** -0.5,
+                                         generator=g))
+
+
+@torch.no_grad()
+def init_modules(model: nn.Module, g: torch.Generator, lecun) -> None:
+    """Convs and linears whose name ``lecun(name)`` picks: lecun-normal,
+    the others xavier-uniform, each with zero bias; packed attention
+    projections xavier-uniform per q/k/v chunk with zero bias; norms
+    identity. Values are drawn on the CPU from ``g`` in module order."""
+    for name, mod in model.named_modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            (lecun_ if lecun(name) else xavier_)(mod.weight, g)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, _InOutProj):
+            for chunk in mod.in_proj_weight.chunk(3):
+                xavier_(chunk, g)
+            mod.in_proj_bias.zero_()
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm)):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            if isinstance(mod, FrozenBatchNorm):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
 
 
 @torch.no_grad()
@@ -95,52 +139,73 @@ def init_weights(model: GFLDeformableDETR, seed: int = 0) -> None:
     output: zero kernel and bias [0, 0, -2, ...].
     """
     g = torch.Generator().manual_seed(seed)
-
-    def put(t, values):
-        t.copy_(values.to(t.dtype))
-
-    def xavier(t):
-        fan_out, fan_in = t.shape[0], t[0].numel()
-        if t.dim() > 2:
-            fan_out *= t[0, 0].numel()
-        bound = (6.0 / (fan_in + fan_out)) ** 0.5
-        put(t, torch.empty(t.shape).uniform_(-bound, bound, generator=g))
-
-    for name, mod in model.named_modules():
-        if isinstance(mod, nn.Conv2d):
-            if name.startswith("backbone"):
-                std = mod.weight[0].numel() ** -0.5
-                put(mod.weight, torch.empty(mod.weight.shape).normal_(
-                    0, std, generator=g))
-            else:
-                xavier(mod.weight)
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, nn.Linear):
-            xavier(mod.weight)
-            mod.bias.zero_()
-        elif isinstance(mod, _InOutProj):
-            for chunk in mod.in_proj_weight.chunk(3):
-                xavier(chunk)
-            mod.in_proj_bias.zero_()
-        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm)):
-            mod.weight.fill_(1.0)
-            mod.bias.zero_()
-            if isinstance(mod, FrozenBatchNorm):
-                mod.running_mean.zero_()
-                mod.running_var.fill_(1.0)
+    init_modules(model, g, lambda name: name.startswith("backbone"))
     for mod in model.modules():
         if isinstance(mod, MSDeformAttention):
             mod.sampling_offsets.weight.zero_()
-            put(mod.sampling_offsets.bias, msda_offset_bias(
+            put_(mod.sampling_offsets.bias, msda_offset_bias(
                 mod.num_heads, mod.num_levels, mod.num_points))
             mod.attention_weights.weight.zero_()
     head = model.bbox_head
     for t in (head.query_embedding.weight, head.transformer.level_embeds):
-        put(t, torch.empty(t.shape).normal_(0, 1, generator=g))
+        put_(t, torch.empty(t.shape).normal_(0, 1, generator=g))
     head.prototype.weight.zero_()
     head.cls_branches[0].bias.fill_(bias_init_with_prob(0.01))
     reg_out = head.reg_branches[0][-1]
     reg_out.weight.zero_()
     reg_out.bias.fill_(-2.0)
     reg_out.bias[:2] = 0.0
+
+
+# --- family registration (dskd_tpu_torch/registry.py) ----------------------
+
+def _register():
+    from ..registry import register_family
+
+    def train_step(model, cfg, *, num_prev, has_teacher, use_dropout,
+                   compute_dtype):
+        from ..distill.losses import DistillConfig
+        from ..train.step import make_train_step
+        from .gfl_detr_loss import DetLossConfig
+
+        det_cfg = DetLossConfig(num_classes=cfg.model.num_classes,
+                                reg_max=cfg.model.reg_max)
+        distill_cfg = None
+        if has_teacher:
+            distill_cfg = DistillConfig.from_flags(
+                cates_distill=cfg.distill.cates_distill,
+                locat_distill=cfg.distill.locat_distill,
+                feats_distill=cfg.distill.feats_distill,
+                memory_distill=cfg.distill.memory_distill,
+                num_prev=max(num_prev, 1), reg_max=cfg.model.reg_max,
+                fix_fg_grad_direction=cfg.distill.fix_fg_grad_direction)
+        return make_train_step(
+            det_cfg, distill_cfg,
+            teacher_score_thr=cfg.distill.teacher_score_thr,
+            teacher_max_per_img=cfg.distill.teacher_max_per_img,
+            compute_dtype=compute_dtype)
+
+    def eval_step(model, *, score_thr, max_per_img, reg_max):
+        from .gfl_detr_head import get_bboxes
+
+        @torch.inference_mode()
+        def step(images, img_hw, scale_factors):
+            out = model(images, img_hw)
+            return get_bboxes(out.head.cls_scores[-1],
+                              out.head.bbox_preds[-1], img_hw,
+                              scale_factor=scale_factors, reg_max=reg_max,
+                              score_thr=score_thr, max_per_img=max_per_img,
+                              rescale=True)
+        return step
+
+    def from_jax(variables):
+        from ..utils.weights import state_dict_from_jax
+        return state_dict_from_jax(variables)
+
+    for arch in FLAGSHIP_ARCHS:
+        register_family(arch, build=build_detector, init_weights=init_weights,
+                        from_jax=from_jax, train_step=train_step,
+                        eval_step=eval_step)
+
+
+_register()

@@ -65,7 +65,7 @@ def assign_all_layers(cls_scores, bbox_cxcywh, gt_bboxes, gt_labels,
         cls_scores.reshape(nl * B, Q, K), bbox_cxcywh.reshape(nl * B, Q, 4),
         boxes, labels, hw, cls_weight=cfg.cost_cls_weight,
         reg_weight=cfg.cost_reg_weight, iou_weight=cfg.cost_iou_weight)
-    res = hungarian_assign(cost, valid, labels, cfg.matcher)
+    res = hungarian_assign(cost, valid, labels, solver=cfg.matcher)
     safe = res.assigned_gt.clamp(0, G - 1)
     hwf = hw.to(bbox_cxcywh.dtype)
     factor = torch.stack([hwf[:, 1], hwf[:, 0], hwf[:, 1], hwf[:, 0]],

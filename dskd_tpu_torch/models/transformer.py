@@ -10,8 +10,9 @@ Tensors are batch-first (B, S, C). Parameter names follow mmdet/mmcv
 premap decoder branch, box refinement, two-stage and remat.
 
 Dropout sits where the JAX layers put it: after MSDA's output projection, on
-the attention weights of ``MultiheadAttention`` and after its output, and
-twice in the FFN. Its masks come from the ``torch.Generator`` passed into the
+the attention weights of ``MultiheadAttention`` (one (Q, K) mask shared
+across batch and heads, as flax's) and after its output, and twice in the
+FFN. Its masks come from the ``torch.Generator`` passed into the
 forward, the port's counterpart of the train step's ``dropout_rng``, never
 from the global RNG. It is active in training mode at p > 0, where a
 forward without a generator raises; eval mode and p = 0 turn it off.
@@ -41,6 +42,20 @@ def dropout(x: torch.Tensor, p: float, training: bool,
                          "torch.Generator")
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+def broadcast_keep(shape, p: float, generator,
+                   like: torch.Tensor) -> torch.Tensor:
+    """flax's broadcast dropout multiplier: one keep mask of ``shape`` (the
+    trailing (Q, K) of the attention weights), 1/(1-p) where kept and 0
+    elsewhere, in ``like``'s dtype and on its device; it broadcasts over
+    the leading batch and head axes."""
+    if generator is None:
+        raise ValueError("dropout in training mode at p > 0 needs a "
+                         "torch.Generator")
+    keep = torch.rand(tuple(shape), generator=generator,
+                      device=like.device) >= p
+    return keep.to(like.dtype) / (1.0 - p)
 
 
 def inverse_sigmoid(x, eps=1e-5):
@@ -122,8 +137,17 @@ class _InOutProj(nn.Module):
 
 
 class MultiheadAttention(nn.Module):
-    """Dot-product MHA with DETR-style positions (q = k = x + pos, v = x),
-    written out as projections, matmul and softmax."""
+    """Dot-product MHA with DETR-style positions (q = query + query_pos,
+    k = key + key_pos, v = value), written out as projections, matmul and
+    softmax, as flax's ``MultiHeadDotProductAttention`` computes it.
+
+    With ``key`` None it is self-attention: key = value = query and
+    key_pos = query_pos; ``value`` defaults to ``key``. ``key_padding_mask``
+    (B, K) is True at a padded key, whose logits take ``finfo.min`` as
+    flax's mask fills them. The attention-weight dropout draws one (Q, K)
+    mask shared by every batch element and head (flax's
+    ``broadcast_dropout=True``); the output dropout is elementwise.
+    """
 
     def __init__(self, device, embed_dims=256, num_heads=8, dropout=0.1):
         super().__init__()
@@ -131,18 +155,31 @@ class MultiheadAttention(nn.Module):
         self.dropout = dropout
         self.attn = _InOutProj(embed_dims, device)
 
-    def forward(self, query, query_pos=None, generator=None):
+    def forward(self, query, key=None, value=None, query_pos=None,
+                key_pos=None, key_padding_mask=None, generator=None):
+        if key is None:
+            key, key_pos = query, query_pos
+        if value is None:
+            value = key
         B, Q, C = query.shape
+        K = key.shape[1]
         H = self.num_heads
         Dh = C // H
-        qk_in = query + query_pos if query_pos is not None else query
+        q_in = query + query_pos if query_pos is not None else query
+        k_in = key + key_pos if key_pos is not None else key
         wq, wk, wv = self.attn.in_proj_weight.chunk(3)
         bq, bk, bv = self.attn.in_proj_bias.chunk(3)
-        q = F.linear(qk_in, wq, bq).reshape(B, Q, H, Dh) / math.sqrt(Dh)
-        k = F.linear(qk_in, wk, bk).reshape(B, Q, H, Dh)
-        v = F.linear(query, wv, bv).reshape(B, Q, H, Dh)
-        attn = torch.einsum("bqhd,bkhd->bhqk", q, k).softmax(-1)
-        attn = dropout(attn, self.dropout, self.training, generator)
+        q = F.linear(q_in, wq, bq).reshape(B, Q, H, Dh) / math.sqrt(Dh)
+        k = F.linear(k_in, wk, bk).reshape(B, K, H, Dh)
+        v = F.linear(value, wv, bv).reshape(B, K, H, Dh)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        if key_padding_mask is not None:
+            logits = logits.masked_fill(key_padding_mask[:, None, None, :],
+                                        torch.finfo(logits.dtype).min)
+        attn = logits.softmax(-1)
+        if self.training and self.dropout > 0.0:
+            attn = attn * broadcast_keep(attn.shape[-2:], self.dropout,
+                                         generator, attn)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, Q, C)
         return query + dropout(self.attn.out_proj(out), self.dropout,
                                self.training, generator)
@@ -208,8 +245,8 @@ class DecoderLayer(nn.Module):
 
     def forward(self, query, query_pos, memory, reference_points,
                 spatial_shapes, key_padding_mask, generator=None):
-        query = self.norms[0](self.attentions[0](query, query_pos,
-                                                 generator))
+        query = self.norms[0](self.attentions[0](
+            query, query_pos=query_pos, generator=generator))
         query = self.attentions[1](query, memory, query_pos,
                                    reference_points, spatial_shapes,
                                    key_padding_mask, generator)

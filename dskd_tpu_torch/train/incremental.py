@@ -42,11 +42,10 @@ from ..data.coco import TaskCocoDataset
 from ..data.loader import DataLoader
 from ..data.pipeline import PipelineConfig
 from ..eval import evaluator
-from ..models.detector import build_detector, init_weights
+from ..registry import get_family
 from ..utils.config import ExperimentConfig
 from ..utils.logging import MetricsLogger, collect_env, dump_config
 from ..utils.seed import init_random_seed, set_random_seed
-from ..utils.weights import state_dict_from_jax
 from . import family
 from .checkpoint import find_latest_checkpoint, load_weights, \
     save_checkpoint
@@ -69,29 +68,31 @@ def resolve_device(device) -> torch.device:
 
 
 def build_model(cfg: ExperimentConfig, device="cuda") -> nn.Module:
-    """The detector of ``cfg.model`` on ``device``; with
-    ``cfg.train.use_dropout`` False its dropout rate is 0."""
+    """The detector of ``cfg.model`` on ``device``, built by its family's
+    registry ``build``; with ``cfg.train.use_dropout`` False its dropout
+    rate is 0."""
     m = cfg.model
     if m.teacher_depth and m.teacher_depth != m.depth:
         raise NotImplementedError("model.teacher_depth (a teacher of another "
                                   "depth) is not ported")
     if not cfg.train.use_dropout:
         m = dataclasses.replace(m, dropout=0.0)
-    return build_detector(m, torch.device(device))
+    return get_family(m.arch)["build"](m, torch.device(device))
 
 
 def init_variables(model: nn.Module, cfg: ExperimentConfig, seed: int,
                    variables: Optional[Dict[str, Any]] = None) -> nn.Module:
-    """Seeded random weights (``models.detector.init_weights``), or the JAX
-    package's ``{"params", "batch_stats"}`` tree ``variables`` through
-    ``utils.weights.state_dict_from_jax``; in place."""
+    """Seeded random weights (the family's ``init_weights``), or the JAX
+    package's ``{"params", "batch_stats"}`` tree ``variables`` through the
+    family's ``from_jax``; in place."""
     if cfg.model.backbone_ckpt:
         raise NotImplementedError("model.backbone_ckpt (ResNet weights from "
                                   "a file) is not ported")
+    spec = get_family(cfg.model.arch)
     if variables is None:
-        init_weights(model, seed)
+        spec["init_weights"](model, seed)
     else:
-        model.load_state_dict(state_dict_from_jax(variables), strict=True)
+        model.load_state_dict(spec["from_jax"](variables), strict=True)
     return model
 
 

@@ -1,6 +1,8 @@
 """The incremental train step, teacher + student (port of
 dskd_tpu/train/step.py ``teacher_info``, ``compute_losses``,
-``parse_losses`` and ``make_train_step``).
+``parse_losses`` and ``make_train_step``, and of
+dskd_tpu/train/family.py ``_jit_family_step`` as ``make_generic_step``,
+which every family's step runs on).
 
 One step: the frozen teacher's forward under ``no_grad`` -> the student's
 forward with dropout -> the merged-GT ("hard + teacher-first") Hungarian
@@ -108,23 +110,17 @@ def parse_losses(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
     return sum(v for k, v in losses.items() if "loss" in k)
 
 
-def make_train_step(det_cfg: DetLossConfig,
-                    distill_cfg: Optional[DistillConfig] = None,
-                    teacher_score_thr: float = 0.3,
-                    teacher_max_per_img: int = 100,
-                    compute_dtype: torch.dtype = torch.float32) -> Callable:
-    """Build ``train_step(state, batch, teacher=None) -> (state, losses)``;
-    ``teacher=None`` trains without distillation. Dropout draws from
-    ``state.generator``; the model's dropout p = 0 turns it off."""
+def make_generic_step(losses_fn: Callable) -> Callable:
+    """``losses_fn(model, batch, teacher, generator) -> losses`` as a train
+    step ``(state, batch, teacher=None) -> (state, losses)``: the losses,
+    their sum (``parse_losses``), the backward, the optimizer's clip and
+    AdamW at the update count, and the count + 1 (the port of JAX's
+    ``train/family.py _jit_family_step``). Dropout draws from
+    ``state.generator``."""
 
     def train_step(state: TrainState, batch: Batch,
                    teacher: Optional[nn.Module] = None):
-        tinfo = None if teacher is None else teacher_info(
-            teacher, batch, det_cfg, teacher_score_thr, teacher_max_per_img,
-            compute_dtype)
-        losses, _ = compute_losses(state.model, batch, det_cfg, tinfo,
-                                   distill_cfg, state.generator,
-                                   compute_dtype)
+        losses = losses_fn(state.model, batch, teacher, state.generator)
         total = parse_losses(losses)
         state.optimizer.zero_grad()
         total.backward()
@@ -135,3 +131,23 @@ def make_train_step(det_cfg: DetLossConfig,
         return state, losses
 
     return train_step
+
+
+def make_train_step(det_cfg: DetLossConfig,
+                    distill_cfg: Optional[DistillConfig] = None,
+                    teacher_score_thr: float = 0.3,
+                    teacher_max_per_img: int = 100,
+                    compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """Build ``train_step(state, batch, teacher=None) -> (state, losses)``;
+    ``teacher=None`` trains without distillation. Dropout draws from
+    ``state.generator``; the model's dropout p = 0 turns it off."""
+
+    def losses_fn(model, batch, teacher, generator):
+        tinfo = None if teacher is None else teacher_info(
+            teacher, batch, det_cfg, teacher_score_thr, teacher_max_per_img,
+            compute_dtype)
+        losses, _ = compute_losses(model, batch, det_cfg, tinfo,
+                                   distill_cfg, generator, compute_dtype)
+        return losses
+
+    return make_generic_step(losses_fn)

@@ -103,7 +103,7 @@ def test_hungarian_assign_matches_jax(Q, G):
     cost = gfl_match_cost(t[0], t[1], t[2], t[3], t[5])
     np.testing.assert_allclose(cost.numpy(), np.asarray(want_cost),
                                rtol=1e-5, atol=1e-5)
-    got = hungarian_assign(cost, t[4], t[3])
+    got = hungarian_assign(cost, t[4], t[3], solver="auction")
     for name in ("assigned_gt", "assigned_labels", "pos_mask", "num_pos",
                  "num_fallback"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),

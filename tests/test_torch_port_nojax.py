@@ -6,8 +6,11 @@ train step, imports every module of the port, runs the
 ``dskd_tpu_torch.tools.train_increment`` CLI (two tasks with eval and
 checkpoints on a synthetic COCO, tiny model, ``--device cpu``), the
 ``dskd_tpu_torch.tools.test`` CLI on its last checkpoint, a one-step
-forgetting A/B (``tools/ab_forgetting.py``) and a JV assignment, and
-reports which modules it loaded."""
+forgetting A/B (``tools/ab_forgetting.py``) and a JV assignment, then
+loads ``configs/detr_40_40_il.py``, cut to a tiny size, runs one DETR-IL
+family step with a teacher, the ``train_increment`` CLI on DETR for two
+tasks and the ``test`` CLI on its last checkpoint, and reports which modules
+it loaded."""
 import json
 import os
 import subprocess
@@ -79,6 +82,27 @@ sys.argv = ["train_increment", cfg_file, "--work-dir", work, "--seed", "1",
 runpy.run_module("dskd_tpu_torch.tools.train_increment", run_name="__main__")
 rows = [json.loads(l) for f in glob.glob(os.path.join(work, "*.log.json"))
         for l in open(f)]
+# DETR-IL: its config, one family step with a teacher, and the CLI
+from dskd_tpu_torch.train.family import make_family_train_step
+from dskd_tpu_torch.train.incremental import build_model, init_variables
+detr = load_config("configs/detr_40_40_il.py")
+dcfg = dataclasses.replace(detr, model=dataclasses.replace(
+    detr.model, num_classes=8, num_query=12, depth=18, num_encoder_layers=1,
+    num_decoder_layers=1))
+dmodel = init_variables(build_model(dcfg, "cpu"), dcfg, 0)
+dstate = TrainState.create(dmodel, make_optimizer(dmodel, step_lr_schedule(
+    1e-4)), seed=0)
+dstep = make_family_train_step("detr", dmodel, dcfg, 4, True)
+dstate, dlosses = dstep(dstate, batch, frozen_copy(dmodel))
+dwork = os.path.join(root, "detr")
+sys.argv = ["train_increment", "configs/detr_40_40_il.py", "--work-dir",
+            dwork, "--seed", "1", "--device", "cpu", "--set", *sets]
+runpy.run_module("dskd_tpu_torch.tools.train_increment", run_name="__main__")
+drows = [json.loads(l) for f in glob.glob(os.path.join(dwork, "*.log.json"))
+         for l in open(f)]
+from dskd_tpu_torch.tools import test as test_cli
+dstats = test_cli.main(["configs/detr_40_40_il.py", "--work-dir", dwork,
+                        "--device", "cpu", "--set", *sets])
 from dskd_tpu_torch.core.matching import hungarian_assign
 from dskd_tpu_torch.tools.ab_forgetting import run_forgetting_ab
 ab = run_forgetting_ab(1, 1, n_eval=2, device="cpu",
@@ -96,6 +120,14 @@ print(json.dumps({
     "dets": len(json.load(open(out))),
     "ab": sorted(k for k, v in ab.items() if np.isfinite(v)),
     "jv_pos": int(jv.pos_mask.sum()),
+    "detr": [detr.model.arch, detr.model.num_query,
+             detr.distill.cates_distill, detr.distill.feats_distill],
+    "detr_step": sorted(k for k, v in dlosses.items()
+                        if bool(torch.isfinite(v))),
+    "detr_ckpts": sorted(os.path.basename(p) for p in
+                         glob.glob(os.path.join(dwork, "task_*"))),
+    "detr_rows": sorted((r["mode"], r["task"]) for r in drows),
+    "detr_map": 0.0 <= dstats["bbox_mAP"] <= 1.0,
     "trained": bool(torch.isfinite(losses["loss"])),
     "n_images": len(res), "n_classes": len(res[0]),
     "shapes_ok": all(r.ndim == 2 and r.shape[1] == 5 for per in res
@@ -131,3 +163,10 @@ def test_port_slice_imports_no_jax():
         "finetune_old", "finetune_new", "task1_ms", "distill_ms",
         "finetune_ms", "wall_s"])
     assert report["jv_pos"] == 10
+    assert report["detr"] == ["detr", 100, "hard + soft", "kldv"]
+    assert report["detr_step"] == ["loss", "loss_bbox", "loss_cls",
+                                   "loss_fd", "loss_iou", "loss_kd"]
+    assert report["detr_ckpts"] == ["task_1_epoch_1", "task_2_epoch_1"]
+    assert [tuple(r) for r in report["detr_rows"]] == [
+        ("train", 1)] * 2 + [("train", 2)] * 2 + [("val", 1), ("val", 2)]
+    assert report["detr_map"]
