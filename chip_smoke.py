@@ -103,7 +103,24 @@ Phases; the first failure raises and the script exits non-zero:
      of one step, one 2+2-layer step against the CPU (losses and four named
      gradients); and the train_increment path for two tasks of 4 steps at
      B=2 with COCO eval after each and the task-2 checkpoint restored by
-     init_detector, through the registry's eval step, bit for bit.
+     init_detector, through the registry's eval step, bit for bit;
+ 11. yolof-il: the YOLOF-IL family (configs/yolof_40_40_il.py: caffe-style
+     ResNet-50, DilatedEncoder, 5 anchors per position, 80 classes, seeded
+     weights, f32) through the same family check as phase 10, which
+     launches none of the port's kernels: serving at B=1 and B=8 (the head
+     outputs against the CPU), three B=8 family steps with a frozen teacher
+     that keeps 100 detections per image above 0.3 ("hard + soft", "bbox",
+     "kldv"; GT padded to 100), their ms/step, img/s, profile and peak
+     memory, the teacher's candidates and NMS survivors with the scan NMS
+     held to the tiled one, the closed-form loss_kd against the literal
+     (N, N) product at B=2, a full-depth B=2 step against the CPU (losses,
+     four named gradients and every BatchNorm running buffer), and the
+     two-task train_increment path, whose task-2 teacher carries task 1's
+     final running buffers and whose task-2 checkpoint restores, buffers
+     included, bit for bit;
+ 12. yoloy-il: the same for YOLOY-IL (configs/yoloy_40_40_il.py: ResNet-18,
+     PAFPN, decoupled head at strides 8-32, 80 classes, "hard + soft" and
+     "kldv"; the (N, N) product at B=2 takes 1.1 GB).
 The last three lines are the card, the kernel report as JSON and the result
 as JSON.
 """
@@ -1764,7 +1781,7 @@ def check_incremental(card, config=CONFIG, sets=(),
         config_from_args
     from dskd_tpu_torch.train import family, incremental
 
-    steps, evals = [], []
+    steps, evals, teachers = [], [], []
     make_step, evaluate = family.make_family_train_step, evaluator.evaluate
 
     def counted_step(arch, model, cfg, num_prev, has_teacher, **kw):
@@ -1773,6 +1790,10 @@ def check_incremental(card, config=CONFIG, sets=(),
         step = make_step(arch, model, cfg, num_prev, has_teacher, **kw)
 
         def run(state, batch, teacher=None):
+            if teacher is not None and not teachers:
+                # the buffers it starts the task with
+                teachers.append({k: v.clone() for k, v in
+                                 teacher.state_dict().items()})
             start = read_counts()
             t0 = time.perf_counter()
             state, losses = step(state, batch, teacher)
@@ -1890,10 +1911,29 @@ def check_incremental(card, config=CONFIG, sets=(),
         finally:
             loader.close()
 
-        # the task-2 checkpoint restores to the final model's detections,
-        # through the family registry's eval step
+        # the task-2 teacher is task 1's final student, BatchNorm running
+        # buffers included (the task-1 checkpoint holds that student)
+        task1 = torch.load(os.path.join(work, "task_1_epoch_1",
+                                        "checkpoint.pth"),
+                           map_location="cpu", weights_only=True)["model"]
+        bufs = [k for k in task1 if k.endswith(("running_mean",
+                                                "running_var"))]
+        for k in bufs:
+            if not torch.equal(teachers[0][k].cpu(), task1[k]):
+                raise AssertionError(f"incremental: the task-2 teacher's "
+                                     f"{k} is not task 1's final student's")
+        print(f"incremental: the task-2 teacher's {len(bufs)} BatchNorm "
+              f"running buffers equal task 1's final student's bit for bit")
+
+        # the task-2 checkpoint restores to the final model's buffers and
+        # detections, through the family registry's eval step
         ckpt = os.path.join(work, f"task_{len(cfg.data.catsplit)}_epoch_1")
         restored, _ = init_detector(cfg, ckpt, device=DEVICE)
+        final_sd, restored_sd = model.state_dict(), restored.state_dict()
+        for k in bufs:
+            if not torch.equal(final_sd[k], restored_sd[k]):
+                raise AssertionError(f"incremental: the restored "
+                                     f"checkpoint's {k} differs")
         imgs = [load_image(os.path.join(val_dir, f"val_{i:04d}.png"))
                 for i in range(2)]
         batch = prepare_batch(cfg, imgs, DEVICE)
@@ -1908,7 +1948,8 @@ def check_incremental(card, config=CONFIG, sets=(),
                 raise AssertionError(f"incremental: the restored "
                                      f"checkpoint's {name} differ")
         print(f"incremental: init_detector({os.path.basename(ckpt)}) gives "
-              f"the final model's detections bit for bit on "
+              f"the final model's {len(bufs)} running buffers and its "
+              f"detections bit for bit on "
               f"{len(imgs)} val images ({int(got.valid.sum())} valid "
               f"detections) [{card}]")
     return launches
@@ -2098,17 +2139,23 @@ def check_distill_menu(cfg, card):
 
 # --- DETR-IL -------------------------------------------------------------
 
+# --- the families behind the registry: DETR-IL, YOLOF-IL, YOLOY-IL ----------
+
 DETR_CONFIG = os.path.join(ROOT, "configs", "detr_40_40_il.py")
-DETR_HW = (640, 640)                # DETR's one canvas (DataConfig.bucket)
+YOLOF_CONFIG = os.path.join(ROOT, "configs", "yolof_40_40_il.py")
+YOLOY_CONFIG = os.path.join(ROOT, "configs", "yoloy_40_40_il.py")
+DETR_HW = (640, 640)     # the families' one canvas (DataConfig.bucket)
 # valid (h, w) on the canvas: four aspect ratios, so the key mask acts
 DETR_VALID = ((480, 640), (427, 640), (640, 512), (512, 640))
 DETR_INC_SETS = ("data.num_workers=0",)
+BN_TOL = dict(rtol=1e-3, atol=1e-4)     # running buffers after one step
+KD_CLOSED_RTOL = 1e-5    # closed-form loss_kd against the (N, N) product
 
 
-def detr_batch(device, n, hw=DETR_HW):
+def detr_batch(device, n, hw=DETR_HW, max_gt=MAX_GT):
     """n images of the canvas ``hw`` whose valid (h, w) cycle through
-    DETR_VALID (scaled to ``hw``), MAX_GT GT of which 5-29 are valid, in
-    classes 40-79 and inside each image's valid region."""
+    DETR_VALID (scaled to ``hw``), ``max_gt`` GT of which 5-29 are valid,
+    in classes 40-79 and inside each image's valid region."""
     from dskd_tpu_torch.data.batch import Batch
 
     H, W = hw
@@ -2117,13 +2164,13 @@ def detr_batch(device, n, hw=DETR_HW):
     img_hw = np.array([DETR_VALID[i % len(DETR_VALID)] for i in range(n)],
                       np.int32) * np.array([H, W]) // 640
     img_hw = img_hw.astype(np.int32)
-    wh = rng.rand(n, MAX_GT, 2) * 0.3 + 0.05
-    xy = rng.rand(n, MAX_GT, 2) * (1 - wh)
+    wh = rng.rand(n, max_gt, 2) * 0.3 + 0.05
+    xy = rng.rand(n, max_gt, 2) * (1 - wh)
     scale = img_hw[:, None, ::-1].astype(np.float32)
     gt = (np.concatenate([xy, xy + wh], -1) * np.tile(scale, 2)).astype(
         np.float32)
-    labels = rng.randint(40, 80, (n, MAX_GT)).astype(np.int64)
-    valid = np.arange(MAX_GT)[None] < rng.randint(5, 30, (n, 1))
+    labels = rng.randint(40, 80, (n, max_gt)).astype(np.int64)
+    valid = np.arange(max_gt)[None] < rng.randint(5, 30, (n, 1))
     return Batch(*(torch.from_numpy(a) for a in (
         images, img_hw, gt, labels, valid))).to(device)
 
@@ -2150,80 +2197,316 @@ def detr_models(cfg, device, **overrides):
     return student, frozen_copy(teacher)
 
 
+def yolo_models(cfg, device, **overrides):
+    """Student (seed 0) and frozen teacher (seed 1) of a YOLOF or YOLOY
+    config through the family registry. The teacher stands for a model
+    trained on the old classes: its class kernels are 100x wider (the
+    init's logits spread by ~0.01), its old classes' bias is +2, its new
+    classes' -20 and its objectness bias +2 (and YOLOY's boxes are 5
+    strides wide), so that each image keeps ``teacher_max_per_img``
+    old-class detections above the threshold after an NMS that
+    suppresses."""
+    from dskd_tpu_torch.registry import get_family
+    from dskd_tpu_torch.train.state import frozen_copy
+
+    spec = get_family(cfg.model.arch)
+    mcfg = dataclasses.replace(cfg.model, **overrides)
+    student = spec["build"](mcfg, torch.device(device))
+    spec["init_weights"](student, 0)
+    teacher = spec["build"](mcfg, torch.device(device))
+    spec["init_weights"](teacher, 1)
+    n_old, C = cfg.data.catsplit[0], cfg.model.num_classes
+    head = teacher.bbox_head
+    if cfg.model.arch == "yolof":
+        cls_convs, obj_convs = [head.cls_score], [head.object_pred]
+    else:
+        cls_convs = list(head.multi_level_conv_cls)
+        obj_convs = list(head.multi_level_conv_obj)
+    with torch.no_grad():
+        if cfg.model.arch == "yoloy":
+            # boxes 5 strides wide, so that neighbours overlap past the
+            # NMS threshold (at the init's width of one stride they touch)
+            for conv in head.multi_level_conv_reg:
+                conv.bias[2:] = float(np.log(5.0))
+        for conv in cls_convs:
+            conv.weight.mul_(100.0)
+            bias = conv.bias.view(-1, C)        # (anchors, classes)
+            bias[:, :n_old] = 2.0
+            bias[:, n_old:] = -20.0
+        for conv in obj_convs:
+            conv.bias.fill_(2.0)
+    return student, frozen_copy(teacher)
+
+
+def yolo_decode(cfg, out, img_hw, max_per_img):
+    """The family's teacher detections of ``out`` at the config's teacher
+    threshold (JAX's ``*_teacher_out`` path)."""
+    thr = cfg.distill.teacher_score_thr
+    if cfg.model.arch == "yolof":
+        from dskd_tpu_torch.models.yolof_head import yolof_anchors, \
+            yolof_get_bboxes
+        return yolof_get_bboxes(out.head, yolof_anchors(
+            out.head.feat_hw, img_hw.device), img_hw, score_thr=thr,
+            max_per_img=max_per_img)
+    from dskd_tpu_torch.models.yoloy_head import yoloy_get_bboxes
+    return yoloy_get_bboxes(out.head, img_hw, score_thr=thr,
+                            max_per_img=max_per_img)
+
+
+def yolo_scores(cfg, out):
+    """(cls logits (B, N, C), scores (B, N, C)) of a YOLOF or YOLOY
+    forward."""
+    if cfg.model.arch == "yolof":
+        B = out.head.cls_scores.shape[0]
+        cls = out.head.cls_scores.reshape(B, -1, cfg.model.num_classes)
+        return cls, torch.sigmoid(cls)
+    from dskd_tpu_torch.models.yoloy_head import flatten_levels
+    cls, _, obj = flatten_levels(out.head)
+    return cls, torch.sigmoid(cls) * torch.sigmoid(obj)[..., None]
+
+
+def check_yolo_teacher(fam, cfg, card, student, teacher, batch):
+    """The teacher's detections on the B=8 batch: candidates above the
+    threshold, NMS survivors and the kept detections per image, which must
+    fill ``teacher_max_per_img``; the scan NMS (DSKD_NMS_TILED=0) must give
+    the tiled path's detections. Then the closed-form loss_kd against the
+    literal (N, N) product on the card at B=2 (KD_CLOSED_RTOL), and the
+    product's size."""
+    from dskd_tpu_torch.core import losses as L
+    from dskd_tpu_torch.distill.losses import _kept_query_weight
+
+    nms_pre = 1000 if cfg.model.arch == "yolof" else 2000
+    keep_n = cfg.distill.teacher_max_per_img
+    with torch.no_grad():
+        out = teacher(batch.images, batch.img_hw)
+        scores = yolo_scores(cfg, out)[1].flatten(1)
+        cands = (scores > cfg.distill.teacher_score_thr).sum(1).clamp(
+            max=nms_pre)
+        survivors = yolo_decode(cfg, out, batch.img_hw, nms_pre).valid.sum(1)
+        det = yolo_decode(cfg, out, batch.img_hw, keep_n)
+        with switched({"DSKD_NMS_TILED": "0"}):
+            scan = yolo_decode(cfg, out, batch.img_hw, keep_n)
+    print(f"{fam['tag']} teacher: candidates above "
+          f"{cfg.distill.teacher_score_thr} per image (of the top "
+          f"{nms_pre}) {cands.tolist()}, NMS survivors "
+          f"{survivors.tolist()}, kept {det.valid.sum(1).tolist()} [{card}]")
+    if not ((survivors < cands).all() and (det.valid.sum(1) == keep_n)
+            .all()):
+        raise AssertionError(f"{fam['tag']}: the teacher must suppress and "
+                             f"keep {keep_n} detections per image")
+    for name, a, b in zip(det._fields, det, scan):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{fam['tag']}: NMS scan and tiled paths "
+                                 f"differ in {name}")
+    print(f"{fam['tag']} teacher: the scan NMS (DSKD_NMS_TILED=0) gives the "
+          f"tiled path's detections field for field")
+
+    # loss_kd: the closed form against JAX's literal (N, N) product, on the
+    # student's eval-mode outputs (a train-mode forward would move its
+    # running statistics)
+    n = 2
+    two = type(batch)(*(t[:n] if t is not None else None for t in batch))
+    student.eval()
+    with torch.no_grad():
+        t_out = teacher(two.images, two.img_hw)
+        s_out = student(two.images, two.img_hw)
+    student.train()
+    with torch.no_grad():
+        tdet = yolo_decode(cfg, t_out, two.img_hw, keep_n)
+        s_cls, t_cls = (yolo_scores(cfg, o)[0] for o in (s_out, t_out))
+        keep_w = _kept_query_weight(tdet, n, s_cls.shape[1]).reshape(-1)
+        num_keep = tdet.valid.sum().float().clamp(min=1.0)
+        C = cfg.model.num_classes
+        closed = L.kd_kl_div_loss_outer(s_cls.reshape(-1, C),
+                                        t_cls.reshape(-1, C), keep_w,
+                                        num_keep, T=2.0)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        literal = L.kd_kl_div_loss(s_cls.reshape(-1, C), t_cls.reshape(-1, C),
+                                   weight=keep_w[:, None],
+                                   avg_factor=num_keep, T=2.0)
+        extra = torch.cuda.max_memory_allocated() - base
+    rel = float((closed - literal).abs() / literal.abs())
+    N = keep_w.numel()
+    print(f"{fam['tag']} loss_kd at B={n}: closed form {float(closed):.9g} "
+          f"against the literal ({N}, {N}) product {float(literal):.9g}, "
+          f"relative err {rel:.3e} (tolerance {KD_CLOSED_RTOL}); the "
+          f"product took {extra / 2 ** 30:.3f} GiB [{card}]")
+    if not rel <= KD_CLOSED_RTOL:
+        raise AssertionError(f"{fam['tag']}: closed-form loss_kd differs "
+                             f"from the product by {rel}")
+
+
 DETR_GRAD_PARAMS = (
     "bbox_head.input_proj.weight",
     "bbox_head.transformer.decoder.layers.1.attentions.1.attn."
     "in_proj_weight",
     "bbox_head.fc_cls.weight",
     "bbox_head.query_embedding.weight")
+YOLOF_GRAD_PARAMS = (
+    "neck.lateral_conv.weight",
+    "neck.dilated_encoder_blocks.1.conv2.conv.weight",
+    "bbox_head.cls_score.weight",
+    "bbox_head.bbox_subnet.3.bn.weight")
+YOLOY_GRAD_PARAMS = (
+    "neck.reduce_layers.0.conv.weight",
+    "neck.bottom_up_blocks.1.final_conv.conv.weight",
+    "bbox_head.multi_level_conv_cls.0.weight",
+    "bbox_head.multi_level_reg_convs.2.1.bn.weight")
 
 
-def check_detr_card_vs_cpu(cfg, card, n=2):
-    """One DETR-IL step's losses and DETR_GRAD_PARAMS at 2+2 layers, B=n,
-    f32, dropout 0, card against CPU (LOSS_TOL, GRAD_REL_TOL), through the
-    registry's losses_fn."""
+def _detr_jv_hooks():
+    """Phase 10's per-step note and check: the JV solves of each step."""
+    solves = []
+
+    def note():
+        cost, _, jv_ms = solves[-1]
+        return (f"; JV solve {jv_ms:.3f} ms of host time for "
+                f"{cost.shape[0]} problems of {cost.shape[1]} x "
+                f"{cost.shape[2]} (rows x columns)")
+
+    def after(cfg):
+        _, rows, cols = solves[-1][0].shape
+        if not cols > rows == cfg.model.num_query:
+            raise AssertionError(f"detr-il: JV solved {rows} x {cols}: the "
+                                 f"merged GT should outnumber the queries")
+        return f"; merged GT {cols} > {rows} queries: JV with queries as rows"
+
+    return timed_jv(solves), note, after
+
+
+def _yolo_heads(cfg, out):
+    if cfg.model.arch == "yolof":
+        return {"cls_scores": out.head.cls_scores,
+                "bbox_preds": out.head.bbox_preds}
+    from dskd_tpu_torch.models.yoloy_head import flatten_levels
+    return dict(zip(("cls_scores", "bbox_preds", "objectnesses"),
+                    flatten_levels(out.head)))
+
+
+FAMILIES = {
+    "detr": dict(
+        tag="detr-il", models=detr_models, grad_params=DETR_GRAD_PARAMS,
+        describe=lambda m: (f"ResNet-{m.depth}, {m.num_encoder_layers}+"
+                            f"{m.num_decoder_layers} layers, {m.num_query} "
+                            f"queries"),
+        heads=lambda cfg, out: {"cls_scores": out.cls_scores[-1],
+                                "bbox_preds": out.bbox_preds[-1]},
+        n_dets=lambda cfg: min(cfg.test_max_per_img, cfg.model.num_query),
+        max_gt=lambda cfg: MAX_GT, hooks=_detr_jv_hooks,
+        small=dict(num_encoder_layers=2, num_decoder_layers=2, dropout=0.0),
+        small_note="2+2 layers, ", vs_cpu_dtype=torch.float32,
+        train_checks=None),
+    "yolof": dict(
+        tag="yolof-il", models=yolo_models, grad_params=YOLOF_GRAD_PARAMS,
+        describe=lambda m: (f"caffe-style ResNet-{m.depth}, DilatedEncoder, "
+                            f"5 anchors per position"),
+        heads=_yolo_heads, n_dets=lambda cfg: cfg.test_max_per_img,
+        max_gt=lambda cfg: cfg.data.max_gt, hooks=None, small={},
+        small_note="", vs_cpu_dtype=torch.float64,
+        train_checks=check_yolo_teacher),
+    "yoloy": dict(
+        tag="yoloy-il", models=yolo_models, grad_params=YOLOY_GRAD_PARAMS,
+        describe=lambda m: (f"ResNet-{m.depth}, PAFPN, decoupled head at "
+                            f"strides 8-32"),
+        heads=_yolo_heads, n_dets=lambda cfg: cfg.test_max_per_img,
+        max_gt=lambda cfg: cfg.data.max_gt, hooks=None, small={},
+        small_note="", vs_cpu_dtype=torch.float32,
+        train_checks=check_yolo_teacher),
+}
+
+
+def check_family_card_vs_cpu(fam, cfg, card, n=2):
+    """One family step's losses, named gradients and BatchNorm running
+    buffers at B=n, dropout 0, card against CPU (LOSS_TOL, GRAD_REL_TOL,
+    BN_TOL), through the registry's losses_fn: DETR at 2+2 layers and
+    YOLOY at full depth in f32; YOLOF at full depth in f64, because its
+    neck gradients are decided in f32 only to ~1e-2 relative at the init
+    (on the CPU alone, 1 thread against 8 moves them by 2e-3-8e-3
+    relative L2 at 320x320, and by 1e-14 in f64)."""
     from dskd_tpu_torch.registry import get_family
     from dskd_tpu_torch.train.step import parse_losses
 
-    small = dict(num_encoder_layers=2, num_decoder_layers=2, dropout=0.0)
-    losses_fn = get_family("detr")["losses"](
+    losses_fn = get_family(cfg.model.arch)["losses"](
         None, cfg, num_prev=cfg.data.catsplit[0], has_teacher=True,
         use_dropout=False)
+    dtype = fam["vs_cpu_dtype"]
     out = {}
     for dev in (DEVICE, "cpu"):
-        student, teacher = detr_models(cfg, dev, **small)
+        student, teacher = (mdl.to(dtype) for mdl in fam["models"](
+            cfg, dev, **fam["small"]))
         student.train()
-        losses = losses_fn(student, detr_batch(dev, n), teacher, None)
+        batch = detr_batch(dev, n, DETR_HW, fam["max_gt"](cfg))
+        batch = type(batch)(*(t.to(dtype) if t is not None and
+                              t.is_floating_point() else t for t in batch))
+        losses = losses_fn(student, batch, teacher, None)
         parse_losses(losses).backward()
         params = dict(student.named_parameters())
         out[dev] = ({k: v.detach().cpu() for k, v in losses.items()},
-                    {k: params[k].grad.cpu() for k in DETR_GRAD_PARAMS})
-    (losses, grads), (c_losses, c_grads) = out[DEVICE], out["cpu"]
+                    {k: params[k].grad.cpu() for k in fam["grad_params"]},
+                    {k: v.cpu() for k, v in student.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))})
+    (losses, grads, bufs), (c_losses, c_grads, c_bufs) = out[DEVICE], \
+        out["cpu"]
+    tag = fam["tag"]
     loss_err = {}
     for k, v in c_losses.items():
         torch.testing.assert_close(losses[k], v, **LOSS_TOL, msg=k)
         loss_err[k] = float((losses[k] - v).abs())
-    print(f"detr-il card vs CPU (2+2 layers, B={n}): {len(loss_err)} loss "
-          f"keys within {LOSS_TOL}, largest abs err "
+    print(f"{tag} card vs CPU ({fam['small_note']}B={n}, {dtype}): "
+          f"{len(loss_err)} "
+          f"loss keys within {LOSS_TOL}, largest abs err "
           f"{max(loss_err.values()):.3e} ({max(loss_err, key=loss_err.get)})"
           f" [{card}]")
     bad = {}
-    for k in DETR_GRAD_PARAMS:
+    for k in fam["grad_params"]:
         rel = float((grads[k] - c_grads[k]).norm() / c_grads[k].norm())
-        print(f"detr-il card vs CPU: grad {k}: relative L2 err {rel:.3e} "
+        print(f"{tag} card vs CPU: grad {k}: relative L2 err {rel:.3e} "
               f"(tolerance {GRAD_REL_TOL})")
         if not rel <= GRAD_REL_TOL:
             bad[k] = rel
     if bad:
-        raise AssertionError(f"detr-il: gradients differ card vs CPU: {bad}")
+        raise AssertionError(f"{tag}: gradients differ card vs CPU: {bad}")
+    buf_err = {k: float((bufs[k] - v).abs().max()) for k, v in c_bufs.items()}
+    for k, v in c_bufs.items():
+        torch.testing.assert_close(bufs[k], v, **BN_TOL, msg=k)
+    print(f"{tag} card vs CPU: {len(buf_err)} BatchNorm running buffers "
+          f"after the step within {BN_TOL}, largest abs err "
+          f"{max(buf_err.values()):.3e} ({max(buf_err, key=buf_err.get)})")
 
 
-def check_detr(card, config=DETR_CONFIG, sets=(), n_train=None, hw=DETR_HW,
-               inc_kw=None):
-    """Phase 10: the DETR-IL family through the registry at the config's
-    width and depth (ResNet-50, 6+6 layers, 100 queries, 80 classes), f32,
-    TF32 off, seeded weights. Serving: the registry's eval step at B=1 and
-    B=8 on the canvas, images of four aspect ratios, finite outputs, the
-    last layer's head outputs against the CPU (HEAD_TOL), ms/image. Train:
-    the family step with a frozen teacher ("hard + soft" + "kldv", JV) at
-    the config's samples_per_device, GT padded to MAX_GT: three steps with
-    dropout 0.1 (ms/step, img/s, the host ms of the JV solves), a 2+2-layer
-    step against the CPU, a profile of one step. Every run of the path is
+def check_family(card, arch, config, sets=(), n_train=None, hw=DETR_HW,
+                 inc_kw=None):
+    """Phases 10-12: one family of the registry (FAMILIES) at the config's
+    width and depth, f32, TF32 off, seeded weights. Serving: the registry's
+    eval step at B=1 and B=8 on the canvas, images of four aspect ratios,
+    finite outputs, the head outputs against the CPU (HEAD_TOL), ms/image.
+    Train: the family step with a frozen teacher and the config's distills
+    at its samples_per_device, GT padded to the family's max_gt: three
+    steps (ms/step, img/s), a profile of one step (device busy, idle share,
+    launches), the peak memory of one step, the family's own checks (the
+    teacher's detections and NMS paths and the closed-form loss_kd for
+    YOLOF and YOLOY) and a step against the CPU. Every run of the path is
     held to no launch of the port's kernels. Incremental: the
     train_increment CLI's path for two tasks of 4 steps at B=2, eval after
-    each, the task-2 checkpoint restored bit for bit."""
+    each, the task-2 teacher's BatchNorm buffers those of task 1's final
+    student, and the task-2 checkpoint restored bit for bit."""
     from dskd_tpu_torch.apis.inference import init_detector, prepare_batch
     from dskd_tpu_torch.eval.evaluator import make_eval_step
     from dskd_tpu_torch.train.family import make_family_train_step
     from dskd_tpu_torch.utils.config import apply_overrides, load_config
 
+    fam = FAMILIES[arch]
+    tag = fam["tag"]
     cfg = apply_overrides(load_config(config), list(sets))
-    m = cfg.model
-    print(f"detr-il: {os.path.relpath(config, ROOT)}: arch {m.arch}, "
-          f"ResNet-{m.depth}, {m.num_encoder_layers}+{m.num_decoder_layers} "
-          f"layers, {m.num_query} queries, {m.num_classes} classes, "
-          f"distill {cfg.distill.cates_distill!r} + "
-          f"{cfg.distill.feats_distill!r} [{card}]")
+    m, d = cfg.model, cfg.distill
+    if m.arch != arch:
+        raise AssertionError(f"{config} builds {m.arch}, not {arch}")
+    flags = " + ".join(repr(f) for f in (d.cates_distill, d.locat_distill,
+                                         d.feats_distill) if f)
+    print(f"{tag}: {os.path.relpath(config, ROOT)}: arch {m.arch}, "
+          f"{fam['describe'](m)}, {m.num_classes} classes, distill {flags} "
+          f"[{card}]")
     none = dict.fromkeys(counters(), 0)
 
     # serving
@@ -2239,28 +2522,27 @@ def check_detr(card, config=DETR_CONFIG, sets=(), n_train=None, hw=DETR_HW,
     for bsz, batch in batches.items():
         det = step(*batch)
         if not all(bool(torch.isfinite(t.float()).all()) for t in det):
-            raise AssertionError(f"detr-il serve B={bsz}: non-finite output")
-        if tuple(det.bboxes.shape) != (bsz, min(cfg.test_max_per_img,
-                                                m.num_query), 4):
-            raise AssertionError(f"detr-il serve: boxes {det.bboxes.shape}")
+            raise AssertionError(f"{tag} serve B={bsz}: non-finite output")
+        if tuple(det.bboxes.shape) != (bsz, fam["n_dets"](cfg), 4):
+            raise AssertionError(f"{tag} serve: boxes {det.bboxes.shape}")
     if read_counts() != none:
-        raise AssertionError(f"detr-il serve launched {read_counts()}")
+        raise AssertionError(f"{tag} serve launched {read_counts()}")
     images, img_hw, _ = batches[8]
-    print(f"detr-il serve: canvas {tuple(images.shape[1:3])}, valid (h, w) "
+    print(f"{tag} serve: canvas {tuple(images.shape[1:3])}, valid (h, w) "
           f"{img_hw.tolist()}; outputs finite at B=1 and B=8; no launch of "
           f"the port's kernels")
     cpu_model, _ = init_detector(cfg, device="cpu", seed=0)
     with torch.inference_mode():
-        out = model(images, img_hw)
-        ref = cpu_model(images.cpu(), img_hw.cpu())
+        got_heads = fam["heads"](cfg, model(images, img_hw))
+        want_heads = fam["heads"](cfg, cpu_model(images.cpu(), img_hw.cpu()))
     errs = {}
-    for name in ("cls_scores", "bbox_preds"):
-        got, want = getattr(out, name)[-1].cpu(), getattr(ref, name)[-1]
+    for name, want in want_heads.items():
+        got = got_heads[name].cpu()
         torch.testing.assert_close(got, want, **HEAD_TOL)
         errs[name] = float((got - want).abs().max())
     del cpu_model
-    print(f"detr-il serve: card vs CPU head outputs, last layer, B=8, max "
-          f"abs err {errs} (tolerance {HEAD_TOL})")
+    print(f"{tag} serve: card vs CPU head outputs, B=8, max abs err {errs} "
+          f"(tolerance {HEAD_TOL})")
     for bsz, batch in batches.items():
         for _ in range(2):
             step(*batch)
@@ -2270,22 +2552,24 @@ def check_detr(card, config=DETR_CONFIG, sets=(), n_train=None, hw=DETR_HW,
             step(*batch)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / 5 * 1e3
-        print(f"  detr-il serve B={bsz}: eval step {ms / bsz:.3f} ms/image "
+        print(f"  {tag} serve B={bsz}: eval step {ms / bsz:.3f} ms/image "
               f"({ms:.3f} ms/batch; host clock around synchronised calls, "
               f"f32) [{card}]")
     del model
 
     # training
     n = n_train or cfg.data.samples_per_device
-    student, teacher = detr_models(cfg, DEVICE)
+    student, teacher = fam["models"](cfg, DEVICE)
     state = train_state(cfg, student)
     train = make_family_train_step(m.arch, student, cfg,
                                    num_prev=cfg.data.catsplit[0],
                                    has_teacher=True)
-    batch = detr_batch(DEVICE, n, hw)
-    solves = []
+    batch = detr_batch(DEVICE, n, hw, fam["max_gt"](cfg))
+    ctx, note, after = (fam["hooks"]() if fam["hooks"] else
+                        (contextlib.nullcontext(), lambda: "",
+                         lambda cfg: ""))
     reset_counts()
-    with timed_jv(solves):
+    with ctx:
         for i in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2294,35 +2578,45 @@ def check_detr(card, config=DETR_CONFIG, sets=(), n_train=None, hw=DETR_HW,
             ms = (time.perf_counter() - t0) * 1e3
             bad = {k: v for k, v in losses.items() if not torch.isfinite(v)}
             if bad:
-                raise AssertionError(f"detr-il train: non-finite {bad}")
-            cost, _, jv_ms = solves[-1]
-            print(f"  detr-il train f32 B={n} {hw[0]}x{hw[1]} step {i}: "
+                raise AssertionError(f"{tag} train: non-finite {bad}")
+            print(f"  {tag} train f32 B={n} {hw[0]}x{hw[1]} step {i}: "
                   f"{ms:.3f} ms/step, {n / ms * 1e3:.3f} img/s, loss "
                   f"{float(losses['loss']):.5f} (cls "
                   f"{float(losses['loss_cls']):.5f}, kd "
                   f"{float(losses['loss_kd']):.6f}, fd "
-                  f"{float(losses['loss_fd']):.6f}); JV solve {jv_ms:.3f} "
-                  f"ms of host time for {cost.shape[0]} problems of "
-                  f"{cost.shape[1]} x {cost.shape[2]} (rows x columns) "
-                  f"[{card}]")
+                  f"{float(losses['loss_fd']):.6f}){note()} [{card}]")
     launched = read_counts()
     if launched != none:
-        raise AssertionError(f"detr-il train launched {launched}")
-    _, rows, cols = solves[-1][0].shape
-    if not cols > rows == m.num_query:
-        raise AssertionError(f"detr-il: JV solved {rows} x {cols}: the "
-                             f"merged GT should outnumber the queries")
-    print(f"detr-il train: {len(losses)} loss keys, no launch of the port's "
-          f"kernels in 3 steps; merged GT {cols} > {rows} queries: JV with "
-          f"queries as rows")
+        raise AssertionError(f"{tag} train launched {launched}")
+    print(f"{tag} train: {len(losses)} loss keys {sorted(losses)}, no "
+          f"launch of the port's kernels in 3 steps{after(cfg)}")
     profile(lambda: train(state, batch, teacher),
-            f"one detr-il B={n} f32 train step")
+            f"one {tag} B={n} f32 train step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train(state, batch, teacher)
+    torch.cuda.synchronize()
+    print(f"{tag} train: peak memory of one B={n} step "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated) [{card}]")
+    if fam["train_checks"]:
+        fam["train_checks"](fam, cfg, card, student, teacher, batch)
+    if read_counts() != none:
+        raise AssertionError(f"{tag} train launched {read_counts()}")
     del state, student, teacher, train
-    check_detr_card_vs_cpu(cfg, card)
+    check_family_card_vs_cpu(fam, cfg, card)
 
     # run_incremental through the train_increment CLI's config path
     check_incremental(card, config, sets=(*sets, *DETR_INC_SETS),
                       **(inc_kw or {}))
+
+
+def check_detr(card, config=DETR_CONFIG, sets=(), n_train=None, hw=DETR_HW,
+               inc_kw=None):
+    """Phase 10: the DETR-IL family (ResNet-50, 6+6 layers, 100 queries,
+    80 classes, exact JV on the 100 queries x 132 merged GT, dropout 0.1)
+    through check_family."""
+    check_family(card, "detr", config, sets, n_train, hw, inc_kw)
 
 
 def main() -> int:
@@ -2340,7 +2634,7 @@ def main() -> int:
     print("TF32 off for matmuls and convolutions: every f32 comparison and "
           "time below is full f32")
 
-    for k in SWITCH_VARS:
+    for k in (*SWITCH_VARS, "DSKD_NMS_TILED", "DSKD_NMS_TILE"):
         if os.environ.pop(k, None) is not None:
             print(f"{k} was set; unset it: the default path comes first")
 
@@ -2444,6 +2738,12 @@ def main() -> int:
     t10 = time.perf_counter()
     check_detr(card)
     print(f"detr-il: phase 10 took {time.perf_counter() - t10:.1f} s")
+    for phase, arch, config in ((11, "yolof", YOLOF_CONFIG),
+                                (12, "yoloy", YOLOY_CONFIG)):
+        t0 = time.perf_counter()
+        check_family(card, arch, config)
+        print(f"{FAMILIES[arch]['tag']}: phase {phase} took "
+              f"{time.perf_counter() - t0:.1f} s")
 
     bwd_key = f"gather_weighted_bwd f32 Q={Q_TRAIN} 640x480"
     gw_key = f"gather_weighted f32 Q={Q_ENC}"

@@ -3,8 +3,10 @@ dskd_tpu/core/losses.py ``weight_reduce_loss``,
 ``binary_cross_entropy_with_logits``, ``l1_loss``, ``smooth_l1_loss``,
 ``mse_loss``, ``giou_loss``, ``iou_loss``, ``diou_loss``, ``ciou_loss``,
 ``quality_focal_loss``, ``distribution_focal_loss``, ``kd_kl_div_loss``,
-``sigmoid_focal_loss``, ``gaussian_focal_loss``, ``varifocal_loss`` and
-``cross_entropy_loss``).
+``sigmoid_focal_loss``, ``gaussian_focal_loss``, ``varifocal_loss``,
+``cross_entropy_loss`` and ``square_iou_loss``), plus
+``kd_kl_div_loss_outer``, the port's closed form of one broadcast of
+``kd_kl_div_loss``.
 
 Every loss is ``loss(pred, target, weight=None, reduction='mean',
 avg_factor=None)``: the elementwise loss is multiplied by ``weight``; without
@@ -91,6 +93,13 @@ def iou_loss(pred, target, eps: float = 1e-6, linear: bool = True):
     ious = bbox_overlaps(pred, target, mode="iou", is_aligned=True,
                          eps=eps).clamp(min=eps)
     return 1 - ious if linear else -torch.log(ious)
+
+
+@_weighted
+def square_iou_loss(pred, target, eps: float = 1e-16):
+    """1 - IoU^2 of aligned xyxy boxes (YOLOX's IoULoss(mode='square'))."""
+    ious = bbox_overlaps(pred, target, mode="iou", is_aligned=True, eps=eps)
+    return 1.0 - ious * ious
 
 
 def _diou_terms(pred, target, eps):
@@ -229,3 +238,15 @@ def cross_entropy_loss(pred, label, class_weight=None):
     if class_weight is not None:
         loss = loss * class_weight[label]
     return loss
+
+
+def kd_kl_div_loss_outer(pred, soft_label, weight, avg_factor,
+                         T: float = 10.0):
+    """``kd_kl_div_loss(pred, soft_label, weight=weight[:, None],
+    avg_factor=avg_factor, T=T)`` without its (N, N) product: the (N, 1)
+    weight broadcasts against the (N,) per-row KL to (N, N), whose sum is
+    (sum of weight) x (sum of KL). The JAX package's YOLOF and YOLOY pass
+    such a weight (the reference's shapes); at their N of 10^4-10^5 rows
+    the product would not fit, so the port sums in this order instead."""
+    kl = kd_kl_div_loss(pred, soft_label, T=T, reduction="none")
+    return weight.sum() * kl.sum() / (avg_factor + _F32_EPS)

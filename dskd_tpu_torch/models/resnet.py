@@ -9,8 +9,10 @@ JAX module's ``stop_gradient`` does, so those weights get no gradient.
 Convolutions run NCHW; padding is symmetric ``k // 2`` like the JAX module's
 explicit padding, and the stem max-pool pads with -inf. Parameter
 names are torchvision's (``conv1``, ``bn1``, ``layerS.B.convC``,
-``downsample.0/1``), the names the mmdet checkpoints use. The dcn, gcb,
-gen_attn and gn variants are not ported.
+``downsample.0/1``), the names the mmdet checkpoints use. ``style`` places a
+bottleneck's stride as mmdet does: on the 3x3 ``conv2`` ("pytorch", the
+default) or on the 1x1 ``conv1`` ("caffe", YOLOF's detectron R50). The dcn,
+gcb, gen_attn and gn variants are not ported.
 """
 from __future__ import annotations
 
@@ -76,14 +78,17 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """Pytorch-style bottleneck: 1x1 -> 3x3 (stride) -> 1x1 (x4)."""
+    """1x1 -> 3x3 -> 1x1 (x4), the stride on the 3x3 ("pytorch") or on the
+    first 1x1 ("caffe")."""
     expansion = 4
 
-    def __init__(self, inplanes, planes, stride, downsample, device):
+    def __init__(self, inplanes, planes, stride, downsample, device,
+                 style="pytorch"):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 1, 1, device)
+        s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
+        self.conv1 = _conv(inplanes, planes, 1, s1, device)
         self.bn1 = FrozenBatchNorm(planes, device)
-        self.conv2 = _conv(planes, planes, 3, stride, device)
+        self.conv2 = _conv(planes, planes, 3, s2, device)
         self.bn2 = FrozenBatchNorm(planes, device)
         self.conv3 = _conv(planes, planes * 4, 1, 1, device)
         self.bn3 = FrozenBatchNorm(planes * 4, device)
@@ -103,10 +108,14 @@ class ResNet(nn.Module):
     gives C3, C4, C5) as NCHW tensors."""
 
     def __init__(self, depth: int, device, out_indices: Sequence[int] = (
-            1, 2, 3), base_channels: int = 64, frozen_stages: int = 1):
+            1, 2, 3), base_channels: int = 64, frozen_stages: int = 1,
+                 style: str = "pytorch"):
         super().__init__()
+        if style not in ("pytorch", "caffe"):
+            raise ValueError(f"ResNet style {style!r}")
         kind, stage_blocks = ARCH_SETTINGS[depth]
         block = Bottleneck if kind == "bottleneck" else BasicBlock
+        kw = {"style": style} if block is Bottleneck else {}
         self.out_indices = tuple(out_indices)
         self.frozen_stages = frozen_stages
         self.conv1 = _conv(3, base_channels, 7, 2, device)
@@ -122,7 +131,7 @@ class ResNet(nn.Module):
                 # (torchvision rule; basic stage 1 has none)
                 ds = b == 0 and (i > 0 or block is Bottleneck)
                 blocks.append(block(inplanes, planes, stride if b == 0 else 1,
-                                    ds, device))
+                                    ds, device, **kw))
                 inplanes = planes * block.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
             self.out_channels.append(inplanes)

@@ -37,6 +37,8 @@ _LAZY = {
     "gfl_deformable_detr": "dskd_tpu_torch.models.detector",
     "deformable_detr_il": "dskd_tpu_torch.models.detector",
     "detr": "dskd_tpu_torch.models.detr",
+    "yolof": "dskd_tpu_torch.models.yolof",
+    "yoloy": "dskd_tpu_torch.models.yoloy",
 }
 
 

@@ -116,7 +116,9 @@ def make_generic_step(losses_fn: Callable) -> Callable:
     their sum (``parse_losses``), the backward, the optimizer's clip and
     AdamW at the update count, and the count + 1 (the port of JAX's
     ``train/family.py _jit_family_step``). Dropout draws from
-    ``state.generator``."""
+    ``state.generator``. A train-mode BatchNorm (YOLOF's, YOLOY's) updates
+    its running buffers in place during the forward: what JAX's step
+    carries as ``new_batch_stats``."""
 
     def train_step(state: TrainState, batch: Batch,
                    teacher: Optional[nn.Module] = None):

@@ -1,10 +1,13 @@
 """JAX variables -> the port's ``state_dict`` (the inverses of
-dskd_tpu/utils/torch_weights.py ``convert_mmdet_gfl_ddetr`` and
-``convert_mmdet_detr``).
+dskd_tpu/utils/torch_weights.py ``convert_mmdet_gfl_ddetr``,
+``convert_mmdet_detr`` and ``convert_mmdet_yolof``).
 
 The port names its parameters after the mmdet checkpoint keys that those
-converters read, so ``state_dict_from_jax`` (the flagship) and
-``detr_state_dict_from_jax`` (DETR) are those converters run backwards:
+converters read, so ``state_dict_from_jax`` (the flagship),
+``detr_state_dict_from_jax`` (DETR) and ``yolof_state_dict_from_jax``
+(YOLOF) are those converters run backwards, and
+``yoloy_state_dict_from_jax`` (YOLOY, which JAX cannot load from mmdet)
+writes mmdet's YOLOX neck and head names:
 Dense kernels (in, out) -> (out, in), conv HWIO -> OIHW,
 MultiHeadDotProductAttention q/k/v kernels (C, H, Dh) -> packed
 ``in_proj_weight`` (3C, C), LayerNorm/GroupNorm/BN ``scale`` -> ``weight``,
@@ -47,6 +50,12 @@ class _Writer:
         self.norm(dst, p)
         self.put(dst + ".running_mean", s["mean"])
         self.put(dst + ".running_var", s["var"])
+
+    def conv_bn(self, dst, p, s):
+        """A conv + ``TrainableBatchNorm`` pair -> ``{dst}.conv`` and
+        ``{dst}.bn`` (mmdet's ConvModule)."""
+        self.conv(f"{dst}.conv", p["conv"])
+        self.bn(f"{dst}.bn", p["bn"]["bn"], s["bn"]["bn"])
 
     def mha(self, dst, attn):
         """flax ``MultiHeadDotProductAttention`` -> torch's packed
@@ -171,4 +180,97 @@ def detr_state_dict_from_jax(variables: Dict[str, Any]
     w.linear("bbox_head.reg_ffn.layers.0.0", params["reg_ffn0"])
     w.linear("bbox_head.reg_ffn.layers.1", params["reg_ffn1"])
     w.linear("bbox_head.fc_reg", params["fc_reg"])
+    return w.out
+
+
+def yolof_state_dict_from_jax(variables: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/yolof.YOLOF`` variables -> mmdet-keyed CPU tensors
+    for the port's ``models.yolof.YOLOF`` (the inverse of
+    ``convert_mmdet_yolof``), the running statistics of every trainable
+    BatchNorm included."""
+    params, stats = variables["params"], variables["batch_stats"]
+    w = _Writer()
+    w.backbone(params["backbone"], stats["backbone"])
+    neck, nstats = params["neck"], stats["neck"]
+    for name in ("lateral", "fpn"):
+        w.conv(f"neck.{name}_conv", neck[f"{name}_conv"])
+        w.bn(f"neck.{name}_norm", neck[f"{name}_norm"]["bn"],
+             nstats[f"{name}_norm"]["bn"])
+    for name in neck:
+        m = re.fullmatch(r"dilated_block(\d+)", name)
+        if not m:
+            continue
+        for c in (1, 2, 3):
+            dst = f"neck.dilated_encoder_blocks.{m.group(1)}.conv{c}"
+            w.conv(f"{dst}.conv", neck[name][f"conv{c}"])
+            w.bn(f"{dst}.bn", neck[name][f"bn{c}"]["bn"],
+                 nstats[name][f"bn{c}"]["bn"])
+    head, hstats = params["bbox_head"], stats["bbox_head"]
+    for name in head:
+        m = re.fullmatch(r"(cls|reg)_conv(\d+)", name)
+        if not m:
+            continue
+        kind, i = m.groups()
+        dst = f"bbox_head.{'cls' if kind == 'cls' else 'bbox'}_subnet.{i}"
+        w.conv(f"{dst}.conv", head[name])
+        w.bn(f"{dst}.bn", head[f"{kind}_bn{i}"]["bn"],
+             hstats[f"{kind}_bn{i}"]["bn"])
+    for name in ("cls_score", "bbox_pred", "object_pred"):
+        w.conv(f"bbox_head.{name}", head[name])
+    return w.out
+
+
+def yoloy_state_dict_from_jax(variables: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/yoloy.YOLOY`` variables -> CPU tensors for the
+    port's ``models.yoloy.YOLOY``: JAX's ``reduce{i}`` / ``top_down{i}``
+    (i from the top level down) become ``reduce_layers`` /
+    ``top_down_blocks`` in mmdet's order, ``down{i}``, ``bottom_up{i}``
+    and ``out_conv{i}`` become ``downsamples``, ``bottom_up_blocks`` and
+    ``out_convs``, a CSP layer's ``block{j}`` its ``blocks.{j}``, and the
+    head's ``{cls,reg}_conv{l}_{i}`` and ``conv_{cls,reg,obj}{l}`` its
+    ``multi_level_*`` lists."""
+    params, stats = variables["params"], variables["batch_stats"]
+    w = _Writer()
+    w.backbone(params["backbone"], stats["backbone"])
+    neck, nstats = params["neck"], stats["neck"]
+    top = max(int(n[len("reduce"):]) for n in neck if n.startswith("reduce"))
+
+    def csp(dst, p, s):
+        for sub in ("main_conv", "short_conv", "final_conv"):
+            w.conv_bn(f"{dst}.{sub}", p[sub], s[sub])
+        for name in p:
+            m = re.fullmatch(r"block(\d+)", name)
+            if m:
+                for c in ("conv1", "conv2"):
+                    w.conv_bn(f"{dst}.blocks.{m.group(1)}.{c}", p[name][c],
+                              s[name][c])
+
+    for name in neck:
+        m = re.fullmatch(r"(reduce|top_down|down|bottom_up|out_conv)(\d+)",
+                         name)
+        kind, i = m.group(1), int(m.group(2))
+        if kind == "reduce":
+            w.conv_bn(f"neck.reduce_layers.{top - i}", neck[name],
+                      nstats[name])
+        elif kind == "top_down":
+            csp(f"neck.top_down_blocks.{top - i}", neck[name], nstats[name])
+        elif kind == "down":
+            w.conv_bn(f"neck.downsamples.{i}", neck[name], nstats[name])
+        elif kind == "bottom_up":
+            csp(f"neck.bottom_up_blocks.{i}", neck[name], nstats[name])
+        else:
+            w.conv_bn(f"neck.out_convs.{i}", neck[name], nstats[name])
+    head, hstats = params["bbox_head"], stats["bbox_head"]
+    for name in head:
+        m = re.fullmatch(r"(cls|reg)_conv(\d+)_(\d+)", name)
+        if m:
+            kind, lvl, i = m.groups()
+            w.conv_bn(f"bbox_head.multi_level_{kind}_convs.{lvl}.{i}",
+                      head[name], hstats[name])
+            continue
+        m = re.fullmatch(r"conv_(cls|reg|obj)(\d+)", name)
+        w.conv(f"bbox_head.multi_level_conv_{m.group(1)}.{m.group(2)}",
+               head[name])
     return w.out

@@ -17,8 +17,8 @@ port by the registry's ``from_jax``.
   the KLs of two untrained models are sums near zero), one family step's
   losses and four named gradients (1e-3 relative L2, dropout 0); the
   two-task run is in test_torch_port_detr_incremental.
-- The registry lists the three archs the port builds, and an unknown arch
-  raises.
+- The registry lists the five archs the port builds, and an arch it does
+  not build raises.
 """
 import functools
 import inspect
@@ -466,14 +466,15 @@ def test_inference_detector_refuses_another_family():
 
 def test_registry_lists_the_ported_archs():
     assert registry.archs() == ("deformable_detr_il", "detr",
-                                "gfl_deformable_detr")
+                                "gfl_deformable_detr", "yolof", "yoloy")
     for arch in registry.archs():
         spec = registry.get_family(arch)
         for key in ("build", "init_weights", "from_jax", "eval_step"):
             assert callable(spec[key]), (arch, key)
         assert (spec["losses"] is None) != (spec["train_step"] is None)
-    assert registry.get_family("detr")["losses"] is not None
-    for arch in ("yolof", "no_such_arch"):
+    for arch in ("detr", "yolof", "yoloy"):
+        assert registry.get_family(arch)["losses"] is not None
+    for arch in ("yolox", "no_such_arch"):
         with pytest.raises(ValueError, match=repr(arch)):
             registry.get_family(arch)
 

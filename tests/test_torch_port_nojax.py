@@ -9,15 +9,30 @@ checkpoints on a synthetic COCO, tiny model, ``--device cpu``), the
 forgetting A/B (``tools/ab_forgetting.py``) and a JV assignment, then
 loads ``configs/detr_40_40_il.py``, cut to a tiny size, runs one DETR-IL
 family step with a teacher, the ``train_increment`` CLI on DETR for two
-tasks and the ``test`` CLI on its last checkpoint, and reports which modules
-it loaded."""
+tasks and the ``test`` CLI on its last checkpoint, loads
+``configs/yolof_40_40_il.py`` and ``configs/yoloy_40_40_il.py``, cut to a
+tiny size, runs one family step of each with a teacher, the
+``train_increment`` CLI for two tasks and the ``test`` CLI on each, a
+class-aware NMS on both of its paths, and reports which modules it loaded.
+An import hook refuses ``jax``, ``jaxlib``, ``flax`` and ``dskd_tpu``
+throughout."""
 import json
 import os
 import subprocess
 import sys
 
 _SCRIPT = r"""
-import dataclasses, json, sys
+import dataclasses, importlib.abc, json, sys
+
+
+class _Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "dskd_tpu"):
+            raise ModuleNotFoundError(f"{name} is refused in this process")
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -109,6 +124,42 @@ ab = run_forgetting_ab(1, 1, n_eval=2, device="cpu",
                        cates_distill="hard + teacher-first + soft")
 jv = hungarian_assign(torch.rand(2, 9, 5), torch.ones(2, 5, dtype=bool),
                       torch.zeros(2, 5, dtype=torch.int64), solver="jv")
+# YOLOF-IL and YOLOY-IL: their configs, one family step each with a
+# teacher, and an NMS on the tiled and the scan path
+from dskd_tpu_torch.core.postprocess import batched_nms
+yolo = {}
+for arch in ("yolof", "yoloy"):
+    ycfg = load_config(f"configs/{arch}_40_40_il.py")
+    ycfg = dataclasses.replace(ycfg, model=dataclasses.replace(
+        ycfg.model, num_classes=8, depth=18))
+    ymodel = init_variables(build_model(ycfg, "cpu"), ycfg, 0)
+    ystate = TrainState.create(ymodel, make_optimizer(
+        ymodel, step_lr_schedule(1e-4)), seed=0)
+    ystep = make_family_train_step(arch, ymodel, ycfg, 4, True)
+    ystate, ylosses = ystep(ystate, batch, frozen_copy(ymodel))
+    ywork = os.path.join(root, arch)
+    yfile = f"configs/{arch}_40_40_il.py"
+    sys.argv = ["train_increment", yfile, "--work-dir", ywork, "--seed", "1",
+                "--device", "cpu", "--set", *sets]
+    runpy.run_module("dskd_tpu_torch.tools.train_increment",
+                     run_name="__main__")
+    ystats = test_cli.main([yfile, "--work-dir", ywork, "--device", "cpu",
+                            "--set", *sets])
+    yolo[arch] = [ycfg.model.arch, ycfg.distill.cates_distill,
+                  ycfg.distill.locat_distill, ycfg.distill.feats_distill,
+                  sorted(k for k, v in ylosses.items()
+                         if bool(torch.isfinite(v))),
+                  sorted(os.path.basename(p) for p in
+                         glob.glob(os.path.join(ywork, "task_*"))),
+                  0.0 <= ystats["bbox_mAP"] <= 1.0]
+xy = torch.rand(2, 900, 2) * 60
+nms_boxes = torch.cat([xy, xy + 20], -1)
+nms_args = (nms_boxes, torch.rand(2, 900), torch.randint(0, 3, (2, 900)),
+            0.5, 300)
+tiled = batched_nms(*nms_args)
+os.environ["DSKD_NMS_TILED"] = "0"
+scan = batched_nms(*nms_args)
+del os.environ["DSKD_NMS_TILED"]
 out = os.path.join(root, "dets.json")
 sys.argv = ["test", cfg_file, "--work-dir", work, "--device", "cpu",
             "--classwise", "--out", out, "--set", *sets]
@@ -128,6 +179,9 @@ print(json.dumps({
                          glob.glob(os.path.join(dwork, "task_*"))),
     "detr_rows": sorted((r["mode"], r["task"]) for r in drows),
     "detr_map": 0.0 <= dstats["bbox_mAP"] <= 1.0,
+    "yolo": yolo,
+    "nms": [int(tiled.keep.sum()), all(bool(torch.equal(a, b))
+                                       for a, b in zip(tiled, scan))],
     "trained": bool(torch.isfinite(losses["loss"])),
     "n_images": len(res), "n_classes": len(res[0]),
     "shapes_ok": all(r.ndim == 2 and r.shape[1] == 5 for per in res
@@ -170,3 +224,13 @@ def test_port_slice_imports_no_jax():
     assert [tuple(r) for r in report["detr_rows"]] == [
         ("train", 1)] * 2 + [("train", 2)] * 2 + [("val", 1), ("val", 2)]
     assert report["detr_map"]
+    assert report["yolo"] == {
+        "yolof": ["yolof", "hard + soft", "bbox", "kldv",
+                  ["loss", "loss_bbox", "loss_cls", "loss_fd", "loss_kd",
+                   "loss_ld_bbox"], ["task_1_epoch_1", "task_2_epoch_1"],
+                  True],
+        "yoloy": ["yoloy", "hard + soft", "", "kldv",
+                  ["loss", "loss_bbox", "loss_cls", "loss_fd", "loss_kd",
+                   "loss_obj"], ["task_1_epoch_1", "task_2_epoch_1"], True]}
+    n_kept, same = report["nms"]
+    assert 0 < n_kept < 600 and same
