@@ -111,10 +111,13 @@ Phases; the first failure raises and the script exits non-zero:
      outputs against the CPU), three B=8 family steps with a frozen teacher
      that keeps 100 detections per image above 0.3 ("hard + soft", "bbox",
      "kldv"; GT padded to 100), their ms/step, img/s, profile and peak
-     memory, the teacher's candidates and NMS survivors with the scan NMS
-     held to the tiled one, the closed-form loss_kd against the literal
-     (N, N) product at B=2, a full-depth B=2 step against the CPU (losses,
-     four named gradients and every BatchNorm running buffer), and the
+     memory, the teacher's candidates and NMS survivors with the NMS's
+     tiled keep mask held to the plain scan's, the closed-form loss_kd
+     against the literal (N, N) product at B=2, a full-depth B=2 step
+     against the CPU in f32 and in f64 (losses, four named gradients and
+     every BatchNorm running buffer; in f32 the two neck gradients within
+     THREAD_SPREAD_TOL, beside the CPU's spread between its thread
+     counts), and the
      two-task train_increment path, whose task-2 teacher carries task 1's
      final running buffers and whose task-2 checkpoint restores, buffers
      included, bit for bit;
@@ -2137,31 +2140,33 @@ def check_distill_menu(cfg, card):
     check_forgetting_ab(card, AB_STEPS)
 
 
-# --- DETR-IL -------------------------------------------------------------
-
 # --- the families behind the registry: DETR-IL, YOLOF-IL, YOLOY-IL ----------
 
 DETR_CONFIG = os.path.join(ROOT, "configs", "detr_40_40_il.py")
 YOLOF_CONFIG = os.path.join(ROOT, "configs", "yolof_40_40_il.py")
 YOLOY_CONFIG = os.path.join(ROOT, "configs", "yoloy_40_40_il.py")
-DETR_HW = (640, 640)     # the families' one canvas (DataConfig.bucket)
+CANVAS_HW = (640, 640)     # the families' one canvas (DataConfig.bucket)
 # valid (h, w) on the canvas: four aspect ratios, so the key mask acts
-DETR_VALID = ((480, 640), (427, 640), (640, 512), (512, 640))
-DETR_INC_SETS = ("data.num_workers=0",)
+CANVAS_VALID = ((480, 640), (427, 640), (640, 512), (512, 640))
+FAMILY_INC_SETS = ("data.num_workers=0",)
 BN_TOL = dict(rtol=1e-3, atol=1e-4)     # running buffers after one step
 KD_CLOSED_RTOL = 1e-5    # closed-form loss_kd against the (N, N) product
+# YOLOF's two neck gradients in f32, card vs CPU (relative L2): at the init
+# f32 decides them only loosely; PERF.md gives the CPU's spread between its
+# thread counts that this bound stands on
+THREAD_SPREAD_TOL = 2e-2
 
 
-def detr_batch(device, n, hw=DETR_HW, max_gt=MAX_GT):
+def family_batch(device, n, hw=CANVAS_HW, max_gt=MAX_GT):
     """n images of the canvas ``hw`` whose valid (h, w) cycle through
-    DETR_VALID (scaled to ``hw``), ``max_gt`` GT of which 5-29 are valid,
+    CANVAS_VALID (scaled to ``hw``), ``max_gt`` GT of which 5-29 are valid,
     in classes 40-79 and inside each image's valid region."""
     from dskd_tpu_torch.data.batch import Batch
 
     H, W = hw
     rng = np.random.RandomState(7)
     images = rng.randn(n, H, W, 3).astype(np.float32) * 0.5
-    img_hw = np.array([DETR_VALID[i % len(DETR_VALID)] for i in range(n)],
+    img_hw = np.array([CANVAS_VALID[i % len(CANVAS_VALID)] for i in range(n)],
                       np.int32) * np.array([H, W]) // 640
     img_hw = img_hw.astype(np.int32)
     wh = rng.rand(n, max_gt, 2) * 0.3 + 0.05
@@ -2265,13 +2270,35 @@ def yolo_scores(cfg, out):
     return cls, torch.sigmoid(cls) * torch.sigmoid(obj)[..., None]
 
 
+@contextlib.contextmanager
+def nms_tiles_against_scan():
+    """Have batched_nms hold each keep mask of its tiled fixpoint against
+    the plain scan (``_nms_keep_scan``) on the same score-sorted
+    candidates; yields a list of (images, rows, equal) per call."""
+    from dskd_tpu_torch.core import postprocess
+
+    tiled, seen = postprocess._nms_keep_tiled, []
+
+    def both(shifted, svalid, iou_thr, tile):
+        keep = tiled(shifted, svalid, iou_thr, tile)
+        scan = postprocess._nms_keep_scan(shifted, svalid, iou_thr)
+        seen.append((*svalid.shape, torch.equal(keep, scan)))
+        return keep
+
+    postprocess._nms_keep_tiled = both
+    try:
+        yield seen
+    finally:
+        postprocess._nms_keep_tiled = tiled
+
+
 def check_yolo_teacher(fam, cfg, card, student, teacher, batch):
     """The teacher's detections on the B=8 batch: candidates above the
     threshold, NMS survivors and the kept detections per image, which must
-    fill ``teacher_max_per_img``; the scan NMS (DSKD_NMS_TILED=0) must give
-    the tiled path's detections. Then the closed-form loss_kd against the
-    literal (N, N) product on the card at B=2 (KD_CLOSED_RTOL), and the
-    product's size."""
+    fill ``teacher_max_per_img``; the tiled NMS keep mask must equal the
+    plain scan's on the teacher's sorted candidates. Then the closed-form
+    loss_kd against the literal (N, N) product on the card at B=2
+    (KD_CLOSED_RTOL), and the product's size."""
     from dskd_tpu_torch.core import losses as L
     from dskd_tpu_torch.distill.losses import _kept_query_weight
 
@@ -2283,9 +2310,8 @@ def check_yolo_teacher(fam, cfg, card, student, teacher, batch):
         cands = (scores > cfg.distill.teacher_score_thr).sum(1).clamp(
             max=nms_pre)
         survivors = yolo_decode(cfg, out, batch.img_hw, nms_pre).valid.sum(1)
-        det = yolo_decode(cfg, out, batch.img_hw, keep_n)
-        with switched({"DSKD_NMS_TILED": "0"}):
-            scan = yolo_decode(cfg, out, batch.img_hw, keep_n)
+        with nms_tiles_against_scan() as masks:
+            det = yolo_decode(cfg, out, batch.img_hw, keep_n)
     print(f"{fam['tag']} teacher: candidates above "
           f"{cfg.distill.teacher_score_thr} per image (of the top "
           f"{nms_pre}) {cands.tolist()}, NMS survivors "
@@ -2294,12 +2320,12 @@ def check_yolo_teacher(fam, cfg, card, student, teacher, batch):
             .all()):
         raise AssertionError(f"{fam['tag']}: the teacher must suppress and "
                              f"keep {keep_n} detections per image")
-    for name, a, b in zip(det._fields, det, scan):
-        if not torch.equal(a, b):
-            raise AssertionError(f"{fam['tag']}: NMS scan and tiled paths "
-                                 f"differ in {name}")
-    print(f"{fam['tag']} teacher: the scan NMS (DSKD_NMS_TILED=0) gives the "
-          f"tiled path's detections field for field")
+    if not (masks and all(equal for _, _, equal in masks)):
+        raise AssertionError(f"{fam['tag']}: NMS keep masks, tiles against "
+                             f"the scan: {masks}")
+    print(f"{fam['tag']} teacher: the tiled NMS keep mask equals the plain "
+          f"scan's on the sorted candidates ((images, rows) "
+          f"{[m[:2] for m in masks]})")
 
     # loss_kd: the closed form against JAX's literal (N, N) product, on the
     # student's eval-mode outputs (a train-mode forward would move its
@@ -2395,15 +2421,16 @@ FAMILIES = {
         n_dets=lambda cfg: min(cfg.test_max_per_img, cfg.model.num_query),
         max_gt=lambda cfg: MAX_GT, hooks=_detr_jv_hooks,
         small=dict(num_encoder_layers=2, num_decoder_layers=2, dropout=0.0),
-        small_note="2+2 layers, ", vs_cpu_dtype=torch.float32,
-        train_checks=None),
+        small_note="2+2 layers, ", vs_cpu_dtypes=(torch.float32,),
+        thread_spread_params=(), train_checks=None),
     "yolof": dict(
         tag="yolof-il", models=yolo_models, grad_params=YOLOF_GRAD_PARAMS,
         describe=lambda m: (f"caffe-style ResNet-{m.depth}, DilatedEncoder, "
                             f"5 anchors per position"),
         heads=_yolo_heads, n_dets=lambda cfg: cfg.test_max_per_img,
         max_gt=lambda cfg: cfg.data.max_gt, hooks=None, small={},
-        small_note="", vs_cpu_dtype=torch.float64,
+        small_note="", vs_cpu_dtypes=(torch.float32, torch.float64),
+        thread_spread_params=YOLOF_GRAD_PARAMS[:2],
         train_checks=check_yolo_teacher),
     "yoloy": dict(
         tag="yoloy-il", models=yolo_models, grad_params=YOLOY_GRAD_PARAMS,
@@ -2411,44 +2438,66 @@ FAMILIES = {
                             f"strides 8-32"),
         heads=_yolo_heads, n_dets=lambda cfg: cfg.test_max_per_img,
         max_gt=lambda cfg: cfg.data.max_gt, hooks=None, small={},
-        small_note="", vs_cpu_dtype=torch.float32,
-        train_checks=check_yolo_teacher),
+        small_note="", vs_cpu_dtypes=(torch.float32,),
+        thread_spread_params=(), train_checks=check_yolo_teacher),
 }
 
 
-def check_family_card_vs_cpu(fam, cfg, card, n=2):
+def rel_l2(got, want):
+    """||got - want|| / ||want||."""
+    return float((got - want).norm() / want.norm())
+
+
+def check_family_card_vs_cpu(fam, cfg, card, dtype, n=2):
     """One family step's losses, named gradients and BatchNorm running
     buffers at B=n, dropout 0, card against CPU (LOSS_TOL, GRAD_REL_TOL,
-    BN_TOL), through the registry's losses_fn: DETR at 2+2 layers and
-    YOLOY at full depth in f32; YOLOF at full depth in f64, because its
-    neck gradients are decided in f32 only to ~1e-2 relative at the init
-    (on the CPU alone, 1 thread against 8 moves them by 2e-3-8e-3
-    relative L2 at 320x320, and by 1e-14 in f64)."""
+    BN_TOL) in ``dtype``, through the registry's losses_fn: DETR at 2+2
+    layers, YOLOF and YOLOY at full depth. A family's
+    ``thread_spread_params`` are gradients that f32 decides only loosely at
+    the init: in f32 the CPU's step is rerun on one thread, and each of
+    them is held to THREAD_SPREAD_TOL instead, beside its spread between
+    the CPU's thread counts."""
     from dskd_tpu_torch.registry import get_family
     from dskd_tpu_torch.train.step import parse_losses
 
     losses_fn = get_family(cfg.model.arch)["losses"](
         None, cfg, num_prev=cfg.data.catsplit[0], has_teacher=True,
         use_dropout=False)
-    dtype = fam["vs_cpu_dtype"]
-    out = {}
-    for dev in (DEVICE, "cpu"):
+
+    def step(dev):
         student, teacher = (mdl.to(dtype) for mdl in fam["models"](
             cfg, dev, **fam["small"]))
         student.train()
-        batch = detr_batch(dev, n, DETR_HW, fam["max_gt"](cfg))
+        batch = family_batch(dev, n, CANVAS_HW, fam["max_gt"](cfg))
         batch = type(batch)(*(t.to(dtype) if t is not None and
                               t.is_floating_point() else t for t in batch))
         losses = losses_fn(student, batch, teacher, None)
         parse_losses(losses).backward()
         params = dict(student.named_parameters())
-        out[dev] = ({k: v.detach().cpu() for k, v in losses.items()},
-                    {k: params[k].grad.cpu() for k in fam["grad_params"]},
-                    {k: v.cpu() for k, v in student.state_dict().items()
-                     if k.endswith(("running_mean", "running_var"))})
-    (losses, grads, bufs), (c_losses, c_grads, c_bufs) = out[DEVICE], \
-        out["cpu"]
+        return ({k: v.detach().cpu() for k, v in losses.items()},
+                {k: params[k].grad.cpu() for k in fam["grad_params"]},
+                {k: v.cpu() for k, v in student.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))})
+
+    (losses, grads, bufs), (c_losses, c_grads, c_bufs) = step(DEVICE), \
+        step("cpu")
     tag = fam["tag"]
+    tol = dict.fromkeys(fam["grad_params"], GRAD_REL_TOL)
+    spread_params = (fam["thread_spread_params"] if dtype == torch.float32
+                     else ())
+    if spread_params:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            one_thread = step("cpu")[1]
+        finally:
+            torch.set_num_threads(threads)
+        for k in spread_params:
+            tol[k] = THREAD_SPREAD_TOL
+            spread = rel_l2(one_thread[k], c_grads[k])
+            print(f"{tag} f32 on the CPU, 1 thread against {threads}: grad "
+                  f"{k}: relative L2 err {spread:.3e} (B={n}, "
+                  f"{CANVAS_HW[0]}x{CANVAS_HW[1]})")
     loss_err = {}
     for k, v in c_losses.items():
         torch.testing.assert_close(losses[k], v, **LOSS_TOL, msg=k)
@@ -2460,10 +2509,10 @@ def check_family_card_vs_cpu(fam, cfg, card, n=2):
           f" [{card}]")
     bad = {}
     for k in fam["grad_params"]:
-        rel = float((grads[k] - c_grads[k]).norm() / c_grads[k].norm())
+        rel = rel_l2(grads[k], c_grads[k])
         print(f"{tag} card vs CPU: grad {k}: relative L2 err {rel:.3e} "
-              f"(tolerance {GRAD_REL_TOL})")
-        if not rel <= GRAD_REL_TOL:
+              f"(tolerance {tol[k]})")
+        if not rel <= tol[k]:
             bad[k] = rel
     if bad:
         raise AssertionError(f"{tag}: gradients differ card vs CPU: {bad}")
@@ -2475,7 +2524,7 @@ def check_family_card_vs_cpu(fam, cfg, card, n=2):
           f"{max(buf_err.values()):.3e} ({max(buf_err, key=buf_err.get)})")
 
 
-def check_family(card, arch, config, sets=(), n_train=None, hw=DETR_HW,
+def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
                  inc_kw=None):
     """Phases 10-12: one family of the registry (FAMILIES) at the config's
     width and depth, f32, TF32 off, seeded weights. Serving: the registry's
@@ -2515,7 +2564,7 @@ def check_family(card, arch, config, sets=(), n_train=None, hw=DETR_HW,
                           cfg.test_max_per_img, arch=m.arch)
     rng = np.random.RandomState(3)
     imgs = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
-            for h, w in DETR_VALID * 2]
+            for h, w in CANVAS_VALID * 2]
     batches = {1: prepare_batch(cfg, imgs[:1], DEVICE),
                8: prepare_batch(cfg, imgs, DEVICE)}
     reset_counts()
@@ -2564,7 +2613,7 @@ def check_family(card, arch, config, sets=(), n_train=None, hw=DETR_HW,
     train = make_family_train_step(m.arch, student, cfg,
                                    num_prev=cfg.data.catsplit[0],
                                    has_teacher=True)
-    batch = detr_batch(DEVICE, n, hw, fam["max_gt"](cfg))
+    batch = family_batch(DEVICE, n, hw, fam["max_gt"](cfg))
     ctx, note, after = (fam["hooks"]() if fam["hooks"] else
                         (contextlib.nullcontext(), lambda: "",
                          lambda cfg: ""))
@@ -2604,14 +2653,15 @@ def check_family(card, arch, config, sets=(), n_train=None, hw=DETR_HW,
     if read_counts() != none:
         raise AssertionError(f"{tag} train launched {read_counts()}")
     del state, student, teacher, train
-    check_family_card_vs_cpu(fam, cfg, card)
+    for dtype in fam["vs_cpu_dtypes"]:
+        check_family_card_vs_cpu(fam, cfg, card, dtype)
 
     # run_incremental through the train_increment CLI's config path
-    check_incremental(card, config, sets=(*sets, *DETR_INC_SETS),
+    check_incremental(card, config, sets=(*sets, *FAMILY_INC_SETS),
                       **(inc_kw or {}))
 
 
-def check_detr(card, config=DETR_CONFIG, sets=(), n_train=None, hw=DETR_HW,
+def check_detr(card, config=DETR_CONFIG, sets=(), n_train=None, hw=CANVAS_HW,
                inc_kw=None):
     """Phase 10: the DETR-IL family (ResNet-50, 6+6 layers, 100 queries,
     80 classes, exact JV on the 100 queries x 132 merged GT, dropout 0.1)
@@ -2634,7 +2684,7 @@ def main() -> int:
     print("TF32 off for matmuls and convolutions: every f32 comparison and "
           "time below is full f32")
 
-    for k in (*SWITCH_VARS, "DSKD_NMS_TILED", "DSKD_NMS_TILE"):
+    for k in SWITCH_VARS:
         if os.environ.pop(k, None) is not None:
             print(f"{k} was set; unset it: the default path comes first")
 

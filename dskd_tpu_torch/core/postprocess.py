@@ -1,15 +1,18 @@
 """Static-shape score filtering, top-k and class-aware NMS (port of
-dskd_tpu/core/postprocess.py ``filter_scores_and_topk``, ``_pairwise_iou``,
-``_nms_keep_scan``, ``_nms_keep_tiled`` and ``batched_nms``).
+dskd_tpu/core/postprocess.py ``filter_scores_and_topk``, ``_nms_keep_scan``,
+``_nms_keep_tiled`` and ``batched_nms``).
 
 The TPU-only approximate top-k branch is not ported.
 """
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import torch
+
+from .boxes import bbox_overlaps
+
+NMS_TILE = 512   # rows of score-sorted candidates per tile of the fixpoint
 
 
 class TopkResult(NamedTuple):
@@ -57,18 +60,13 @@ class NMSResult(NamedTuple):
     src_idx: torch.Tensor  # (..., max_out) input row of each output slot
 
 
-def _pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(B, Na, 4) x (B, Nb, 4) -> (B, Na, Nb) IoU (boxes.bbox_overlaps)."""
-    from .boxes import bbox_overlaps
-    return bbox_overlaps(a, b)
-
-
 def _nms_keep_scan(shifted: torch.Tensor, svalid: torch.Tensor,
                    iou_thr: float) -> torch.Tensor:
     """Greedy keep mask over score-sorted boxes, (B, n): one sequential pass
-    over the n rows of the full (n, n) IoU matrix, all images at once."""
+    over the n rows of the full (n, n) IoU matrix, all images at once. The
+    plain reference of ``_nms_keep_tiled``, which ``batched_nms`` runs."""
     n = shifted.shape[1]
-    iou = _pairwise_iou(shifted, shifted) > iou_thr
+    iou = bbox_overlaps(shifted, shifted) > iou_thr
     later = torch.arange(n, device=shifted.device)
     keep = svalid.clone()
     for i in range(n):
@@ -78,7 +76,7 @@ def _nms_keep_scan(shifted: torch.Tensor, svalid: torch.Tensor,
 
 
 def _nms_keep_tiled(shifted: torch.Tensor, svalid: torch.Tensor,
-                    iou_thr: float, tile: int = 512) -> torch.Tensor:
+                    iou_thr: float, tile: int = NMS_TILE) -> torch.Tensor:
     """The exact greedy keep mask, (B, n), in n / tile sequential tiles
     (JAX's ``_nms_keep_tiled``): each tile of score-sorted rows is first
     suppressed by the kept rows of the earlier tiles in one (tile, n) pass,
@@ -98,7 +96,7 @@ def _nms_keep_tiled(shifted: torch.Tensor, svalid: torch.Tensor,
     lower = ar[:, None] > ar[None, :]
     keep = svalid.clone()
     for start in range(0, npad, tile):
-        iou_rows = _pairwise_iou(shifted[:, start:start + tile], shifted)
+        iou_rows = bbox_overlaps(shifted[:, start:start + tile], shifted)
         over = iou_rows > iou_thr                        # (B, tile, npad)
         cross = over & (col < start) & keep[:, None, :]
         base = svalid[:, start:start + tile] & ~cross.any(-1)
@@ -123,11 +121,11 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
 
     Each class is moved to its own region by adding label x (max |box| over
     all n rows, the invalid ones included, + 1), then one class-agnostic
-    greedy pass runs over the rows sorted by score: the tiled fixpoint for
-    n > 768 (unless ``DSKD_NMS_TILED=0``; ``DSKD_NMS_TILE`` rows per tile,
-    default 512), else the sequential scan; both give the same mask. Every
-    sort is stable, as ``jnp.argsort`` is, so ties keep JAX's order and
-    ``src_idx`` its rows."""
+    greedy pass runs over the rows sorted by score: the tiled fixpoint, in
+    tiles of up to NMS_TILE rows, which gives JAX's mask whichever of its
+    paths (the scan or the tiles) JAX takes. Every sort is stable, as
+    ``jnp.argsort`` is, so ties keep JAX's order and ``src_idx`` its
+    rows."""
     lead = boxes.shape[:-2]
     n = boxes.shape[-2]
     boxes = boxes.reshape(-1, n, 4)
@@ -148,12 +146,7 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
 
     shifted, sboxes, sscores, slabels, svalid = map(
         take, (shifted, boxes, scores, labels, valid))
-    if n > 768 and os.environ.get("DSKD_NMS_TILED", "1") == "1":
-        keep = _nms_keep_tiled(shifted, svalid, iou_thr,
-                               tile=int(os.environ.get("DSKD_NMS_TILE",
-                                                       "512")))
-    else:
-        keep = _nms_keep_scan(shifted, svalid, iou_thr)
+    keep = _nms_keep_tiled(shifted, svalid, iou_thr, min(NMS_TILE, n))
     # the kept rows first, by score
     rank = torch.argsort(torch.where(keep, -sscores, inf), dim=1,
                          stable=True)[:, :max_out]

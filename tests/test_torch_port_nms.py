@@ -4,9 +4,10 @@ batched_nms``) against ``dskd_tpu.core.postprocess.batched_nms`` on the CPU.
 Clustered boxes of a few classes, so that suppression chains run several
 rounds deep, with tied scores and invalid rows: the keep mask, the output
 order, the scores, labels and boxes, and ``src_idx`` equal JAX's, image by
-image (JAX's ``vmap``), on the sequential scan (n <= 768, or
-``DSKD_NMS_TILED=0``) and on the tiled fixpoint (n > 768, at the default
-tile and at a tile of 128, where the images of a batch iterate together).
+image (JAX's ``vmap``), on the port's tiled fixpoint (one tile of n <= 512
+rows, tiles of 512 and of 128, where the images of a batch iterate
+together) and with its plain reference, the sequential scan, in place of
+the tiles. JAX takes its scan for n <= 768 and its tiles above.
 """
 import jax
 import jax.numpy as jnp
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from dskd_tpu_torch.core import postprocess
 from dskd_tpu_torch.core.postprocess import batched_nms
 
 torch.set_num_threads(1)
@@ -44,15 +46,24 @@ def jax_nms(arrays, iou_thr, max_out):
     return [np.asarray(t) for t in out]
 
 
+def keep_by_scan(monkeypatch):
+    """Have batched_nms run the plain scan in place of the tiled fixpoint."""
+    monkeypatch.setattr(postprocess, "_nms_keep_tiled",
+                        lambda shifted, svalid, iou_thr, tile:
+                        postprocess._nms_keep_scan(shifted, svalid, iou_thr))
+
+
+# tiled "1": the tiled fixpoint at ``tile`` rows per tile; "0": the scan
 @pytest.mark.parametrize("n,tiled,tile", [
-    (300, "1", "512"),       # n <= 768: the scan
-    (1000, "1", "512"),      # the tiled fixpoint, two tiles
+    (300, "1", "512"),       # one tile of 300 rows (JAX: its scan)
+    (1000, "1", "512"),      # two tiles (JAX: its tiles)
     (1000, "1", "128"),      # eight tiles
-    (1000, "0", "512"),      # the scan forced at n > 768
+    (1000, "0", "512"),      # the scan
 ])
 def test_batched_nms_matches_jax(monkeypatch, n, tiled, tile):
-    monkeypatch.setenv("DSKD_NMS_TILED", tiled)
-    monkeypatch.setenv("DSKD_NMS_TILE", tile)
+    monkeypatch.setattr(postprocess, "NMS_TILE", int(tile))
+    if tiled == "0":
+        keep_by_scan(monkeypatch)
     arrays = nms_inputs(n + int(tile), 3, n)
     want = jax_nms(arrays, 0.5, n // 2)
     b, s, lb, v = (torch.from_numpy(a) for a in arrays)
@@ -67,7 +78,7 @@ def test_batched_nms_matches_jax(monkeypatch, n, tiled, tile):
 
 
 def test_tiled_and_scan_agree_and_leading_axes(monkeypatch):
-    """The two paths give one mask; leading axes are images."""
+    """The tiles and the scan give one mask; leading axes are images."""
     arrays = nms_inputs(7, 4, 900)
     t = [torch.from_numpy(a) for a in arrays]
 
@@ -75,9 +86,9 @@ def test_tiled_and_scan_agree_and_leading_axes(monkeypatch):
         return batched_nms(b, s, lb, 0.6, 50, valid=v)
 
     tiled = nms(*t)
-    monkeypatch.setenv("DSKD_NMS_TILED", "0")
-    scan = nms(*t)
-    monkeypatch.delenv("DSKD_NMS_TILED")
+    with monkeypatch.context() as m:
+        keep_by_scan(m)
+        scan = nms(*t)
     for a, b in zip(tiled, scan):
         assert torch.equal(a, b)
     one = nms(*(x[1] for x in t))

@@ -157,9 +157,13 @@ nms_boxes = torch.cat([xy, xy + 20], -1)
 nms_args = (nms_boxes, torch.rand(2, 900), torch.randint(0, 3, (2, 900)),
             0.5, 300)
 tiled = batched_nms(*nms_args)
-os.environ["DSKD_NMS_TILED"] = "0"
+from dskd_tpu_torch.core import postprocess
+keep_tiled = postprocess._nms_keep_tiled
+postprocess._nms_keep_tiled = (lambda shifted, svalid, iou_thr, tile:
+                               postprocess._nms_keep_scan(shifted, svalid,
+                                                          iou_thr))
 scan = batched_nms(*nms_args)
-del os.environ["DSKD_NMS_TILED"]
+postprocess._nms_keep_tiled = keep_tiled
 out = os.path.join(root, "dets.json")
 sys.argv = ["test", cfg_file, "--work-dir", work, "--device", "cpu",
             "--classwise", "--out", out, "--set", *sets]
@@ -195,9 +199,10 @@ print(json.dumps({
 """
 
 
-def test_port_slice_imports_no_jax():
+def test_port_slice_imports_no_jax(tmp_path):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, PYTHONPATH=root)
+    # the script's work directories (checkpoints) go under pytest's tmp_path
+    env = dict(os.environ, PYTHONPATH=root, TMPDIR=str(tmp_path))
     proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=root,
                           env=env, capture_output=True, text=True,
                           timeout=300)

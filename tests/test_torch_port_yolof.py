@@ -14,7 +14,7 @@ carried to the port by the registry's ``from_jax``.
 - ``yolof_compute_losses`` without and with a teacher ("hard + soft",
   "bbox", "kldv") in f64 (1e-6 relative); the closed-form ``loss_kd``
   against the literal (N, N) product (1e-6, gradients too);
-- ``yolof_get_bboxes`` on the tiled and the scan NMS path (boxes 1e-5,
+- ``yolof_get_bboxes`` against JAX's tiled and scan NMS paths (boxes 1e-5,
   labels, valid and ``keep_qid`` exactly);
 - one family step's losses, four named gradients (1e-3 relative L2) and
   the running buffers after it against JAX's ``new_batch_stats`` (1e-5);
@@ -389,7 +389,8 @@ def test_loss_kd_closed_form_equals_literal_product():
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
 
 
-@pytest.mark.parametrize("nms_pre", [1000, 50])   # tiled NMS, then the scan
+# JAX's tiled NMS, then its scan
+@pytest.mark.parametrize("nms_pre", [1000, 50])
 def test_get_bboxes_matches_jax(nms_pre):
     from dskd_tpu.models.yolof_head import YOLOFHeadOutputs as JHead
     from dskd_tpu.models.yolof_head import yolof_anchors as janchors

@@ -13,7 +13,7 @@ builds through the registry, at the config's 128 neck channels.
 - ``yoloy_detection_loss`` with DIoU, and with square IoU and the L1
   branch, and ``yoloy_compute_losses`` with a teacher ("hard + soft",
   "kldv"), in f64 (1e-6 relative);
-- ``yoloy_get_bboxes`` on the tiled and the scan NMS path;
+- ``yoloy_get_bboxes`` against JAX's tiled and scan NMS paths;
 - one family step (losses, gradients, running buffers against JAX's
   ``new_batch_stats``), the seeded init's scales, and a two-task
   ``run_incremental`` against JAX's ``train_one_task`` row by row.
@@ -250,7 +250,8 @@ def test_losses_match_jax_in_f64(with_teacher, det_kw):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("nms_pre", [2000, 100])   # tiled NMS, then the scan
+# JAX's tiled NMS, then its scan
+@pytest.mark.parametrize("nms_pre", [2000, 100])
 def test_get_bboxes_matches_jax(nms_pre):
     from dskd_tpu.models.yoloy_head import YOLOYHeadOutputs as JHead
     from dskd_tpu.models.yoloy_head import yoloy_get_bboxes as jget
