@@ -72,10 +72,14 @@ def build_detector(model_cfg, device="cuda") -> GFLDeformableDETR:
     m = model_cfg
     if m.arch not in FLAGSHIP_ARCHS:
         raise ValueError(f"arch {m.arch!r} is not the flagship's")
+    if m.with_box_refine or m.as_two_stage:
+        raise NotImplementedError(
+            "the flagship has no box refinement or two-stage; the "
+            "'deformable_detr' arch (models/deformable_detr.py) has both")
     if any(m.dcn_stages) or any(m.gcb_stages) or any(m.gen_attn_stages) \
-            or m.with_box_refine or m.as_two_stage or m.backbone:
-        raise NotImplementedError("backbone plugins, box refinement and "
-                                  "two-stage are not ported")
+            or m.backbone:
+        raise NotImplementedError("backbone plugins (DCN, GCB, gen-attn) "
+                                  "and other backbones are not ported")
     return GFLDeformableDETR(
         device, num_classes=m.num_classes, num_query=m.num_query,
         reg_max=m.reg_max, depth=m.depth, embed_dims=m.embed_dims,

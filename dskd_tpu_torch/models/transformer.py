@@ -6,8 +6,15 @@ dskd_tpu/models/transformer.py ``inverse_sigmoid``, ``MSDeformAttention``,
 
 Tensors are batch-first (B, S, C). Parameter names follow mmdet/mmcv
 (``encoder.layers.i.attentions.0.sampling_offsets``, ``ffns.0.layers.0.0``,
-``norms.k``, ``attentions.0.attn.in_proj_weight``, ...). Not ported: the
-premap decoder branch, box refinement, two-stage and remat.
+``norms.k``, ``attentions.0.attn.in_proj_weight``, ...). Box refinement
+and two-stage live in ``models/deformable_detr.py``, which reuses these
+layers (with 4-dim box reference points); remat is not ported.
+
+The premap decoder (``premap_decoder``, or ``DSKD_PREMAP`` read at call
+time: unset keeps the attribute, "1" turns it on, anything else off) packs
+the raw encoder memory once (``ops.msda.pack_corners_raw``) and each
+cross-attention samples it in raw C-space, applying ``value_proj`` to the
+reduction as ``acc @ W + b * wsum``; the parameters stay the same.
 
 Dropout sits where the JAX layers put it: after MSDA's output projection, on
 the attention weights of ``MultiheadAttention`` (one (Q, K) mask shared
@@ -20,13 +27,15 @@ forward without a generator raises; eval mode and p = 0 turn it off.
 from __future__ import annotations
 
 import math
+import os
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.msda import ms_deform_attn_core
+from ..ops.msda import (ms_deform_attn_core, ms_deform_attn_core_premap,
+                        pack_corners_raw)
 from .positional import sine_positional_encoding
 
 
@@ -98,27 +107,44 @@ class MSDeformAttention(nn.Module):
         self.output_proj = nn.Linear(embed_dims, embed_dims, device=device)
 
     def forward(self, query, value, query_pos, reference_points,
-                spatial_shapes, key_padding_mask=None, generator=None):
+                spatial_shapes, key_padding_mask=None, generator=None,
+                packed_tables=None, valid_wh=None):
         """query (B, Q, C); value (B, S, C); reference_points (B, Q, L, 2)
-        normalized; key_padding_mask (B, S), True at padding."""
+        normalized points or (B, Q, L, 4) normalized (cx, cy, w, h) boxes;
+        key_padding_mask (B, S), True at padding. Premap mode: pass
+        ``packed_tables`` (``pack_corners_raw`` of the raw memory) and
+        ``valid_wh`` (B, L, 2) instead of ``value`` and the mask."""
         B, Q, C = query.shape
         H, L, P = self.num_heads, self.num_levels, self.num_points
         identity = query
         if query_pos is not None:
             query = query + query_pos
-        v = self.value_proj(value)
-        if key_padding_mask is not None:
-            v = v.masked_fill(key_padding_mask[..., None], 0.0)
-        v = v.reshape(B, -1, H, C // H)
         offsets = self.sampling_offsets(query).reshape(B, Q, H, L, P, 2)
         weights = self.attention_weights(query).reshape(B, Q, H, L * P)
         weights = weights.softmax(-1).reshape(B, Q, H, L, P)
-        norm = torch.tensor([[w, h] for (h, w) in spatial_shapes],
-                            dtype=query.dtype, device=query.device)
-        locs = (reference_points[:, :, None, :, None, :]
-                + offsets / norm[None, None, None, :, None, :])
-        out = ms_deform_attn_core(v, spatial_shapes, locs, weights,
-                                  raster_queries=self.raster_queries)
+        if reference_points.shape[-1] == 4:
+            # offsets scale with the box: (cx, cy) + off / P * (w, h) / 2
+            ref = reference_points[:, :, None, :, None, :]
+            locs = ref[..., :2] + offsets / P * ref[..., 2:] * 0.5
+        else:
+            norm = torch.tensor([[w, h] for (h, w) in spatial_shapes],
+                                dtype=query.dtype, device=query.device)
+            locs = (reference_points[:, :, None, :, None, :]
+                    + offsets / norm[None, None, None, :, None, :])
+        if packed_tables is not None:
+            acc, wsum = ms_deform_attn_core_premap(
+                packed_tables, spatial_shapes, locs, weights, valid_wh)
+            wv = self.value_proj.weight.view(H, C // H, C)
+            out = (torch.einsum("bqhc,hdc->bqhd", acc, wv)
+                   + self.value_proj.bias.view(H, C // H).to(acc.dtype)
+                   * wsum[..., None]).reshape(B, Q, C)
+        else:
+            v = self.value_proj(value)
+            if key_padding_mask is not None:
+                v = v.masked_fill(key_padding_mask[..., None], 0.0)
+            v = v.reshape(B, -1, H, C // H)
+            out = ms_deform_attn_core(v, spatial_shapes, locs, weights,
+                                      raster_queries=self.raster_queries)
         return identity + dropout(self.output_proj(out), self.dropout,
                                   self.training, generator)
 
@@ -244,12 +270,14 @@ class DecoderLayer(nn.Module):
         self.norms = _norms(3, embed_dims, device)
 
     def forward(self, query, query_pos, memory, reference_points,
-                spatial_shapes, key_padding_mask, generator=None):
+                spatial_shapes, key_padding_mask, generator=None,
+                packed_tables=None, valid_wh=None):
         query = self.norms[0](self.attentions[0](
             query, query_pos=query_pos, generator=generator))
         query = self.attentions[1](query, memory, query_pos,
                                    reference_points, spatial_shapes,
-                                   key_padding_mask, generator)
+                                   key_padding_mask, generator,
+                                   packed_tables, valid_wh)
         query = self.norms[1](query)
         return self.norms[2](self.ffns[0](query, generator))
 
@@ -289,6 +317,30 @@ def level_masks_and_ratios(img_hw, batch_input_shape, spatial_shapes):
     return masks, torch.stack(ratios, 1)
 
 
+def use_premap(default: bool) -> bool:
+    """``DSKD_PREMAP`` read now: unset keeps ``default``, "1" is on and
+    any other value off (JAX's ``transformer.py:382-384``)."""
+    env = os.environ.get("DSKD_PREMAP")
+    return default if env is None else env == "1"
+
+
+def level_valid_wh(valid_ratios, spatial_shapes):
+    """(B, L, 2) f32 valid (w, h) token counts of each level."""
+    level_wh = torch.tensor([[w, h] for (h, w) in spatial_shapes],
+                            dtype=torch.float32, device=valid_ratios.device)
+    return valid_ratios.float() * level_wh[None]
+
+
+def decoder_memory(memory, mask_flat, valid_wh, spatial_shapes,
+                   premap: bool):
+    """What each decoder layer's cross-attention samples: ``(memory,
+    mask_flat, None, None)``, or in premap mode ``(None, None, tables,
+    valid_wh)`` with the raw memory packed once."""
+    if not premap:
+        return memory, mask_flat, None, None
+    return (None, None, pack_corners_raw(memory, spatial_shapes), valid_wh)
+
+
 class _Layers(nn.Module):
     """Holds ``layers`` so parameter names read ``encoder.layers.i``."""
 
@@ -298,12 +350,15 @@ class _Layers(nn.Module):
 
 
 class DeformableDetrTransformer(nn.Module):
-    """Encoder + decoder over flattened multi-level features."""
+    """Encoder + decoder over flattened multi-level features;
+    ``premap_decoder`` (or ``DSKD_PREMAP``) selects the premap decoder."""
 
     def __init__(self, device, embed_dims=256, num_heads=8, num_levels=4,
                  num_points=4, num_encoder_layers=6, num_decoder_layers=6,
-                 feedforward_channels=1024, dropout=0.1):
+                 feedforward_channels=1024, dropout=0.1,
+                 premap_decoder=False):
         super().__init__()
+        self.premap_decoder = premap_decoder
         args = (device, embed_dims, num_heads, num_levels, num_points,
                 feedforward_channels, dropout)
         self.level_embeds = nn.Parameter(
@@ -351,10 +406,13 @@ class DeformableDetrTransformer(nn.Module):
         query = query[None].expand(B, -1, -1)
         reference_points = self.reference_points(query_pos).sigmoid()
         ref_input = reference_points[:, :, None, :] * valid_ratios[:, None]
+        dec = decoder_memory(memory, mask_flat,
+                             level_valid_wh(valid_ratios, spatial_shapes),
+                             spatial_shapes, use_premap(self.premap_decoder))
         states = []
         for layer in self.decoder.layers:
-            query = layer(query, query_pos, memory, ref_input,
-                          spatial_shapes, mask_flat, generator)
+            query = layer(query, query_pos, dec[0], ref_input,
+                          spatial_shapes, dec[1], generator, *dec[2:])
             states.append(query)
         hs = torch.stack(states, 0)
         # no box refinement: every layer keeps the initial references

@@ -36,6 +36,7 @@ _REGISTRY: Dict[str, Dict[str, Any]] = {}
 _LAZY = {
     "gfl_deformable_detr": "dskd_tpu_torch.models.detector",
     "deformable_detr_il": "dskd_tpu_torch.models.detector",
+    "deformable_detr": "dskd_tpu_torch.models.deformable_detr",
     "detr": "dskd_tpu_torch.models.detr",
     "yolof": "dskd_tpu_torch.models.yolof",
     "yoloy": "dskd_tpu_torch.models.yoloy",

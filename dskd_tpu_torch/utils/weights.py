@@ -1,6 +1,7 @@
 """JAX variables -> the port's ``state_dict`` (the inverses of
 dskd_tpu/utils/torch_weights.py ``convert_mmdet_gfl_ddetr``,
-``convert_mmdet_detr`` and ``convert_mmdet_yolof``).
+``convert_mmdet_detr`` and ``convert_mmdet_yolof``, and
+``deformable_detr_state_dict_from_jax`` under mmdet's names).
 
 The port names its parameters after the mmdet checkpoint keys that those
 converters read, so ``state_dict_from_jax`` (the flagship),
@@ -75,6 +76,42 @@ class _Writer:
         self.linear(f"{dst}.layers.0.0", p["fc1"])
         self.linear(f"{dst}.layers.1", p["fc2"])
 
+    def channel_mapper(self, neck):
+        """The ChannelMapper's convs and GroupNorms -> ``neck.convs.i`` and
+        ``neck.extra_convs.i`` (``.conv``, ``.gn``)."""
+        for name in neck:
+            m = re.fullmatch(r"(extra_)?conv(\d+)", name)
+            if m:
+                dst = f"neck.{m.group(1) or ''}convs.{m.group(2)}"
+                self.conv(f"{dst}.conv", neck[name])
+                self.norm(f"{dst}.gn",
+                          neck[f"{m.group(1) or ''}gn{m.group(2)}"])
+
+    def msda(self, dst, p):
+        for lin in ("sampling_offsets", "attention_weights", "value_proj",
+                    "output_proj"):
+            self.linear(f"{dst}.{lin}", p[lin])
+
+    def deformable_layers(self, tdst, tp):
+        """``encoder_layer{i}`` / ``decoder_layer{i}`` of ``tp`` ->
+        ``{tdst}.encoder.layers.i`` / ``{tdst}.decoder.layers.i``."""
+        for name in tp:
+            m = re.fullmatch(r"(encoder|decoder)_layer(\d+)", name)
+            if not m:
+                continue
+            p = tp[name]
+            dst = f"{tdst}.{m.group(1)}.layers.{m.group(2)}"
+            if m.group(1) == "encoder":
+                self.msda(f"{dst}.attentions.0", p["self_attn"])
+                n_norms = 2
+            else:
+                self.mha(f"{dst}.attentions.0.attn", p["self_attn"]["attn"])
+                self.msda(f"{dst}.attentions.1", p["cross_attn"])
+                n_norms = 3
+            self.ffn(f"{dst}.ffns.0", p["ffn"])
+            for k in range(n_norms):
+                self.norm(f"{dst}.norms.{k}", p[f"norm{k + 1}"])
+
     def backbone(self, bp, bs):
         self.conv("backbone.conv1", bp["stem_conv"])
         self.bn("backbone.bn1", bp["stem_bn"], bs["stem_bn"])
@@ -101,14 +138,7 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     w = _Writer()
     w.backbone(params["backbone"], stats["backbone"])
 
-    # neck
-    neck = params["neck"]
-    for name in neck:
-        m = re.fullmatch(r"(extra_)?conv(\d+)", name)
-        if m:
-            dst = f"neck.{m.group(1) or ''}convs.{m.group(2)}"
-            w.conv(f"{dst}.conv", neck[name])
-            w.norm(f"{dst}.gn", neck[f"{m.group(1) or ''}gn{m.group(2)}"])
+    w.channel_mapper(params["neck"])
 
     # head
     hp = params["bbox_head"]
@@ -125,27 +155,43 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     w.put(f"{tdst}.level_embeds", tp["level_embeds"])
     w.linear(f"{tdst}.reference_points", tp["reference_points"])
 
-    def msda(dst, p):
-        for lin in ("sampling_offsets", "attention_weights", "value_proj",
-                    "output_proj"):
-            w.linear(f"{dst}.{lin}", p[lin])
+    w.deformable_layers(tdst, tp)
+    return w.out
 
-    for name in tp:
-        m = re.fullmatch(r"(encoder|decoder)_layer(\d+)", name)
-        if not m:
-            continue
-        p = tp[name]
-        dst = f"{tdst}.{m.group(1)}.layers.{m.group(2)}"
-        if m.group(1) == "encoder":
-            msda(f"{dst}.attentions.0", p["self_attn"])
-            n_norms = 2
-        else:
-            w.mha(f"{dst}.attentions.0.attn", p["self_attn"]["attn"])
-            msda(f"{dst}.attentions.1", p["cross_attn"])
-            n_norms = 3
-        w.ffn(f"{dst}.ffns.0", p["ffn"])
-        for k in range(n_norms):
-            w.norm(f"{dst}.norms.{k}", p[f"norm{k + 1}"])
+
+def deformable_detr_state_dict_from_jax(variables: Dict[str, Any]
+                                        ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/deformable_detr.DeformableDETR`` variables ->
+    mmdet-keyed CPU tensors for the port's ``models.deformable_detr.
+    DeformableDETR`` (mmdet's ``deformable_detr_head.py`` names; JAX has
+    no converter for this family). Without refinement JAX holds one
+    ``cls_branch0`` / ``reg0_*`` set, written to every layer's index, as
+    mmdet's shared branches are."""
+    params = variables["params"]
+    w = _Writer()
+    w.backbone(params["backbone"], variables.get("batch_stats",
+                                                 {})["backbone"])
+    w.channel_mapper(params["neck"])
+    hp = params["bbox_head"]
+    tdst = "bbox_head.transformer"
+    w.put(f"{tdst}.level_embeds", hp["level_embeds"])
+    w.deformable_layers(tdst, hp)
+    if "enc_output" in hp:
+        w.linear(f"{tdst}.enc_output", hp["enc_output"])
+        w.norm(f"{tdst}.enc_output_norm", hp["enc_output_norm"])
+        w.linear(f"{tdst}.pos_trans", hp["pos_trans_fc"])
+        w.norm(f"{tdst}.pos_trans_norm", hp["pos_trans_norm"])
+    else:
+        w.put("bbox_head.query_embedding.weight", hp["query_embedding"])
+        w.linear(f"{tdst}.reference_points", hp["reference_points"])
+    n_dec = sum(bool(re.fullmatch(r"decoder_layer\d+", k)) for k in hp)
+    num_pred = n_dec + int("enc_output" in hp)
+    shared = "cls_branch1" not in hp
+    for i in range(num_pred):
+        j = 0 if shared else i
+        w.linear(f"bbox_head.cls_branches.{i}", hp[f"cls_branch{j}"])
+        for k, name in ((0, "fc0"), (2, "fc1"), (4, "out")):
+            w.linear(f"bbox_head.reg_branches.{i}.{k}", hp[f"reg{j}_{name}"])
     return w.out
 
 

@@ -17,7 +17,7 @@ port by the registry's ``from_jax``.
   the KLs of two untrained models are sums near zero), one family step's
   losses and four named gradients (1e-3 relative L2, dropout 0); the
   two-task run is in test_torch_port_detr_incremental.
-- The registry lists the five archs the port builds, and an arch it does
+- The registry lists the six archs the port builds, and an arch it does
   not build raises.
 """
 import functools
@@ -465,14 +465,15 @@ def test_inference_detector_refuses_another_family():
 # --- the registry ------------------------------------------------------------
 
 def test_registry_lists_the_ported_archs():
-    assert registry.archs() == ("deformable_detr_il", "detr",
-                                "gfl_deformable_detr", "yolof", "yoloy")
+    assert registry.archs() == ("deformable_detr", "deformable_detr_il",
+                                "detr", "gfl_deformable_detr", "yolof",
+                                "yoloy")
     for arch in registry.archs():
         spec = registry.get_family(arch)
         for key in ("build", "init_weights", "from_jax", "eval_step"):
             assert callable(spec[key]), (arch, key)
         assert (spec["losses"] is None) != (spec["train_step"] is None)
-    for arch in ("detr", "yolof", "yoloy"):
+    for arch in ("deformable_detr", "detr", "yolof", "yoloy"):
         assert registry.get_family(arch)["losses"] is not None
     for arch in ("yolox", "no_such_arch"):
         with pytest.raises(ValueError, match=repr(arch)):

@@ -110,6 +110,38 @@ def test_ab_cli_needs_cuda_unless_asked_for_the_cpu():
         TS.main(["no-such-variant", "--device", "cpu"])
 
 
+def test_sweep_runs_each_seed_and_prints_their_mean(monkeypatch, capsys):
+    """One SWEEP line per seed (its seed in it), then SWEEP_MEAN with the
+    mean and sample sd of each mAP; TF32 is off afterwards."""
+    import json
+
+    seen = []
+
+    def fake(steps1, steps2, seed, device, **kw):
+        seen.append((steps1, steps2, seed, device))
+        r = dict.fromkeys(MAPS, float(seed))
+        return dict(r, distill_new=10.0 * seed, task1_ms=1.0,
+                    distill_ms=1.0, finetune_ms=1.0, wall_s=1.0)
+
+    monkeypatch.setattr(TS, "run_forgetting_ab", fake)
+    # restored after the test: main turns TF32 off for the process
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert TS.main(["ref+soft@600/400", "--device", "cpu",
+                    "--seed", "1", "3"]) == 0
+    assert seen == [(400, 600, 1, "cpu"), (400, 600, 3, "cpu")]
+    lines = capsys.readouterr().out.splitlines()
+    runs = [json.loads(ln[6:]) for ln in lines if ln.startswith("SWEEP ")]
+    assert [r["seed"] for r in runs] == [1, 3]
+    mean = json.loads([ln for ln in lines
+                       if ln.startswith("SWEEP_MEAN ")][0][11:])
+    assert mean["n"] == 2 and mean["variant"] == "ref+soft@600/400"
+    assert mean["teacher_old"] == {"mean": 2.0, "sd": 2 ** 0.5}
+    assert mean["distill_new"] == {"mean": 20.0, "sd": 200 ** 0.5}
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
 @pytest.mark.slow
 def test_port_distill_beats_finetune_on_combined_map():
     """tests/test_forgetting_ab.py's pinned A/B and asserts, on the port."""

@@ -13,7 +13,12 @@ tasks and the ``test`` CLI on its last checkpoint, loads
 ``configs/yolof_40_40_il.py`` and ``configs/yoloy_40_40_il.py``, cut to a
 tiny size, runs one family step of each with a teacher, the
 ``train_increment`` CLI for two tasks and the ``test`` CLI on each, a
-class-aware NMS on both of its paths, and reports which modules it loaded.
+class-aware NMS on both of its paths, loads the three
+``configs/deformable_detr_*.py``, cut to a tiny size, runs one family step
+of each, the two-stage forward under ``DSKD_PREMAP=1`` and
+``DSKD_PACK_NOTRANS=1`` against its default branch, and the
+``train_increment`` and ``test`` CLIs on the two-stage config, and
+reports which modules it loaded.
 An import hook refuses ``jax``, ``jaxlib``, ``flax`` and ``dskd_tpu``
 throughout."""
 import json
@@ -164,6 +169,43 @@ postprocess._nms_keep_tiled = (lambda shifted, svalid, iou_thr, tile:
                                                           iou_thr))
 scan = batched_nms(*nms_args)
 postprocess._nms_keep_tiled = keep_tiled
+# vanilla Deformable DETR: its three configs, a family step each, the
+# premap and no-transpose forwards and both CLIs on the two-stage config
+ddetr = {}
+for name in ("", "refine_", "twostage_"):
+    xfile = f"configs/deformable_detr_{name}r50_50e.py"
+    xcfg = load_config(xfile)
+    xcfg = dataclasses.replace(xcfg, model=dataclasses.replace(
+        xcfg.model, num_classes=8, num_query=12, depth=18,
+        num_encoder_layers=1, num_decoder_layers=1))
+    xmodel = init_variables(build_model(xcfg, "cpu"), xcfg, 0)
+    xstate = TrainState.create(xmodel, make_optimizer(
+        xmodel, step_lr_schedule(1e-4)), seed=0)
+    xstep = make_family_train_step("deformable_detr", xmodel, xcfg, 4, True)
+    xstate, xlosses = xstep(xstate, batch, frozen_copy(xmodel))
+    ddetr[name or "base"] = [xcfg.model.with_box_refine,
+                             xcfg.model.as_two_stage,
+                             sorted(k for k, v in xlosses.items()
+                                    if bool(torch.isfinite(v)))]
+with torch.no_grad():
+    base_out = xmodel.eval()(batch.images, batch.img_hw).head
+    layouts = {}
+    for var in ("DSKD_PREMAP", "DSKD_PACK_NOTRANS"):
+        os.environ[var] = "1"
+        got = xmodel(batch.images, batch.img_hw).head
+        del os.environ[var]
+        layouts[var] = all(bool(torch.allclose(a, b, rtol=1e-4, atol=1e-4))
+                           for a, b in zip(got[:2], base_out[:2]))
+xwork = os.path.join(root, "ddetr")
+xfile = "configs/deformable_detr_twostage_r50_50e.py"
+sys.argv = ["train_increment", xfile, "--work-dir", xwork, "--seed", "1",
+            "--device", "cpu", "--set", *sets]
+runpy.run_module("dskd_tpu_torch.tools.train_increment", run_name="__main__")
+xstats = test_cli.main([xfile, "--work-dir", xwork, "--device", "cpu",
+                        "--set", *sets])
+ddetr["cli"] = [sorted(os.path.basename(p) for p in
+                       glob.glob(os.path.join(xwork, "task_*"))),
+                0.0 <= xstats["bbox_mAP"] <= 1.0]
 out = os.path.join(root, "dets.json")
 sys.argv = ["test", cfg_file, "--work-dir", work, "--device", "cpu",
             "--classwise", "--out", out, "--set", *sets]
@@ -184,6 +226,7 @@ print(json.dumps({
     "detr_rows": sorted((r["mode"], r["task"]) for r in drows),
     "detr_map": 0.0 <= dstats["bbox_mAP"] <= 1.0,
     "yolo": yolo,
+    "ddetr": ddetr, "layouts": layouts,
     "nms": [int(tiled.keep.sum()), all(bool(torch.equal(a, b))
                                        for a, b in zip(tiled, scan))],
     "trained": bool(torch.isfinite(losses["loss"])),
@@ -239,3 +282,11 @@ def test_port_slice_imports_no_jax(tmp_path):
                    "loss_obj"], ["task_1_epoch_1", "task_2_epoch_1"], True]}
     n_kept, same = report["nms"]
     assert 0 < n_kept < 600 and same
+    dec = ["loss", "loss_bbox", "loss_cls", "loss_iou"]
+    enc = ["enc.loss_bbox", "enc.loss_cls", "enc.loss_iou"]
+    assert report["ddetr"] == {
+        "base": [False, False, dec], "refine_": [True, False, dec],
+        "twostage_": [True, True, sorted(enc + dec)],
+        "cli": [["task_1_epoch_1", "task_2_epoch_1"], True]}
+    assert report["layouts"] == {"DSKD_PREMAP": True,
+                                 "DSKD_PACK_NOTRANS": True}
