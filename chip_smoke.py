@@ -75,9 +75,11 @@ Phases; the first failure raises and the script exits non-zero:
      lap_jv twin and not above the auction's on the same cost stacks,
      with the host ms of its solves beside the auction's); and the
      forgetting A/B of dskd_tpu_torch/tools/ab_forgetting.py at the 400/600
-     horizon (ResNet-18, 1+1 layers, 128x128), old / new mAP held to
-     tests/test_forgetting_ab.py's margins, ms/step per phase and the
-     wall time, each beside the card's name and power limit;
+     horizon (ResNet-18, 1+1 layers, 128x128) for 8 initial-weight seeds at
+     once, each a dskd_tpu_torch.tools.sweep_forgetting process: each
+     seed's old / new mAP and ms/step per phase, then the mean over the
+     seeds held to tests/test_forgetting_ab.py's margins, and the wall
+     time, each beside the card's name and power limit;
   9. times: kernels against twins (and against one PyTorch library call
      where one computes the same function: index_select, index_add, or
      F.embedding_bag for gather_weighted, fused_sample and fused_window) in
@@ -123,7 +125,18 @@ Phases; the first failure raises and the script exits non-zero:
      included, bit for bit;
  12. yoloy-il: the same for YOLOY-IL (configs/yoloy_40_40_il.py: ResNet-18,
      PAFPN, decoupled head at strides 8-32, 80 classes, "hard + soft" and
-     "kldv"; the (N, N) product at B=2 takes 1.1 GB).
+     "kldv"; the (N, N) product at B=2 takes 1.1 GB);
+ 13. deformable-detr: vanilla Deformable DETR (ResNet-50, 6+6 MSDA layers,
+     300 queries, 80 classes, seeded weights, f32) through the same family
+     check on its configs' 800x1344 canvas, each run held to 48 launches
+     of gather_weighted and pack_corners a forward and 48 of
+     gather_weighted_bwd a step: the two-stage config (box refinement and
+     two-stage) served at B=1 and B=2 and stepped at B=2 with a profile,
+     the peak memory and the host ms of its JV solves (decoder layers apart
+     from the encoder proposals), a 2+2-layer step against the CPU, the
+     proposals' top-k against the CPU on real logits, and the two-task
+     train_increment path; the base and refine configs served at B=1,
+     stepped once and held to the CPU at 2+2 layers.
 The last three lines are the card, the kernel report as JSON and the result
 as JSON.
 """
@@ -176,7 +189,7 @@ MSDA_WEIGHT_STD = 0.02
 # 128-query tiles: 6400 of the 640x640 canvas, not 4800 of the 640x480)
 SWITCH_VARS = ("DSKD_WGATHER", "DSKD_FUSED_ROWS", "DSKD_MXU_GATHER_ROWS",
                "DSKD_WINDOW_ROWS", "DSKD_FWIN", "DSKD_FWIN_MARGIN",
-               "DSKD_WINBWD", "DSKD_PREMAP", "DSKD_PACK_NOTRANS")
+               "DSKD_WINBWD")
 TRAIN_SWITCHES = {"wgather0": {"DSKD_WGATHER": "0"},
                   "fused": {"DSKD_FUSED_ROWS": "1200"},
                   "winbwd": {"DSKD_WINBWD": "1"},
@@ -186,9 +199,7 @@ TRAIN_CANVAS = {"window_rows": (640, 640)}      # the others: TRAIN_HW
 SERVE_SWITCHES = {"wgather0": {"DSKD_WGATHER": "0"},
                   "fused": {"DSKD_FUSED_ROWS": "1600"},
                   "window_rows": {"DSKD_WINDOW_ROWS": "1024"},
-                  "fwin640": {"DSKD_FWIN": "1"},
-                  "premap": {"DSKD_PREMAP": "1"},
-                  "notrans": {"DSKD_PACK_NOTRANS": "1"}}
+                  "fwin640": {"DSKD_FWIN": "1"}}
 # launches of each kernel in one MSDA call (four levels), forward and in
 # the backward of a differentiated call, by switch; a windowed switch
 # changes the encoder's calls only (the decoder's queries are not the
@@ -199,12 +210,7 @@ CALL = {
     "wgather0": ({"pack_corners": 4, "gather_weighted": 1, "mxu_gather": 3},
                  {"gather_weighted_bwd": 1, "mxu_gather_bwd": 3}),
     "fused": ({"pack_corners": 1, "gather_weighted": 1, "fused_sample": 3},
-              {"gather_weighted_bwd": 1, "fused_sample_bwd": 3}),
-    # DSKD_PACK_NOTRANS: plain PyTorch, as JAX's XLA branch
-    "notrans": ({}, {})}
-# DSKD_PREMAP changes the decoder's calls only: its cross-attentions sample
-# the raw memory's tables in plain PyTorch (JAX's XLA), launching nothing
-DECODER_CALL = {"premap": ({}, {})}
+              {"gather_weighted_bwd": 1, "fused_sample_bwd": 3})}
 ENCODER_CALL = {
     # 640x480 (and 512x512): level 0 in segments of source levels 0-3; the
     # windows of 0 and 1 fit (992 and 1376 rows of 640x480's 5084, of 5456
@@ -373,8 +379,8 @@ def expected_launches(switch, enc, dec, enc_bwd=0, dec_bwd=0):
     ``dec`` decoder MSDA calls, of which ``enc_bwd`` and ``dec_bwd`` are
     differentiated."""
     want = dict.fromkeys(counters(), 0)
-    enc_call = ENCODER_CALL.get(switch) or CALL.get(switch, CALL["default"])
-    dec_call = DECODER_CALL.get(switch) or CALL.get(switch, CALL["default"])
+    enc_call = ENCODER_CALL.get(switch) or CALL[switch]
+    dec_call = CALL.get(switch, CALL["default"])
     for n, calls in ((enc, enc_call[0]), (dec, dec_call[0]),
                      (enc_bwd, enc_call[1]), (dec_bwd, dec_call[1])):
         for name, k in calls.items():
@@ -397,17 +403,13 @@ TEACHERLESS = ("deformable_detr",)
 
 
 def path_launches(cfg, forwards, backwards=0):
-    """The kernels' launches on the path of ``cfg``'s family under the
-    environment now: model_launches of the default branch, or of the
-    premap decoder while DSKD_PREMAP is "1", for the MSDA families (the
-    flagship, Deformable DETR); none for a family without MSDA (DETR-IL,
-    YOLOF-IL, YOLOY-IL)."""
+    """The kernels' launches on the default path of ``cfg``'s family:
+    model_launches for the MSDA families (the flagship, Deformable DETR);
+    none for a family without MSDA (DETR-IL, YOLOF-IL, YOLOY-IL)."""
     from dskd_tpu_torch.models.detector import FLAGSHIP_ARCHS
-    from dskd_tpu_torch.models.transformer import use_premap
 
     if cfg.model.arch in FLAGSHIP_ARCHS + ("deformable_detr",):
-        switch = "premap" if use_premap(False) else "default"
-        return model_launches(switch, cfg, forwards, backwards)
+        return model_launches("default", cfg, forwards, backwards)
     return dict.fromkeys(counters(), 0)
 
 
@@ -2003,31 +2005,17 @@ DISTILL_MENU = {
                                    True, ("loss_fg_feature",)),
 }
 JV_COST_RTOL = 1e-5      # C++ JV against the plain twin, total cost
-# the forgetting A/B on the card: the pinned horizon of
-# tests/test_forgetting_ab.py, whose margins it must meet
-AB_STEPS = (400, 600)
-AB_RECIPE = dict(cates_distill="hard + teacher-first + soft",
-                 feats_distill="corr + fg_info + decode_v1",
-                 teacher_score_thr=0.3)
+# the forgetting A/B on the card: the pinned 400/600 horizon of
+# tests/test_forgetting_ab.py, whose margins it must meet, run by
+# dskd_tpu_torch.tools.sweep_forgetting (TF32 off)
+AB_VARIANT = "ref+soft@600/400"
 # the margins hold on the mean over these k initial-weight seeds: one run's
-# spread crosses "distill new > 0.6 finetune new". Over 14 runs on the
-# card (dskd_tpu_torch/tools/sweep_forgetting.py, 400/600, TF32 off) that
-# margin's slack, distill_new - 0.6 finetune_new, had mean 6.29 and sd
-# 8.72, so the mean of k runs misses it with probability
-# Phi(-6.29 sqrt(k) / 8.72): 2.1% at k = 8, 0.84% at k = 11
-AB_SEEDS = tuple(range(11))
-_AB_CHILD = """
-import json, sys
-import torch
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-torch.set_num_threads(1)
-from dskd_tpu_torch.tools.ab_forgetting import run_forgetting_ab
-steps1, steps2, seed, device, recipe = json.loads(sys.argv[1])
-r = run_forgetting_ab(steps1, steps2, n_eval=12, seed=seed, device=device,
-                      **recipe)
-print("AB " + json.dumps(r), flush=True)
-"""
+# spread crosses "distill new > 0.6 finetune new". Over 58 single-seed runs
+# of this variant on the card, that margin's slack, distill_new - 0.6
+# finetune_new, had mean 7.75 and sd 9.41 (every other margin's slack: a
+# mean of 1.7 sd or more), so the mean of k runs misses it with
+# probability Phi(-7.75 sqrt(k) / 9.41): 1.5% at k = 7, 0.99% at k = 8
+AB_SEEDS = tuple(range(8))
 
 
 def menu_distill_cfg(cfg, flags, fix):
@@ -2136,18 +2124,18 @@ def check_jv(cfg, card):
     return jv_ms, auc_ms
 
 
-def run_ab_seeds(steps, seeds):
-    """run_forgetting_ab at ``steps`` with AB_RECIPE on DEVICE, TF32 off,
-    once per initial-weight seed of ``seeds``, all at once in child
-    processes of one thread each: one A/B leaves the card idle through
-    most of its step, which its host's eager launches and the auction's
-    syncs hold. Returns the results in seed order; a child that fails
-    raises, and the children still running are killed."""
+def run_ab_seeds(seeds):
+    """``python -m dskd_tpu_torch.tools.sweep_forgetting AB_VARIANT`` on
+    DEVICE once per initial-weight seed of ``seeds``, all at once, one
+    thread each: one A/B leaves the card idle through most of its step,
+    which its host's eager launches and the auction's syncs hold. Returns
+    each child's SWEEP result in seed order; a child that fails raises, and
+    the children still running are killed."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     running = [(seed, subprocess.Popen(
-        [sys.executable, "-c", _AB_CHILD,
-         json.dumps([*steps, seed, DEVICE, AB_RECIPE])], cwd=ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        [sys.executable, "-m", "dskd_tpu_torch.tools.sweep_forgetting",
+         AB_VARIANT, "--device", DEVICE, "--seed", str(seed)], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         for seed in seeds]
     results = []
     try:
@@ -2155,11 +2143,12 @@ def run_ab_seeds(steps, seeds):
             seed, proc = running[0]
             out, err = proc.communicate()
             running.pop(0)
-            lines = [ln for ln in out.splitlines() if ln.startswith("AB ")]
+            lines = [ln for ln in out.splitlines()
+                     if ln.startswith("SWEEP ")]
             if proc.returncode != 0 or not lines:
                 raise RuntimeError(f"forgetting A/B seed {seed} failed "
                                    f"(exit {proc.returncode}): {err[-2000:]}")
-            results.append(json.loads(lines[-1][3:]))
+            results.append(json.loads(lines[-1][len("SWEEP "):]))
     finally:
         for _, proc in running:
             proc.kill()
@@ -2167,23 +2156,23 @@ def run_ab_seeds(steps, seeds):
     return results
 
 
-def check_forgetting_ab(card, steps, seeds=AB_SEEDS):
+def check_forgetting_ab(card, seeds=AB_SEEDS):
     """The forgetting A/B (dskd_tpu_torch.tools.ab_forgetting) on the card
-    at ``steps``, once per initial-weight seed of ``seeds`` (run_ab_seeds):
-    each seed's old / new mAP of teacher, distilled and fine-tuned
-    students and ms/step per phase, then their mean and sd over the seeds;
-    at the pinned 400/600 horizon each of tests/test_forgetting_ab.py's
+    at the pinned 400/600 horizon (AB_VARIANT), once per initial-weight
+    seed of ``seeds`` (run_ab_seeds): each seed's old / new mAP of teacher,
+    distilled and fine-tuned students and ms/step per phase, then their
+    mean and sd over the seeds; each of tests/test_forgetting_ab.py's
     margins must hold on the mean."""
     from dskd_tpu_torch.tools.ab_forgetting import margins
 
     keys = ("teacher_old", "teacher_new", "distill_old", "distill_new",
             "finetune_old", "finetune_new")
     t0 = time.perf_counter()
-    runs = run_ab_seeds(steps, seeds)
+    runs = run_ab_seeds(seeds)
     wall = time.perf_counter() - t0
     for seed, r in zip(seeds, runs):
-        print(f"forgetting A/B {steps[0]}/{steps[1]} seed {seed}: old/new "
-              f"mAP teacher {r['teacher_old']:.2f}/{r['teacher_new']:.2f}, "
+        print(f"forgetting A/B {AB_VARIANT} seed {seed}: old/new mAP "
+              f"teacher {r['teacher_old']:.2f}/{r['teacher_new']:.2f}, "
               f"distill {r['distill_old']:.2f}/{r['distill_new']:.2f}, "
               f"finetune {r['finetune_old']:.2f}/{r['finetune_new']:.2f}; "
               f"ms/step task1 {r['task1_ms']:.3f}, distill "
@@ -2194,18 +2183,16 @@ def check_forgetting_ab(card, steps, seeds=AB_SEEDS):
           else 0.0 for k in keys}
     comb_d = mean["distill_old"] + mean["distill_new"]
     comb_f = mean["finetune_old"] + mean["finetune_new"]
-    print(f"forgetting A/B {steps[0]}/{steps[1]}: mean (sd) over "
-          f"{len(runs)} seeds: " + ", ".join(
-              f"{k} {mean[k]:.2f} ({sd[k]:.2f})" for k in keys)
+    print(f"forgetting A/B {AB_VARIANT}: mean (sd) over {len(runs)} seeds: "
+          + ", ".join(f"{k} {mean[k]:.2f} ({sd[k]:.2f})" for k in keys)
           + f"; combined distill {comb_d:.2f} vs finetune {comb_f:.2f}; "
           f"wall {wall:.1f} s, all at once [{card}]")
-    if tuple(steps) == (400, 600):
-        held = margins(mean)
-        print(f"forgetting A/B margins (tests/test_forgetting_ab.py) on the "
-              f"mean of {len(runs)} seeds: {held}")
-        if not all(held.values()):
-            raise AssertionError(f"forgetting A/B margins failed on the "
-                                 f"mean: {held}")
+    held = margins(mean)
+    print(f"forgetting A/B margins (tests/test_forgetting_ab.py) on the "
+          f"mean of {len(runs)} seeds: {held}")
+    if not all(held.values()):
+        raise AssertionError(f"forgetting A/B margins failed on the mean: "
+                             f"{held}")
     return mean
 
 
@@ -2224,7 +2211,7 @@ def check_distill_menu(cfg, card):
                                      for k in keys))
         check_train_card_vs_cpu(cfg, dcfg, tag)
     check_jv(cfg, card)
-    check_forgetting_ab(card, AB_STEPS)
+    check_forgetting_ab(card)
 
 
 # --- the families behind the registry: DETR-IL, YOLOF-IL, YOLOY-IL ----------
@@ -2563,15 +2550,24 @@ def _yolo_heads(cfg, out):
                     flatten_levels(out.head)))
 
 
-DDETR_GRAD_PARAMS = (
-    "backbone.layer4.0.conv2.weight",
-    "bbox_head.transformer.encoder.layers.0.attentions.0.sampling_offsets."
-    "weight",
-    "bbox_head.transformer.decoder.layers.1.attentions.1.value_proj.weight",
-    "bbox_head.cls_branches.0.weight",
-    # the output layer: its zero init leaves the earlier ones no gradient
-    "bbox_head.reg_branches.0.4.weight",
-    "bbox_head.transformer.enc_output.weight")     # two-stage only
+
+
+def ddetr_grad_params(m):
+    """The named gradients of a Deformable-DETR model config: the proposal
+    head's enc_output in the two-stage configuration only."""
+    names = (
+        "backbone.layer4.0.conv2.weight",
+        "bbox_head.transformer.encoder.layers.0.attentions.0."
+        "sampling_offsets.weight",
+        "bbox_head.transformer.decoder.layers.1.attentions.1.value_proj."
+        "weight",
+        "bbox_head.cls_branches.0.weight",
+        # the output layer: its zero init leaves the earlier ones no gradient
+        "bbox_head.reg_branches.0.4.weight")
+    if m.as_two_stage:
+        names += ("bbox_head.transformer.enc_output.weight",)
+    return names
+
 
 FAMILIES = {
     "detr": dict(
@@ -2605,7 +2601,7 @@ FAMILIES = {
         thread_spread_params=(), train_checks=check_yolo_teacher),
     "deformable_detr": dict(
         tag="deformable-detr", models=ddetr_models,
-        grad_params=DDETR_GRAD_PARAMS,
+        grad_params=ddetr_grad_params,
         describe=lambda m: (f"ResNet-{m.depth}, {m.num_encoder_layers}+"
                             f"{m.num_decoder_layers} MSDA layers, "
                             f"{m.num_query} queries, box refinement "
@@ -2627,13 +2623,16 @@ def rel_l2(got, want):
     return float((got - want).norm() / want.norm())
 
 
-def check_family_card_vs_cpu(fam, cfg, card, dtype, n=2, hw=CANVAS_HW):
+def check_family_card_vs_cpu(fam, cfg, card, dtype, n=2, hw=CANVAS_HW,
+                             tag=None):
     """One family step's losses, named gradients and BatchNorm running
     buffers at B=n on the canvas ``hw``, dropout 0, card against CPU
     (LOSS_TOL, GRAD_REL_TOL, BN_TOL) in ``dtype``, through the registry's
     losses_fn: DETR and Deformable DETR at 2+2 layers, YOLOF and YOLOY at
     full depth; a family's ``prepare_compare`` first (Deformable DETR's
-    tie_proposals). A family's
+    tie_proposals). ``grad_params`` names the gradients compared, or maps
+    the model config to them (Deformable DETR); a name the model lacks
+    raises. A family's
     ``thread_spread_params`` are gradients that f32 decides only loosely at
     the init: in f32 the CPU's step is rerun on one thread, and each of
     them is held to THREAD_SPREAD_TOL instead, beside its spread between
@@ -2657,17 +2656,17 @@ def check_family_card_vs_cpu(fam, cfg, card, dtype, n=2, hw=CANVAS_HW):
         losses = losses_fn(student, batch, teacher, None)
         parse_losses(losses).backward()
         params = dict(student.named_parameters())
-        # the named gradients this configuration has (enc_output: two-stage)
         return ({k: v.detach().cpu() for k, v in losses.items()},
-                {k: params[k].grad.cpu() for k in fam["grad_params"]
-                 if k in params},
+                {k: params[k].grad.cpu() for k in grad_params},
                 {k: v.cpu() for k, v in student.state_dict().items()
                  if k.endswith(("running_mean", "running_var"))})
 
+    grad_params = fam["grad_params"]
+    if callable(grad_params):
+        grad_params = grad_params(cfg.model)
     (losses, grads, bufs), (c_losses, c_grads, c_bufs) = step(DEVICE), \
         step("cpu")
-    tag = fam["tag"]
-    grad_params = list(c_grads)
+    tag = tag or fam["tag"]
     tol = dict.fromkeys(grad_params, GRAD_REL_TOL)
     spread_params = (fam["thread_spread_params"] if dtype == torch.float32
                      else ())
@@ -2712,7 +2711,7 @@ def check_family_card_vs_cpu(fam, cfg, card, dtype, n=2, hw=CANVAS_HW):
 
 
 def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
-                 inc_kw=None):
+                 inc_kw=None, full=True):
     """Phases 10-13: one family of the registry (FAMILIES) at the config's
     width and depth, f32, TF32 off, seeded weights. Serving: the registry's
     eval step at B=1 and B=8 (the family's ``serve_batches``) on the
@@ -2729,14 +2728,18 @@ def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
     layer and level for Deformable DETR. Incremental: the
     train_increment CLI's path for two tasks of 4 steps at B=2, eval after
     each, the task-2 teacher's BatchNorm buffers those of task 1's final
-    student, and the task-2 checkpoint restored bit for bit."""
+    student, and the task-2 checkpoint restored bit for bit. With
+    ``full=False`` (Deformable DETR's base and refine configs) it serves at
+    B=1 with no full-depth head check against the CPU, takes one training
+    step, and skips the profile, the peak memory, the family's own checks
+    and the incremental run; the step against the CPU stays."""
     from dskd_tpu_torch.apis.inference import init_detector, prepare_batch
     from dskd_tpu_torch.eval.evaluator import make_eval_step
     from dskd_tpu_torch.train.family import make_family_train_step
     from dskd_tpu_torch.utils.config import apply_overrides, load_config
 
     fam = FAMILIES[arch]
-    tag = fam["tag"]
+    tag = fam["tag"] if full else f"{fam['tag']} {os.path.basename(config)}"
     cfg = apply_overrides(load_config(config), list(sets))
     m, d = cfg.model, cfg.distill
     if m.arch != arch:
@@ -2757,7 +2760,7 @@ def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
     rng = np.random.RandomState(3)
     imgs = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
             for h, w in fam.get("serve_shapes", CANVAS_VALID * 2)]
-    sizes = fam.get("serve_batches", (1, 8))
+    sizes = fam.get("serve_batches", (1, 8)) if full else (1,)
     batches = {bsz: prepare_batch(cfg, imgs[:1] if bsz == 1 else
                                   imgs[-bsz:], DEVICE) for bsz in sizes}
     reset_counts()
@@ -2776,21 +2779,8 @@ def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
           f"{img_hw.tolist()}; outputs finite at B="
           f"{' and B='.join(map(str, sizes))}; launches per forward "
           f"{per_forward}")
-    cpu_model, _ = init_detector(cfg, device="cpu", seed=0)
-    if fam.get("prepare_compare"):
-        fam["prepare_compare"](model)
-        fam["prepare_compare"](cpu_model)
-    with torch.inference_mode():
-        got_heads = fam["heads"](cfg, model(images, img_hw))
-        want_heads = fam["heads"](cfg, cpu_model(images.cpu(), img_hw.cpu()))
-    errs = {}
-    for name, want in want_heads.items():
-        got = got_heads[name].cpu()
-        torch.testing.assert_close(got, want, **HEAD_TOL)
-        errs[name] = float((got - want).abs().max())
-    del cpu_model
-    print(f"{tag} serve: card vs CPU head outputs, B={max(sizes)}, max abs "
-          f"err {errs} (tolerance {HEAD_TOL})")
+    if full:
+        check_serve_heads_vs_cpu(fam, cfg, tag, model, images, img_hw)
     for bsz, batch in batches.items():
         for _ in range(2):
             step(*batch)
@@ -2817,9 +2807,10 @@ def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
                         (contextlib.nullcontext(), lambda: "",
                          lambda cfg: ""))
     per_step = step_launches(cfg, has_teacher=True)
+    n_steps = 3 if full else 1
     reset_counts()
     with ctx:
-        for i in range(3):
+        for i in range(n_steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, losses = train(state, batch, teacher)
@@ -2835,33 +2826,57 @@ def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
                   f"{ms:.3f} ms/step, {n / ms * 1e3:.3f} img/s, loss "
                   f"{float(losses['loss']):.5f} ({parts}){note()} [{card}]")
     launched = read_counts()
-    if launched != times(per_step, 3):
+    if launched != times(per_step, n_steps):
         raise AssertionError(f"{tag} train launched {launched}, expected "
                              f"{per_step} per step")
     print(f"{tag} train: {len(losses)} loss keys {sorted(losses)}; "
-          f"launches per step {per_step}, held in 3 steps{after(cfg)}")
-    reset_counts()
-    profile(lambda: train(state, batch, teacher),
-            f"one {tag} B={n} f32 train step")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    train(state, batch, teacher)
-    torch.cuda.synchronize()
-    print(f"{tag} train: peak memory of one B={n} step "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
-          f"(torch.cuda.max_memory_allocated) [{card}]")
-    if fam["train_checks"]:
-        fam["train_checks"](fam, cfg, card, student, teacher, batch)
-    # the profile's two steps and the peak memory's one
-    if read_counts() != times(per_step, 3):
-        raise AssertionError(f"{tag} train launched {read_counts()}")
+          f"launches per step {per_step}, held in {n_steps} "
+          f"step{'s' * (n_steps > 1)}{after(cfg)}")
+    if full:
+        reset_counts()
+        profile(lambda: train(state, batch, teacher),
+                f"one {tag} B={n} f32 train step")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        train(state, batch, teacher)
+        torch.cuda.synchronize()
+        print(f"{tag} train: peak memory of one B={n} step "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+              f"(torch.cuda.max_memory_allocated) [{card}]")
+        if fam["train_checks"]:
+            fam["train_checks"](fam, cfg, card, student, teacher, batch)
+        # the profile's two steps and the peak memory's one
+        if read_counts() != times(per_step, 3):
+            raise AssertionError(f"{tag} train launched {read_counts()}")
     del state, student, teacher, train
     for dtype in fam["vs_cpu_dtypes"]:
-        check_family_card_vs_cpu(fam, cfg, card, dtype, hw=hw)
+        check_family_card_vs_cpu(fam, cfg, card, dtype, hw=hw, tag=tag)
 
-    # run_incremental through the train_increment CLI's config path
-    check_incremental(card, config, sets=(*sets, *FAMILY_INC_SETS),
-                      **(inc_kw or {}))
+    if full:
+        # run_incremental through the train_increment CLI's config path
+        check_incremental(card, config, sets=(*sets, *FAMILY_INC_SETS),
+                          **(inc_kw or {}))
+
+
+def check_serve_heads_vs_cpu(fam, cfg, tag, model, images, img_hw):
+    """The head outputs of ``model`` on the card against the same seed's
+    model on the CPU (HEAD_TOL), after the family's ``prepare_compare``."""
+    from dskd_tpu_torch.apis.inference import init_detector
+
+    cpu_model, _ = init_detector(cfg, device="cpu", seed=0)
+    if fam.get("prepare_compare"):
+        fam["prepare_compare"](model)
+        fam["prepare_compare"](cpu_model)
+    with torch.inference_mode():
+        got_heads = fam["heads"](cfg, model(images, img_hw))
+        want_heads = fam["heads"](cfg, cpu_model(images.cpu(), img_hw.cpu()))
+    errs = {}
+    for name, want in want_heads.items():
+        got = got_heads[name].cpu()
+        torch.testing.assert_close(got, want, **HEAD_TOL)
+        errs[name] = float((got - want).abs().max())
+    print(f"{tag} serve: card vs CPU head outputs, B={images.shape[0]}, max "
+          f"abs err {errs} (tolerance {HEAD_TOL})")
 
 
 def check_detr(card, config=DETR_CONFIG, sets=(), n_train=None, hw=CANVAS_HW,
@@ -2872,184 +2887,61 @@ def check_detr(card, config=DETR_CONFIG, sets=(), n_train=None, hw=CANVAS_HW,
     check_family(card, "detr", config, sets, n_train, hw, inc_kw)
 
 
-def check_ddetr_variant(card, config):
-    """Phase 13, the base and refine configs at full width and depth:
-    serving at B=1 through the registry's eval step (finite, launches,
-    ms/image), two family steps at the config's samples_per_device
-    (launches held per step, ms/step) and one step card vs CPU at 2+2
-    layers."""
-    from dskd_tpu_torch.apis.inference import init_detector, prepare_batch
-    from dskd_tpu_torch.eval.evaluator import make_eval_step
-    from dskd_tpu_torch.train.family import make_family_train_step
-    from dskd_tpu_torch.utils.config import apply_overrides, load_config
+def check_proposal_topk(cfg, card, n=2):
+    """The two-stage proposals' stable top-k on real logits (no
+    tie_proposals), card against CPU at 2+2 layers, dropout off, B=n on the
+    config's canvas: each device's select_proposals of its own class-0
+    logits; every selected query whose CPU logit stands more than twice
+    the devices' largest logit difference from both sorted neighbours
+    must pick the same token on the card."""
+    from dskd_tpu_torch.models.deformable_detr import select_proposals
 
     fam = FAMILIES["deformable_detr"]
-    cfg = apply_overrides(load_config(config), list(DDETR_SETS))
-    m = cfg.model
-    hw = tuple(cfg.data.bucket)
-    tag = f"{fam['tag']} {os.path.basename(config)}"
-    print(f"{tag}: {fam['describe'](m)}, {m.num_classes} classes [{card}]")
-    model, _ = init_detector(cfg, device=DEVICE, seed=0)
-    step = make_eval_step(model, m.reg_max, cfg.test_score_thr,
-                          cfg.test_max_per_img, arch=m.arch)
-    img = np.random.RandomState(3).randint(0, 256, CANVAS_VALID[0] + (3,))
-    batch = prepare_batch(cfg, [img.astype(np.uint8)], DEVICE)
-    reset_counts()
-    det = step(*batch)
-    launched, want = read_counts(), path_launches(cfg, 1)
-    if not all(bool(torch.isfinite(t.float()).all()) for t in det):
-        raise AssertionError(f"{tag} serve: non-finite output")
-    if launched != want:
-        raise AssertionError(f"{tag} serve: launches {launched}, expected "
-                             f"{want}")
-    ms = cuda_ms(lambda: step(*batch), iters=3, warmup=1)
-    print(f"  {tag} serve B=1 {tuple(batch[0].shape[1:3])}: eval step "
-          f"{ms:.3f} ms/image (CUDA events around the call, f32); launches "
-          f"{launched} [{card}]")
-    del model, step
-
-    n = cfg.data.samples_per_device
-    student, teacher = ddetr_models(cfg, DEVICE)
-    state = train_state(cfg, student)
-    train = make_family_train_step(m.arch, student, cfg,
-                                   num_prev=cfg.data.catsplit[0],
-                                   has_teacher=True)
-    tbatch = family_batch(DEVICE, n, hw)
-    want = step_launches(cfg, has_teacher=True)
-    for i in range(2):
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, losses = train(state, tbatch, teacher)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        launched = read_counts()
-        if launched != want or not all(bool(torch.isfinite(v))
-                                       for v in losses.values()):
-            raise AssertionError(f"{tag} train: launches {launched} "
-                                 f"(expected {want}), losses {losses}")
-        print(f"  {tag} train f32 B={n} {hw[0]}x{hw[1]} step {i}: {ms:.3f} "
-              f"ms/step, loss {float(losses['loss']):.5f}; launches "
-              f"{launched} [{card}]")
-    del state, student, teacher, train
-    check_family_card_vs_cpu(fam, cfg, card, torch.float32, hw=hw)
-
-
-def check_ddetr_premap(card):
-    """Phase 13, DSKD_PREMAP=1 against the default branch with the same
-    weights on the two-stage config at full width and depth, B=2 on its
-    canvas: one serving forward (every layer's head outputs within
-    HEAD_TOL) and one training forward and backward at dropout 0.1 with
-    one generator seed (every loss within LOSS_TOL, the named gradients
-    within GRAD_REL_TOL), with the launches of each; then the family
-    step's ms/step under each, in turns (default, premap, premap, default;
-    3 steps a turn, after one step of each to warm up)."""
-    from dskd_tpu_torch.registry import get_family
-    from dskd_tpu_torch.train.family import make_family_train_step
-    from dskd_tpu_torch.train.step import parse_losses
-    from dskd_tpu_torch.utils.config import apply_overrides, load_config
-
-    premap = {"DSKD_PREMAP": "1"}
-    cfg = apply_overrides(load_config(DDETR_TWOSTAGE), list(DDETR_SETS))
-    hw, n = tuple(cfg.data.bucket), cfg.data.samples_per_device
-    tag = "deformable-detr premap"
-    student, teacher = ddetr_models(cfg, DEVICE)
-    batch = family_batch(DEVICE, n, hw)
-
-    def serve():
-        reset_counts()
+    hw, Q = tuple(cfg.data.bucket), cfg.model.num_query
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        student, _ = ddetr_models(cfg, dev, **fam["small"])
+        batch = family_batch(dev, n, hw)
         with torch.inference_mode():
-            out = student.eval()(batch.images, batch.img_hw).head
-        return out, read_counts()
-
-    ref, launched = serve()
-    with switched(premap):
-        out, p_launched = serve()
-        want = path_launches(cfg, 1)
-    if p_launched != want:
-        raise AssertionError(f"{tag} serve: launches {p_launched}, "
-                             f"expected {want}")
-    errs = {}
-    for name in ("cls_scores", "bbox_preds"):
-        torch.testing.assert_close(getattr(out, name), getattr(ref, name),
-                                   **HEAD_TOL)
-        errs[name] = _max_err(getattr(out, name), getattr(ref, name))
-    print(f"{tag} serve B={n} {hw[0]}x{hw[1]}: every layer's head outputs "
-          f"vs the default branch, max abs err {errs} (tolerance "
-          f"{HEAD_TOL}); launches default {launched}, premap {p_launched} "
-          f"[{card}]")
-
-    losses_fn = get_family("deformable_detr")["losses"](
-        None, cfg, num_prev=cfg.data.catsplit[0], has_teacher=False,
-        use_dropout=True)
-
-    def run():
-        student.zero_grad(set_to_none=True)
-        reset_counts()
-        gen = torch.Generator(device=DEVICE).manual_seed(5)
-        losses = losses_fn(student.train(), batch, None, gen)
-        parse_losses(losses).backward()
-        params = dict(student.named_parameters())
-        return ({k: v.detach() for k, v in losses.items()},
-                {k: params[k].grad.clone() for k in DDETR_GRAD_PARAMS},
-                read_counts())
-
-    losses, grads, launched = run()
-    with switched(premap):
-        p_losses, p_grads, p_launched = run()
-        want = path_launches(cfg, 1, 1)
-    if p_launched != want:
-        raise AssertionError(f"{tag} train: launches {p_launched}, "
-                             f"expected {want}")
-    for k, v in losses.items():
-        torch.testing.assert_close(p_losses[k], v, **LOSS_TOL, msg=k)
-    loss_err = max(float((p_losses[k] - v).abs()) for k, v in losses.items())
-    grad_err = {k: rel_l2(p_grads[k], g) for k, g in grads.items()}
-    bad = {k: e for k, e in grad_err.items() if not e <= GRAD_REL_TOL}
-    if bad:
-        raise AssertionError(f"{tag} train: gradients differ {bad}")
-    print(f"{tag} train B={n}: {len(losses)} loss keys vs the default "
-          f"branch, largest abs err {loss_err:.3e} (tolerance {LOSS_TOL}); "
-          f"gradients rel L2 err {grad_err} (tolerance {GRAD_REL_TOL}); "
-          f"launches default {launched}, premap {p_launched} [{card}]")
-
-    state = train_state(cfg, student)
-    train = make_family_train_step("deformable_detr", student, cfg,
-                                   num_prev=cfg.data.catsplit[0],
-                                   has_teacher=True)
-    turns = {"default": [], "premap": []}
-    for env in ({}, premap):
-        with switched(env):
-            state, _ = train(state, batch, teacher)
-    for name in ("default", "premap", "premap", "default"):
-        with switched(premap if name == "premap" else {}):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(3):
-                state, _ = train(state, batch, teacher)
-            torch.cuda.synchronize()
-        turns[name].append((time.perf_counter() - t0) / 3 * 1e3)
-    print(f"{tag}: family step f32 B={n} {hw[0]}x{hw[1]}, ms/step default "
-          f"{[round(t, 3) for t in turns['default']]} vs premap "
-          f"{[round(t, 3) for t in turns['premap']]} (turns default, premap, "
-          f"premap, default; 3 steps each; host clock around synchronised "
-          f"steps) [{card}]")
+            h = student.eval()(batch.images, batch.img_hw).head
+            idx = select_proposals(h.enc_cls_scores, h.enc_token_valid, Q)
+        got[dev] = (h.enc_cls_scores[..., 0].cpu(), h.enc_token_valid.cpu(),
+                    idx.cpu())
+    (score, valid, idx), (c_score, c_valid, c_idx) = got[DEVICE], got["cpu"]
+    if not torch.equal(valid, c_valid):
+        raise AssertionError("proposal top-k: the valid tokens differ")
+    gap = float((score - c_score)[valid].abs().max())
+    top = torch.where(c_valid, c_score, torch.full_like(c_score, -1e9)).sort(
+        dim=1, descending=True, stable=True)[0][:, :Q + 1]
+    spacing = top[:, :-1] - top[:, 1:]        # (n, Q): s_j - s_(j+1)
+    apart = spacing > 2 * gap
+    apart[:, 1:] &= spacing[:, :-1] > 2 * gap
+    same = idx == c_idx
+    print(f"proposal top-k, card vs CPU ({fam['small_note']}B={n}, "
+          f"{hw[0]}x{hw[1]}, real logits): {int(apart.sum())} of {n * Q} "
+          f"selected queries stand > 2 x {gap:.3e} (the devices' largest "
+          f"class-0 logit difference) from their neighbours; the card "
+          f"picks the CPU's token in {int(same[apart].sum())} of them and "
+          f"in {int(same.sum())} of all [{card}]")
+    if not apart.any() or not bool(same[apart].all()):
+        raise AssertionError("proposal top-k: the card selects other tokens")
 
 
 def check_ddetr(card):
     """Phase 13: the vanilla Deformable-DETR family. The two-stage config
     (box refinement and two-stage: R50, 6+6 layers, 300 queries, 80
-    classes) through check_family on its 800x1344 canvas at B=2, the base
-    and refine configs through check_ddetr_variant, then the premap
-    decoder against the default branch."""
+    classes) through check_family on its 800x1344 canvas at B=2, its
+    proposals' top-k against the CPU on real logits, then the base and
+    refine configs through check_family with ``full=False``."""
     from dskd_tpu_torch.utils.config import apply_overrides, load_config
 
     cfg = apply_overrides(load_config(DDETR_TWOSTAGE), list(DDETR_SETS))
-    check_family(card, "deformable_detr", DDETR_TWOSTAGE, DDETR_SETS,
-                 hw=tuple(cfg.data.bucket))
+    hw = tuple(cfg.data.bucket)
+    check_family(card, "deformable_detr", DDETR_TWOSTAGE, DDETR_SETS, hw=hw)
+    check_proposal_topk(cfg, card)
     for config in (DDETR_BASE, DDETR_REFINE):
-        check_ddetr_variant(card, config)
-    check_ddetr_premap(card)
+        check_family(card, "deformable_detr", config, DDETR_SETS, hw=hw,
+                     full=False)
 
 
 def main() -> int:
@@ -3142,7 +3034,10 @@ def main() -> int:
         check_train_switch_vs_default(cfg, switch)
 
     check_incremental(card)
+    t8 = time.perf_counter()
     check_distill_menu(cfg, card)
+    print(f"distill menu, JV and A/B: phase 8 took "
+          f"{time.perf_counter() - t8:.1f} s")
 
     ktimes, kbounds, sampling, wtimes = report_kernel_times(card, gen)
     stimes = time_slice(model, cfg, {1: imgs[:1], 4: imgs})

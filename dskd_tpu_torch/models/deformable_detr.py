@@ -13,8 +13,8 @@ decodes from the reference before it. Two-stage (``as_two_stage``) scores
 every encoder token against an anchor proposal, starts the decoder from the
 top ``num_query`` of them by class-0 logit (detached, ties to the lower
 token, as ``lax.top_k``) and trains the proposals class-agnostically
-(``enc.`` losses). The decoder's cross-attention takes the premap layout
-when ``DSKD_PREMAP`` is "1" at call time, as JAX's head does.
+(``enc.`` losses). JAX's opt-in premap decoder layout (``DSKD_PREMAP``)
+is not ported.
 
 Parameter names follow mmdet's ``deformable_detr_head.py`` and
 ``DeformableDetrTransformer`` (``bbox_head.cls_branches.i``,
@@ -43,9 +43,8 @@ from .gfl_detr_head import DetResults, bias_init_with_prob
 from .positional import sine_positional_encoding
 from .resnet import ResNet
 from .transformer import (DecoderLayer, EncoderLayer, MSDeformAttention,
-                          _Layers, decoder_memory, encoder_reference_points,
-                          inverse_sigmoid, level_masks_and_ratios,
-                          level_valid_wh, msda_offset_bias, use_premap)
+                          _Layers, encoder_reference_points, inverse_sigmoid,
+                          level_masks_and_ratios, msda_offset_bias)
 
 
 class DDETRHeadOutputs(NamedTuple):
@@ -79,6 +78,13 @@ def proposal_pos_embed(proposals: torch.Tensor, num_pos_feats: int = 128,
     return pos.flatten(2)
 
 
+def level_valid_wh(valid_ratios, spatial_shapes):
+    """(B, L, 2) f32 valid (w, h) token counts of each level."""
+    level_wh = torch.tensor([[w, h] for (h, w) in spatial_shapes],
+                            dtype=torch.float32, device=valid_ratios.device)
+    return valid_ratios.float() * level_wh[None]
+
+
 def gen_encoder_output_proposals(mask_flat, spatial_shapes, valid_wh):
     """Per-token anchor proposals in logit space and their validity.
 
@@ -106,6 +112,15 @@ def gen_encoder_output_proposals(mask_flat, spatial_shapes, valid_wh):
     unact = torch.log(proposals / (1 - proposals.clamp(max=0.999999)))
     return torch.where(valid[..., None], unact,
                        torch.full_like(unact, 1e6)), valid
+
+
+def select_proposals(enc_cls, enc_valid, k):
+    """(B, k) indices of the top ``k`` valid tokens by class-0 logit of
+    ``enc_cls`` (B, S, C); stable, so that among equal scores the lower
+    token comes first, as ``lax.top_k`` does."""
+    score0 = torch.where(enc_valid, enc_cls[..., 0],
+                         torch.full_like(enc_cls[..., 0], -1e9))
+    return torch.sort(score0, dim=1, descending=True, stable=True)[1][:, :k]
 
 
 def _reg_branch(C, device):
@@ -204,11 +219,7 @@ class DeformableDETRHead(nn.Module):
             enc_cls = self.cls_branches[-1](om)                 # (B, S, C)
             enc_coord_unact = self.reg_branches[-1](om) + proposals_unact
             enc_coord = enc_coord_unact.sigmoid()
-            score0 = torch.where(enc_valid, enc_cls[..., 0],
-                                 torch.full_like(enc_cls[..., 0], -1e9))
-            # stable: among equal scores the lower token first (lax.top_k)
-            topk = torch.sort(score0, dim=1, descending=True,
-                              stable=True)[1][:, :self.num_query]
+            topk = select_proposals(enc_cls, enc_valid, self.num_query)
             topk_unact = torch.gather(enc_coord_unact, 1, topk[..., None]
                                       .expand(-1, -1, 4)).detach()
             reference_points = topk_unact.sigmoid()
@@ -221,16 +232,14 @@ class DeformableDETRHead(nn.Module):
             query = query[None].expand(B, -1, -1)
             reference_points = t.reference_points(query_pos).sigmoid()
 
-        dec = decoder_memory(memory, mask_flat, valid_wh, spatial_shapes,
-                             use_premap(False))
         cls_scores, bbox_preds = [], []
         for i, layer in enumerate(t.decoder.layers):
             ref = reference_points
             ratios = (torch.cat([valid_ratios] * 2, -1) if ref.shape[-1] == 4
                       else valid_ratios)
-            query = layer(query, query_pos, dec[0],
+            query = layer(query, query_pos, memory,
                           ref[:, :, None, :] * ratios[:, None], spatial_shapes,
-                          dec[1], generator, *dec[2:])
+                          mask_flat, generator)
             tmp = self.reg_branches[i](query)
             # layer i decodes from the reference it was given
             if ref.shape[-1] == 4:

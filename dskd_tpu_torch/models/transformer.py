@@ -8,13 +8,8 @@ Tensors are batch-first (B, S, C). Parameter names follow mmdet/mmcv
 (``encoder.layers.i.attentions.0.sampling_offsets``, ``ffns.0.layers.0.0``,
 ``norms.k``, ``attentions.0.attn.in_proj_weight``, ...). Box refinement
 and two-stage live in ``models/deformable_detr.py``, which reuses these
-layers (with 4-dim box reference points); remat is not ported.
-
-The premap decoder (``premap_decoder``, or ``DSKD_PREMAP`` read at call
-time: unset keeps the attribute, "1" turns it on, anything else off) packs
-the raw encoder memory once (``ops.msda.pack_corners_raw``) and each
-cross-attention samples it in raw C-space, applying ``value_proj`` to the
-reduction as ``acc @ W + b * wsum``; the parameters stay the same.
+layers (with 4-dim box reference points). Not ported: the premap decoder
+branch and remat.
 
 Dropout sits where the JAX layers put it: after MSDA's output projection, on
 the attention weights of ``MultiheadAttention`` (one (Q, K) mask shared
@@ -27,15 +22,13 @@ forward without a generator raises; eval mode and p = 0 turn it off.
 from __future__ import annotations
 
 import math
-import os
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.msda import (ms_deform_attn_core, ms_deform_attn_core_premap,
-                        pack_corners_raw)
+from ..ops.msda import ms_deform_attn_core
 from .positional import sine_positional_encoding
 
 
@@ -107,18 +100,19 @@ class MSDeformAttention(nn.Module):
         self.output_proj = nn.Linear(embed_dims, embed_dims, device=device)
 
     def forward(self, query, value, query_pos, reference_points,
-                spatial_shapes, key_padding_mask=None, generator=None,
-                packed_tables=None, valid_wh=None):
+                spatial_shapes, key_padding_mask=None, generator=None):
         """query (B, Q, C); value (B, S, C); reference_points (B, Q, L, 2)
         normalized points or (B, Q, L, 4) normalized (cx, cy, w, h) boxes;
-        key_padding_mask (B, S), True at padding. Premap mode: pass
-        ``packed_tables`` (``pack_corners_raw`` of the raw memory) and
-        ``valid_wh`` (B, L, 2) instead of ``value`` and the mask."""
+        key_padding_mask (B, S), True at padding."""
         B, Q, C = query.shape
         H, L, P = self.num_heads, self.num_levels, self.num_points
         identity = query
         if query_pos is not None:
             query = query + query_pos
+        v = self.value_proj(value)
+        if key_padding_mask is not None:
+            v = v.masked_fill(key_padding_mask[..., None], 0.0)
+        v = v.reshape(B, -1, H, C // H)
         offsets = self.sampling_offsets(query).reshape(B, Q, H, L, P, 2)
         weights = self.attention_weights(query).reshape(B, Q, H, L * P)
         weights = weights.softmax(-1).reshape(B, Q, H, L, P)
@@ -131,20 +125,8 @@ class MSDeformAttention(nn.Module):
                                 dtype=query.dtype, device=query.device)
             locs = (reference_points[:, :, None, :, None, :]
                     + offsets / norm[None, None, None, :, None, :])
-        if packed_tables is not None:
-            acc, wsum = ms_deform_attn_core_premap(
-                packed_tables, spatial_shapes, locs, weights, valid_wh)
-            wv = self.value_proj.weight.view(H, C // H, C)
-            out = (torch.einsum("bqhc,hdc->bqhd", acc, wv)
-                   + self.value_proj.bias.view(H, C // H).to(acc.dtype)
-                   * wsum[..., None]).reshape(B, Q, C)
-        else:
-            v = self.value_proj(value)
-            if key_padding_mask is not None:
-                v = v.masked_fill(key_padding_mask[..., None], 0.0)
-            v = v.reshape(B, -1, H, C // H)
-            out = ms_deform_attn_core(v, spatial_shapes, locs, weights,
-                                      raster_queries=self.raster_queries)
+        out = ms_deform_attn_core(v, spatial_shapes, locs, weights,
+                                  raster_queries=self.raster_queries)
         return identity + dropout(self.output_proj(out), self.dropout,
                                   self.training, generator)
 
@@ -270,14 +252,12 @@ class DecoderLayer(nn.Module):
         self.norms = _norms(3, embed_dims, device)
 
     def forward(self, query, query_pos, memory, reference_points,
-                spatial_shapes, key_padding_mask, generator=None,
-                packed_tables=None, valid_wh=None):
+                spatial_shapes, key_padding_mask, generator=None):
         query = self.norms[0](self.attentions[0](
             query, query_pos=query_pos, generator=generator))
         query = self.attentions[1](query, memory, query_pos,
                                    reference_points, spatial_shapes,
-                                   key_padding_mask, generator,
-                                   packed_tables, valid_wh)
+                                   key_padding_mask, generator)
         query = self.norms[1](query)
         return self.norms[2](self.ffns[0](query, generator))
 
@@ -317,30 +297,6 @@ def level_masks_and_ratios(img_hw, batch_input_shape, spatial_shapes):
     return masks, torch.stack(ratios, 1)
 
 
-def use_premap(default: bool) -> bool:
-    """``DSKD_PREMAP`` read now: unset keeps ``default``, "1" is on and
-    any other value off (JAX's ``transformer.py:382-384``)."""
-    env = os.environ.get("DSKD_PREMAP")
-    return default if env is None else env == "1"
-
-
-def level_valid_wh(valid_ratios, spatial_shapes):
-    """(B, L, 2) f32 valid (w, h) token counts of each level."""
-    level_wh = torch.tensor([[w, h] for (h, w) in spatial_shapes],
-                            dtype=torch.float32, device=valid_ratios.device)
-    return valid_ratios.float() * level_wh[None]
-
-
-def decoder_memory(memory, mask_flat, valid_wh, spatial_shapes,
-                   premap: bool):
-    """What each decoder layer's cross-attention samples: ``(memory,
-    mask_flat, None, None)``, or in premap mode ``(None, None, tables,
-    valid_wh)`` with the raw memory packed once."""
-    if not premap:
-        return memory, mask_flat, None, None
-    return (None, None, pack_corners_raw(memory, spatial_shapes), valid_wh)
-
-
 class _Layers(nn.Module):
     """Holds ``layers`` so parameter names read ``encoder.layers.i``."""
 
@@ -350,15 +306,12 @@ class _Layers(nn.Module):
 
 
 class DeformableDetrTransformer(nn.Module):
-    """Encoder + decoder over flattened multi-level features;
-    ``premap_decoder`` (or ``DSKD_PREMAP``) selects the premap decoder."""
+    """Encoder + decoder over flattened multi-level features."""
 
     def __init__(self, device, embed_dims=256, num_heads=8, num_levels=4,
                  num_points=4, num_encoder_layers=6, num_decoder_layers=6,
-                 feedforward_channels=1024, dropout=0.1,
-                 premap_decoder=False):
+                 feedforward_channels=1024, dropout=0.1):
         super().__init__()
-        self.premap_decoder = premap_decoder
         args = (device, embed_dims, num_heads, num_levels, num_points,
                 feedforward_channels, dropout)
         self.level_embeds = nn.Parameter(
@@ -406,13 +359,10 @@ class DeformableDetrTransformer(nn.Module):
         query = query[None].expand(B, -1, -1)
         reference_points = self.reference_points(query_pos).sigmoid()
         ref_input = reference_points[:, :, None, :] * valid_ratios[:, None]
-        dec = decoder_memory(memory, mask_flat,
-                             level_valid_wh(valid_ratios, spatial_shapes),
-                             spatial_shapes, use_premap(self.premap_decoder))
         states = []
         for layer in self.decoder.layers:
-            query = layer(query, query_pos, dec[0], ref_input,
-                          spatial_shapes, dec[1], generator, *dec[2:])
+            query = layer(query, query_pos, memory, ref_input,
+                          spatial_shapes, mask_flat, generator)
             states.append(query)
         hs = torch.stack(states, 0)
         # no box refinement: every layer keeps the initial references

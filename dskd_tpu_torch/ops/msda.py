@@ -1,8 +1,7 @@
 """Multi-scale deformable attention sampling (port of dskd_tpu/ops/msda.py
-``ms_deform_attn_core``: its default branch, the ``DSKD_WGATHER=0``,
-``DSKD_FUSED_ROWS`` and ``DSKD_PACK_NOTRANS`` branches, and the windowed
-``DSKD_WINBWD``, ``DSKD_FWIN`` and ``DSKD_WINDOW_ROWS`` branches; and of
-the premap layout, ``pack_corners_raw`` and ``ms_deform_attn_core_premap``).
+``ms_deform_attn_core``: its default branch, the ``DSKD_WGATHER=0`` and
+``DSKD_FUSED_ROWS`` branches, and the windowed ``DSKD_WINBWD``, ``DSKD_FWIN``
+and ``DSKD_WINDOW_ROWS`` branches).
 
 Each query bilinearly samples ``P`` points per head from every level and sums
 them with its attention weights, as ``F.grid_sample(align_corners=False,
@@ -57,19 +56,8 @@ fallback needs no counterpart.
 does. ``DSKD_FORCE_MXU`` has no meaning here: the card always runs the
 kernels and the CPU the plain versions.
 
-``DSKD_PACK_NOTRANS=1`` (default "0") comes before every other branch, as
-in JAX: each level is packed (B, S', H, 4D) and sampled point by point with
-a middle-axis gather, summed in the compute type. JAX runs it in XLA, so it
-is plain PyTorch on both devices and launches none of the kernels.
-
-The premap layout serves the decoder's cross-attention
-(``models/transformer.py``, ``DSKD_PREMAP``): ``pack_corners_raw`` packs
-the unprojected memory once per forward and ``ms_deform_attn_core_premap``
-samples it in raw C-space; the caller applies ``value_proj`` to the
-reduction. Its padding is dropped analytically from each level's valid
-(w, h), not by zeroed tokens. JAX runs it in XLA: plain PyTorch here too.
-
-Not ported: ``DSKD_PACK_KERNEL=0``.
+Not ported: the ``premap`` and ``DSKD_PACK_NOTRANS`` layouts, and
+``DSKD_PACK_KERNEL=0``.
 """
 from __future__ import annotations
 
@@ -81,7 +69,7 @@ import torch
 from .fused_sample import fused_msda_sample
 from .fused_window import fused_window_sample
 from .mxu_gather import gather_weighted, mxu_gather
-from .pack_kernel import pack_corners, pack_corners_plain
+from .pack_kernel import pack_corners
 from .window import (pallas_pack_rows, segment_window_starts,
                      tile_window_starts)
 from .window_bwd import windowed_bwd_sample
@@ -96,97 +84,17 @@ def _corners(loc: torch.Tensor, attn: torch.Tensor, h: int, w: int,
     y = loc[..., 1].float() * h - 0.5
     x0 = torch.floor(x)
     y0 = torch.floor(y)
-    cw = _gated(x0, y0, (x - x0).to(dtype), (y - y0).to(dtype), w, h, dtype)
+    tx = (x - x0).to(dtype)
+    ty = (y - y0).to(dtype)
+    inx0 = (x0 >= 0) & (x0 < w)
+    inx1 = (x0 + 1 >= 0) & (x0 + 1 < w)
+    iny0 = (y0 >= 0) & (y0 < h)
+    iny1 = (y0 + 1 >= 0) & (y0 + 1 < h)
+    cw = torch.stack([((1 - tx) * (1 - ty) * (inx0 & iny0)).to(dtype),
+                      (tx * (1 - ty) * (inx1 & iny0)).to(dtype),
+                      ((1 - tx) * ty * (inx0 & iny1)).to(dtype),
+                      (tx * ty * (inx1 & iny1)).to(dtype)], dim=-1)
     return x0, y0, cw * attn[..., None].to(dtype)
-
-
-def _gated(x0, y0, tx, ty, w_lim, h_lim, dtype):
-    """(B, Q, H, P, 4) bilinear corner weights, each gated by its corner
-    lying in [0, w_lim) x [0, h_lim)."""
-    inx0 = (x0 >= 0) & (x0 < w_lim)
-    inx1 = (x0 + 1 >= 0) & (x0 + 1 < w_lim)
-    iny0 = (y0 >= 0) & (y0 < h_lim)
-    iny1 = (y0 + 1 >= 0) & (y0 + 1 < h_lim)
-    return torch.stack([((1 - tx) * (1 - ty) * (inx0 & iny0)).to(dtype),
-                        (tx * (1 - ty) * (inx1 & iny0)).to(dtype),
-                        ((1 - tx) * ty * (inx0 & iny1)).to(dtype),
-                        (tx * ty * (inx1 & iny1)).to(dtype)], dim=-1)
-
-
-def pack_corners_raw(memory: torch.Tensor,
-                     spatial_shapes: Sequence[Tuple[int, int]]):
-    """(B, S, C) unprojected memory -> one (B, (h+2)*(w+2), 4C) corner
-    table per level, in ``pack_corners``'s row layout with one head of
-    width C (``msda.py:58``)."""
-    B, _, C = memory.shape
-    tables, start = [], 0
-    for (h, w) in spatial_shapes:
-        v = memory[:, start:start + h * w].reshape(B, h * w, 1, C)
-        tables.append(pack_corners_plain(v, h, w).reshape(
-            B, (h + 2) * (w + 2), 4 * C))
-        start += h * w
-    return tables
-
-
-def ms_deform_attn_core_premap(tables, spatial_shapes, sampling_locations,
-                               attention_weights, valid_wh):
-    """Deformable sampling of ``pack_corners_raw`` tables (``msda.py:91-146``).
-
-    sampling_locations (B, Q, H, L, P, 2) normalized (x, y);
-    attention_weights (B, Q, H, L, P); valid_wh (B, L, 2) f32 valid (w, h)
-    token counts per level. A corner is dropped where x >= valid w or
-    y >= valid h, which equals zeroing the padded tokens because the
-    padding masks are rectangles (``level_masks_and_ratios``).
-
-    Returns (acc, wsum): (B, Q, H, C) raw-space weighted samples and the
-    (B, Q, H) total weight of the surviving corners, so that
-    ``value_proj`` of the samples is ``acc @ W + b * wsum``.
-    """
-    B, Q, H = sampling_locations.shape[:3]
-    P = sampling_locations.shape[4]
-    C = tables[0].shape[-1] // 4
-    dt = tables[0].dtype
-    acc = tables[0].new_zeros((B, Q, H, C))
-    wsum = tables[0].new_zeros((B, Q, H))
-    for lvl, (h, w) in enumerate(spatial_shapes):
-        loc = sampling_locations[:, :, :, lvl]
-        x = loc[..., 0].float() * w - 0.5
-        y = loc[..., 1].float() * h - 0.5
-        x0, y0 = torch.floor(x), torch.floor(y)
-        vw = valid_wh[:, lvl, 0][:, None, None, None]
-        vh = valid_wh[:, lvl, 1][:, None, None, None]
-        cw = _gated(x0, y0, (x - x0).to(dt), (y - y0).to(dt), vw, vh, dt)
-        cw = cw * attention_weights[:, :, :, lvl, :, None]
-        x0c = torch.clamp(x0 + 1, 0, w + 1)
-        y0c = torch.clamp(y0 + 1, 0, h + 1)
-        flat = (y0c * (w + 2) + x0c).long().reshape(B, Q * H * P)
-        g = torch.gather(tables[lvl], 1, flat[..., None].expand(
-            B, Q * H * P, 4 * C)).reshape(B, Q, H, P, 4, C)
-        acc = acc + (g * cw[..., None]).sum(dim=(3, 4))
-        wsum = wsum + cw.sum(dim=(3, 4))
-    return acc, wsum
-
-
-def _notrans(value, spatial_shapes, sampling_locations, attention_weights):
-    """The ``DSKD_PACK_NOTRANS=1`` branch (``msda.py:219-256``): per level
-    the (B, S', H, 4D) table, per point a middle-axis gather of its rows
-    weighted by corner, accumulated in the compute type."""
-    B, _, H, D = value.shape
-    Q = sampling_locations.shape[1]
-    P = sampling_locations.shape[4]
-    out = value.new_zeros((B, Q, H, D))
-    start = 0
-    for lvl, (h, w) in enumerate(spatial_shapes):
-        flat, cw = corner_index_and_weights(
-            sampling_locations[:, :, :, lvl],
-            attention_weights[:, :, :, lvl], h, w, value.dtype)
-        packed = pack_corners_plain(value[:, start:start + h * w], h, w)
-        for p in range(P):
-            g = torch.gather(packed, 1, flat[:, :, :, p, None].long().expand(
-                B, Q, H, 4 * D)).reshape(B, Q, H, 4, D)
-            out = out + (g * cw[:, :, :, p, :, None]).sum(dim=3)
-        start += h * w
-    return out.reshape(B, Q, H * D)
 
 
 def corner_index_and_weights(loc: torch.Tensor, attn: torch.Tensor, h: int,
@@ -299,9 +207,6 @@ def ms_deform_attn_core(value: torch.Tensor,
     fwin_tile_q: the query tile of ``DSKD_FWIN`` and ``DSKD_WINBWD``.
     Returns (B, Q, H*D).
     """
-    if os.environ.get("DSKD_PACK_NOTRANS", "0") == "1":
-        return _notrans(value, spatial_shapes, sampling_locations,
-                        attention_weights)
     env_rows = os.environ.get("DSKD_MXU_GATHER_ROWS")
     if env_rows is not None:
         mxu_gather_max_rows = int(env_rows)

@@ -13,20 +13,18 @@ tasks and the ``test`` CLI on its last checkpoint, loads
 ``configs/yolof_40_40_il.py`` and ``configs/yoloy_40_40_il.py``, cut to a
 tiny size, runs one family step of each with a teacher, the
 ``train_increment`` CLI for two tasks and the ``test`` CLI on each, a
-class-aware NMS on both of its paths, loads the three
+class-aware NMS on both of its paths, and reports which modules it
+loaded. A second fresh interpreter loads the three
 ``configs/deformable_detr_*.py``, cut to a tiny size, runs one family step
-of each, the two-stage forward under ``DSKD_PREMAP=1`` and
-``DSKD_PACK_NOTRANS=1`` against its default branch, and the
-``train_increment`` and ``test`` CLIs on the two-stage config, and
-reports which modules it loaded.
-An import hook refuses ``jax``, ``jaxlib``, ``flax`` and ``dskd_tpu``
-throughout."""
+of each, and the ``train_increment`` and ``test`` CLIs on the two-stage
+config. An import hook refuses ``jax``, ``jaxlib``, ``flax`` and
+``dskd_tpu`` throughout."""
 import json
 import os
 import subprocess
 import sys
 
-_SCRIPT = r"""
+_REFUSE = r"""
 import dataclasses, importlib.abc, json, sys
 
 
@@ -38,6 +36,8 @@ class _Refuse(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, _Refuse())
+"""
+_SCRIPT = _REFUSE + r"""
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -169,43 +169,6 @@ postprocess._nms_keep_tiled = (lambda shifted, svalid, iou_thr, tile:
                                                           iou_thr))
 scan = batched_nms(*nms_args)
 postprocess._nms_keep_tiled = keep_tiled
-# vanilla Deformable DETR: its three configs, a family step each, the
-# premap and no-transpose forwards and both CLIs on the two-stage config
-ddetr = {}
-for name in ("", "refine_", "twostage_"):
-    xfile = f"configs/deformable_detr_{name}r50_50e.py"
-    xcfg = load_config(xfile)
-    xcfg = dataclasses.replace(xcfg, model=dataclasses.replace(
-        xcfg.model, num_classes=8, num_query=12, depth=18,
-        num_encoder_layers=1, num_decoder_layers=1))
-    xmodel = init_variables(build_model(xcfg, "cpu"), xcfg, 0)
-    xstate = TrainState.create(xmodel, make_optimizer(
-        xmodel, step_lr_schedule(1e-4)), seed=0)
-    xstep = make_family_train_step("deformable_detr", xmodel, xcfg, 4, True)
-    xstate, xlosses = xstep(xstate, batch, frozen_copy(xmodel))
-    ddetr[name or "base"] = [xcfg.model.with_box_refine,
-                             xcfg.model.as_two_stage,
-                             sorted(k for k, v in xlosses.items()
-                                    if bool(torch.isfinite(v)))]
-with torch.no_grad():
-    base_out = xmodel.eval()(batch.images, batch.img_hw).head
-    layouts = {}
-    for var in ("DSKD_PREMAP", "DSKD_PACK_NOTRANS"):
-        os.environ[var] = "1"
-        got = xmodel(batch.images, batch.img_hw).head
-        del os.environ[var]
-        layouts[var] = all(bool(torch.allclose(a, b, rtol=1e-4, atol=1e-4))
-                           for a, b in zip(got[:2], base_out[:2]))
-xwork = os.path.join(root, "ddetr")
-xfile = "configs/deformable_detr_twostage_r50_50e.py"
-sys.argv = ["train_increment", xfile, "--work-dir", xwork, "--seed", "1",
-            "--device", "cpu", "--set", *sets]
-runpy.run_module("dskd_tpu_torch.tools.train_increment", run_name="__main__")
-xstats = test_cli.main([xfile, "--work-dir", xwork, "--device", "cpu",
-                        "--set", *sets])
-ddetr["cli"] = [sorted(os.path.basename(p) for p in
-                       glob.glob(os.path.join(xwork, "task_*"))),
-                0.0 <= xstats["bbox_mAP"] <= 1.0]
 out = os.path.join(root, "dets.json")
 sys.argv = ["test", cfg_file, "--work-dir", work, "--device", "cpu",
             "--classwise", "--out", out, "--set", *sets]
@@ -226,7 +189,6 @@ print(json.dumps({
     "detr_rows": sorted((r["mode"], r["task"]) for r in drows),
     "detr_map": 0.0 <= dstats["bbox_mAP"] <= 1.0,
     "yolo": yolo,
-    "ddetr": ddetr, "layouts": layouts,
     "nms": [int(tiled.keep.sum()), all(bool(torch.equal(a, b))
                                        for a, b in zip(tiled, scan))],
     "trained": bool(torch.isfinite(losses["loss"])),
@@ -242,15 +204,89 @@ print(json.dumps({
 """
 
 
-def test_port_slice_imports_no_jax(tmp_path):
+_DDETR_SCRIPT = _REFUSE + r"""
+import glob, os, runpy, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+from dskd_tpu_torch.data.batch import Batch
+from dskd_tpu_torch.data.coco import COCO_CLASSES_ALPHA_ORDER
+from dskd_tpu_torch.tools import test as test_cli
+from dskd_tpu_torch.train.family import make_family_train_step
+from dskd_tpu_torch.train.incremental import build_model, init_variables
+from dskd_tpu_torch.train.optim import make_optimizer
+from dskd_tpu_torch.train.schedule import step_lr_schedule
+from dskd_tpu_torch.train.state import TrainState, frozen_copy
+from dskd_tpu_torch.utils.config import load_config
+batch = Batch(torch.randn(2, 128, 128, 3), torch.tensor([[128, 100],
+                                                         [96, 128]]),
+              torch.tensor([[[10., 10., 60., 50.]] * 2] * 2),
+              torch.tensor([[1, 2]] * 2), torch.tensor([[True, False]] * 2))
+root = tempfile.mkdtemp()
+cats = [c for _, c in COCO_CLASSES_ALPHA_ORDER]
+ann, img_dir = chip_smoke.write_coco(root, "train", ((48, 64), (64, 48)) * 6,
+                                     cats[:8], seed=0)
+sets = ["model.depth=18", "model.num_encoder_layers=1",
+        "model.num_decoder_layers=1", "model.num_query=12",
+        "data.bucket=(64,64)", "data.img_scale=(64,64)",
+        "data.aspect_buckets=((64,48),(48,64))", "data.catsplit=(4,4)",
+        "model.num_classes=8", "data.num_workers=0",
+        "data.samples_per_device=2", f"data.train_ann={ann}",
+        f"data.val_ann={ann}", f"data.train_img_prefix={img_dir}",
+        f"data.val_img_prefix={img_dir}", "train.max_iters_per_task=2",
+        "train.log_interval=1"]
+# vanilla Deformable DETR: its three configs, a family step each, and both
+# CLIs on the two-stage config
+ddetr = {}
+for name in ("", "refine_", "twostage_"):
+    xfile = f"configs/deformable_detr_{name}r50_50e.py"
+    xcfg = load_config(xfile)
+    xcfg = dataclasses.replace(xcfg, model=dataclasses.replace(
+        xcfg.model, num_classes=8, num_query=12, depth=18,
+        num_encoder_layers=1, num_decoder_layers=1))
+    xmodel = init_variables(build_model(xcfg, "cpu"), xcfg, 0)
+    xstate = TrainState.create(xmodel, make_optimizer(
+        xmodel, step_lr_schedule(1e-4)), seed=0)
+    xstep = make_family_train_step("deformable_detr", xmodel, xcfg, 4, True)
+    xstate, xlosses = xstep(xstate, batch, frozen_copy(xmodel))
+    ddetr[name or "base"] = [xcfg.model.with_box_refine,
+                             xcfg.model.as_two_stage,
+                             sorted(k for k, v in xlosses.items()
+                                    if bool(torch.isfinite(v)))]
+xwork = os.path.join(root, "ddetr")
+xfile = "configs/deformable_detr_twostage_r50_50e.py"
+sys.argv = ["train_increment", xfile, "--work-dir", xwork, "--seed", "1",
+            "--device", "cpu", "--set", *sets]
+runpy.run_module("dskd_tpu_torch.tools.train_increment", run_name="__main__")
+xstats = test_cli.main([xfile, "--work-dir", xwork, "--device", "cpu",
+                        "--set", *sets])
+ddetr["cli"] = [sorted(os.path.basename(p) for p in
+                       glob.glob(os.path.join(xwork, "task_*"))),
+                0.0 <= xstats["bbox_mAP"] <= 1.0]
+print(json.dumps({
+    "ddetr": ddetr,
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                            "dskd_tpu"))}))
+"""
+
+
+def _run(script, tmp_path):
+    """Runs ``script`` in a fresh interpreter from the repo's root and
+    returns its last line as JSON."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     # the script's work directories (checkpoints) go under pytest's tmp_path
     env = dict(os.environ, PYTHONPATH=root, TMPDIR=str(tmp_path))
-    proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=root,
+    proc = subprocess.run([sys.executable, "-c", script], cwd=root,
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_port_slice_imports_no_jax(tmp_path):
+    report = _run(_SCRIPT, tmp_path)
     assert report["loaded"] == []
     assert report["flagship"] == [50, "corr + fg_info + decode_v1",
                                   [640, 480]]
@@ -282,11 +318,14 @@ def test_port_slice_imports_no_jax(tmp_path):
                    "loss_obj"], ["task_1_epoch_1", "task_2_epoch_1"], True]}
     n_kept, same = report["nms"]
     assert 0 < n_kept < 600 and same
+
+
+def test_deformable_detr_imports_no_jax(tmp_path):
+    report = _run(_DDETR_SCRIPT, tmp_path)
+    assert report["loaded"] == []
     dec = ["loss", "loss_bbox", "loss_cls", "loss_iou"]
     enc = ["enc.loss_bbox", "enc.loss_cls", "enc.loss_iou"]
     assert report["ddetr"] == {
         "base": [False, False, dec], "refine_": [True, False, dec],
         "twostage_": [True, True, sorted(enc + dec)],
         "cli": [["task_1_epoch_1", "task_2_epoch_1"], True]}
-    assert report["layouts"] == {"DSKD_PREMAP": True,
-                                 "DSKD_PACK_NOTRANS": True}
