@@ -136,7 +136,19 @@ Phases; the first failure raises and the script exits non-zero:
      from the encoder proposals), a 2+2-layer step against the CPU, the
      proposals' top-k against the CPU on real logits, and the two-task
      train_increment path; the base and refine configs served at B=1,
-     stepped once and held to the CPU at 2+2 layers.
+     stepped once and held to the CPU at 2+2 layers;
+ 14. dense: the dense single-stage families GFL, RetinaNet, ATSS and FCOS
+     (configs/{gfl,retinanet,atss,fcos}_r50_1x.py: ResNet-50, FPN-256
+     P3-P7, 4-conv towers, 80 classes, seeded weights, f32), which launch
+     none of the port's kernels, through the same family check on the
+     configs' 800x1344 canvas: served at B=1 and B=2 (the head outputs
+     against the CPU), three B=2 steps with GT padded to 100, a profile
+     and the peak memory; the family's assignment (max-IoU, ATSS or FCOS's
+     targets) on the training batch equal to the CPU's, and the per-level
+     top-k and NMS survivors of a model whose scores pass 0.05 against the
+     CPU's where the CPU's scores stand apart; a B=2 step against the CPU
+     on 384x640 (losses and named gradients); the two-task train_increment
+     path for GFL.
 The last three lines are the card, the kernel report as JSON and the result
 as JSON.
 """
@@ -399,13 +411,14 @@ def model_launches(switch, cfg, forwards, backwards=0):
 
 # families whose step reads no teacher: JAX's deformable_detr losses
 # ignore the task-2 teacher its driver passes
-TEACHERLESS = ("deformable_detr",)
+TEACHERLESS = ("deformable_detr", "retinanet", "atss", "gfl", "fcos")
 
 
 def path_launches(cfg, forwards, backwards=0):
     """The kernels' launches on the default path of ``cfg``'s family:
     model_launches for the MSDA families (the flagship, Deformable DETR);
-    none for a family without MSDA (DETR-IL, YOLOF-IL, YOLOY-IL)."""
+    none for a family without MSDA (DETR-IL, YOLOF-IL, YOLOY-IL and the
+    dense single-stage families)."""
     from dskd_tpu_torch.models.detector import FLAGSHIP_ARCHS
 
     if cfg.model.arch in FLAGSHIP_ARCHS + ("deformable_detr",):
@@ -2227,6 +2240,12 @@ DDETR_REFINE = os.path.join(ROOT, "configs",
 DDETR_SETS = ("data.catsplit=(40,40)",)
 YOLOF_CONFIG = os.path.join(ROOT, "configs", "yolof_40_40_il.py")
 YOLOY_CONFIG = os.path.join(ROOT, "configs", "yoloy_40_40_il.py")
+# the dense single-stage families (phase 14): their 1x COCO configs, each
+# arch's own, cut to the 40+40 split for the incremental run
+DENSE_CONFIGS = {arch: os.path.join(ROOT, "configs", f"{arch}_r50_1x.py")
+                 for arch in ("gfl", "retinanet", "atss", "fcos")}
+DENSE_SETS = ("data.catsplit=(40,40)",)
+DENSE_CMP_HW = (384, 640)    # the step and the decode against the CPU
 CANVAS_HW = (640, 640)     # the families' one canvas (DataConfig.bucket)
 # valid (h, w) on the canvas: four aspect ratios, so the key mask acts
 CANVAS_VALID = ((480, 640), (427, 640), (640, 512), (512, 640))
@@ -2569,6 +2588,235 @@ def ddetr_grad_params(m):
     return names
 
 
+# --- the dense single-stage families (phase 14) -------------------------------
+
+DENSE_GRAD_PARAMS = {
+    "retinanet": ("bbox_head.cls_convs.3.conv.weight",
+                  "bbox_head.reg_convs.3.conv.weight",
+                  "bbox_head.retina_cls.weight", "bbox_head.retina_reg.weight",
+                  "neck.lateral_convs.0.conv.weight",
+                  "neck.fpn_convs.3.conv.weight"),
+    "atss": ("bbox_head.cls_convs.3.conv.weight",
+             "bbox_head.reg_convs.3.conv.weight", "bbox_head.atss_cls.weight",
+             "bbox_head.atss_reg.weight", "bbox_head.atss_centerness.weight",
+             "neck.lateral_convs.0.conv.weight", "bbox_head.scales.0.scale"),
+    "gfl": ("bbox_head.cls_convs.3.conv.weight",
+            "bbox_head.reg_convs.3.conv.weight", "bbox_head.gfl_cls.weight",
+            "bbox_head.gfl_reg.weight", "neck.lateral_convs.0.conv.weight",
+            "bbox_head.scales.0.scale"),
+    "fcos": ("bbox_head.cls_convs.3.conv.weight",
+             "bbox_head.reg_convs.3.conv.weight", "bbox_head.conv_cls.weight",
+             "bbox_head.conv_reg.weight", "bbox_head.conv_centerness.weight",
+             "neck.lateral_convs.0.conv.weight", "bbox_head.scales.0.scale")}
+# the FPN lateral's gradient at the init comes back through four towers of
+# std-0.01 convs and their GroupNorms: f32 decides it only loosely (3.1e-3
+# card vs CPU in GFL's first run), so it is held to THREAD_SPREAD_TOL
+# beside the CPU's own spread between thread counts, as YOLOF's neck is
+DENSE_SPREAD_PARAMS = ("neck.lateral_convs.0.conv.weight",)
+DENSE_CLS_CONV = {"retinanet": "retina_cls", "atss": "atss_cls",
+                  "gfl": "gfl_cls", "fcos": "conv_cls"}
+DENSE_DECODE_BIAS = -4.0    # the decode model's class bias
+
+
+def dense_models(cfg, device, **overrides):
+    """Student (seed 0) and frozen teacher (seed 1) of a dense config
+    through the family registry; the family's step reads no teacher."""
+    from dskd_tpu_torch.registry import get_family
+    from dskd_tpu_torch.train.state import frozen_copy
+
+    spec = get_family(cfg.model.arch)
+    mcfg = dataclasses.replace(cfg.model, **overrides)
+    student = spec["build"](mcfg, torch.device(device))
+    spec["init_weights"](student, 0)
+    teacher = spec["build"](mcfg, torch.device(device))
+    spec["init_weights"](teacher, 1)
+    return student, frozen_copy(teacher)
+
+
+def dense_decode_model(cfg, device):
+    """A dense model whose scores pass the decode's 0.05: seed 2, every
+    head conv redrawn lecun-normal (normal(0.01) leaves the towers' and
+    outputs' spread ~1e-3) from a CPU generator, so that each device gets
+    the same weights, and the class bias DENSE_DECODE_BIAS."""
+    from dskd_tpu_torch.models.detector import lecun_
+    from dskd_tpu_torch.registry import get_family
+
+    spec = get_family(cfg.model.arch)
+    model = spec["build"](cfg.model, torch.device(device))
+    spec["init_weights"](model, 2)
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for mod in model.bbox_head.modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                lecun_(mod.weight, g)
+        getattr(model.bbox_head, DENSE_CLS_CONV[cfg.model.arch]).bias.fill_(
+            DENSE_DECODE_BIAS)
+    return model.eval()
+
+
+def _dense_heads(cfg, out):
+    """Each head output, its levels flattened and concatenated."""
+    h = out.head
+    B = h.cls_scores[0].shape[0]
+    return {name: torch.cat([t.reshape(B, -1) for t in getattr(h, name)], 1)
+            for name in h._fields}
+
+
+def dense_priors(arch, out, device):
+    """The family's anchors or points of a forward ``out`` and their
+    per-level counts."""
+    sizes = [tuple(c.shape[1:3]) for c in out.head.cls_scores]
+    if arch == "retinanet":
+        from dskd_tpu_torch.models.retinanet import retina_anchors
+        return retina_anchors(sizes, device), None
+    if arch == "fcos":
+        from dskd_tpu_torch.models.fcos import fcos_points
+        return fcos_points(sizes, device)
+    from dskd_tpu_torch.models.atss import atss_anchors
+    return atss_anchors(sizes, device)
+
+
+def dense_assign(arch, cfg, priors, batch):
+    """The family's assignment of the batch's GT: (the assigned GT index
+    or -1 / -2, labels, anything else it outputs)."""
+    C = cfg.model.num_classes
+    gt = (batch.gt_bboxes, batch.gt_labels, batch.gt_valid)
+    if arch == "retinanet":
+        from dskd_tpu_torch.core.max_iou_assigner import max_iou_assign
+        r = max_iou_assign(priors[0], *gt, C, pos_iou_thr=0.5,
+                           neg_iou_thr=0.4, min_pos_iou=0.0)
+        return r.assigned_gt, r.labels, r.max_ious
+    if arch == "fcos":
+        from dskd_tpu_torch.models.fcos import _fcos_targets
+        labels, tgt, pos = _fcos_targets(*priors, *gt, C)
+        return torch.where(pos, 0, -1), labels, tgt
+    from dskd_tpu_torch.core.atss import atss_assign
+    r = atss_assign(*priors, *gt, C)
+    return r.assigned_gt, r.labels, r.pos_mask
+
+
+def dense_decode(arch, out, priors, img_hw, max_per_img=100):
+    """(the (B, N, C) scores, the per-level top-k, the detections) of a
+    forward at the families' test settings (threshold 0.05, 1000 per
+    level)."""
+    from dskd_tpu_torch.core.postprocess import filter_scores_and_topk_mlvl
+    from dskd_tpu_torch.models import atss, fcos, gfl_head, retinanet
+    from dskd_tpu_torch.models.gfl_head import cat_levels, level_sizes
+
+    h = out.head
+    C = h.cls_scores[0].shape[-1] // (retinanet.NUM_ANCHORS
+                                      if arch == "retinanet" else 1)
+    scores = torch.sigmoid(cat_levels(h.cls_scores, C))
+    if arch in ("atss", "fcos"):
+        scores = scores * torch.sigmoid(cat_levels(h.centernesses, 1))
+    top = filter_scores_and_topk_mlvl(scores, 0.05, 1000,
+                                      level_sizes(h.cls_scores, C))
+    kw = dict(max_per_img=max_per_img)
+    if arch == "retinanet":
+        det = retinanet.retina_get_bboxes(h, priors[0], img_hw, **kw)
+    elif arch == "atss":
+        det = atss.atss_get_bboxes(h, priors[0], img_hw, **kw)
+    elif arch == "gfl":
+        det = gfl_head.gfl_get_bboxes(h, img_hw, **kw)
+    else:
+        det = fcos.fcos_get_bboxes(h, priors[0], img_hw, **kw)
+    return scores, top, det
+
+
+def apart(sorted_scores, gap):
+    """(B, k) bool: entries of descending ``sorted_scores`` more than
+    2 x ``gap`` from both neighbours."""
+    spacing = sorted_scores[:, :-1] - sorted_scores[:, 1:]
+    far = torch.ones_like(sorted_scores, dtype=torch.bool)
+    far[:, :-1] &= spacing > 2 * gap
+    far[:, 1:] &= spacing > 2 * gap
+    return far
+
+
+def check_dense_decode(fam, cfg, card, n=2):
+    """The per-level top-k and the NMS survivors of ``dense_decode_model``
+    on the card against the CPU's, on a B=n batch of DENSE_CMP_HW: every
+    top-k entry whose CPU score stands more than twice the devices' largest
+    score difference from its sorted neighbours holds the CPU's (position,
+    class) on the card; so does every survivor that the card or the CPU
+    alone keeps unless its score stands that close to another
+    candidate's."""
+    arch = cfg.model.arch
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        model = dense_decode_model(cfg, dev)
+        batch = family_batch(dev, n, DENSE_CMP_HW, fam["max_gt"](cfg))
+        with torch.inference_mode():
+            out = model(batch.images, batch.img_hw)
+            priors = dense_priors(arch, out, dev)
+            scores, top, det = dense_decode(arch, out, priors, batch.img_hw)
+        got[dev] = [t.cpu() for t in (scores, top.scores, top.keep_idxs,
+                                      top.labels, top.valid, det.keep_qid,
+                                      det.labels, det.valid)]
+    (sc, ts, ti, tl, tv, qid, dl, dv), (c_sc, c_ts, c_ti, c_tl, c_tv, c_qid,
+                                        c_dl, c_dv) = got[DEVICE], got["cpu"]
+    gap = float((sc - c_sc).abs().max())
+    # the top-k is level-major: each level's entries sorted, so a level's
+    # last entry and the next level's first are no neighbours; a level
+    # boundary only makes the check stricter
+    far = apart(c_ts, gap) & c_tv
+    same = (ti == c_ti) & (tl == c_tl) & (tv == c_tv)
+    n_top = int(c_tv.sum())
+    cands = c_ts[c_tv]
+    bad_surv = 0
+    for b in range(n):
+        card_keep = {(int(q), int(lb)) for q, lb, v in zip(qid[b], dl[b],
+                                                           dv[b]) if v}
+        cpu_keep = {(int(q), int(lb)) for q, lb, v in zip(c_qid[b], c_dl[b],
+                                                          c_dv[b]) if v}
+        for q, lb in card_keep ^ cpu_keep:
+            s = float(c_sc[b, q, lb])
+            if not bool(((cands - s).abs() <= 2 * gap).sum() > 1):
+                bad_surv += 1
+    print(f"{fam['tag']} decode, card vs CPU (B={n}, {DENSE_CMP_HW[0]}x"
+          f"{DENSE_CMP_HW[1]}, head convs lecun, class bias "
+          f"{DENSE_DECODE_BIAS}): {n_top} top-k candidates above 0.05 "
+          f"({tv.shape[1]} slots an image), {int(far.sum())} stand > 2 x "
+          f"{gap:.3e} (the devices' largest score difference) apart and "
+          f"the card holds the CPU's (position, class) in "
+          f"{int(same[far].sum())} of them and in {int(same.sum())} of all "
+          f"{same.numel()} slots; NMS survivors per image card "
+          f"{dv.sum(1).tolist()} CPU {c_dv.sum(1).tolist()}, "
+          f"{bad_surv} kept by one device only and standing apart [{card}]")
+    if not far.any() or not bool(same[far].all()) or bad_surv:
+        raise AssertionError(f"{fam['tag']}: the card's top-k or NMS "
+                             f"survivors differ from the CPU's")
+
+
+def check_dense(fam, cfg, card, student, teacher, batch):
+    """Phase 14's family check: the family's assignment (max-IoU for
+    RetinaNet, ATSS for ATSS and GFL, FCOS's targets) of the training
+    batch on the card equals the CPU's exactly; then check_dense_decode."""
+    arch = cfg.model.arch
+    with torch.no_grad():
+        out = student(batch.images[:1], batch.img_hw[:1])
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        b = batch.to(dev)
+        with torch.no_grad():
+            res[dev] = [t.cpu() for t in dense_assign(
+                arch, cfg, dense_priors(arch, out, dev), b)]
+    (a, lb, extra), (c_a, c_lb, c_extra) = res[DEVICE], res["cpu"]
+    exact = (torch.equal(a, c_a) and torch.equal(lb, c_lb)
+             and torch.equal(extra, c_extra))
+    pos = (c_a >= 0).sum(1).tolist()
+    print(f"{fam['tag']} assignment, card vs CPU on the training batch (B="
+          f"{batch.images.shape[0]}, {tuple(batch.images.shape[1:3])}, "
+          f"{c_a.shape[1]} priors, GT padded to {batch.gt_valid.shape[1]} "
+          f"of which {batch.gt_valid.sum(1).tolist()} valid): positives per "
+          f"image {pos}, ignored {(c_a == -2).sum(1).tolist()}; equal "
+          f"{exact} [{card}]")
+    if not exact or not all(pos):
+        raise AssertionError(f"{fam['tag']}: the card's assignment differs "
+                             f"from the CPU's (or has no positive)")
+    check_dense_decode(fam, cfg, card)
+
+
 FAMILIES = {
     "detr": dict(
         tag="detr-il", models=detr_models, grad_params=DETR_GRAD_PARAMS,
@@ -2616,6 +2864,21 @@ FAMILIES = {
         serve_shapes=((480, 640), (427, 640), (512, 640)),
         prepare_compare=tie_proposals),
 }
+for _arch, _desc in (("gfl", "GFL head, integral over 17 bins"),
+                     ("retinanet", "RetinaNet head, 9 anchors per position"),
+                     ("atss", "ATSS head, one anchor per position"),
+                     ("fcos", "FCOS head, exp(Scale x reg)")):
+    FAMILIES[_arch] = dict(
+        tag=_arch, models=dense_models, grad_params=DENSE_GRAD_PARAMS[_arch],
+        describe=(lambda m, d=_desc: f"ResNet-{m.depth}, FPN-256 P3-P7, "
+                  f"4-conv towers, {d}"),
+        heads=_dense_heads, n_dets=lambda cfg: cfg.test_max_per_img,
+        max_gt=lambda cfg: cfg.data.max_gt, hooks=None, small={},
+        small_note="", vs_cpu_dtypes=(torch.float32,),
+        thread_spread_params=DENSE_SPREAD_PARAMS, train_checks=check_dense,
+        serve_batches=(1, 2), serve_shapes=((480, 640), (427, 640),
+                                            (512, 640)),
+        cmp_hw=DENSE_CMP_HW)
 
 
 def rel_l2(got, want):
@@ -2711,7 +2974,7 @@ def check_family_card_vs_cpu(fam, cfg, card, dtype, n=2, hw=CANVAS_HW,
 
 
 def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
-                 inc_kw=None, full=True):
+                 inc_kw=None, full=True, incremental=True):
     """Phases 10-13: one family of the registry (FAMILIES) at the config's
     width and depth, f32, TF32 off, seeded weights. Serving: the registry's
     eval step at B=1 and B=8 (the family's ``serve_batches``) on the
@@ -2732,7 +2995,9 @@ def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
     ``full=False`` (Deformable DETR's base and refine configs) it serves at
     B=1 with no full-depth head check against the CPU, takes one training
     step, and skips the profile, the peak memory, the family's own checks
-    and the incremental run; the step against the CPU stays."""
+    and the incremental run; the step against the CPU stays, on the
+    family's ``cmp_hw`` where it has one (the dense families), else on
+    ``hw``. ``incremental=False`` leaves out the incremental run alone."""
     from dskd_tpu_torch.apis.inference import init_detector, prepare_batch
     from dskd_tpu_torch.eval.evaluator import make_eval_step
     from dskd_tpu_torch.train.family import make_family_train_step
@@ -2850,9 +3115,10 @@ def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
             raise AssertionError(f"{tag} train launched {read_counts()}")
     del state, student, teacher, train
     for dtype in fam["vs_cpu_dtypes"]:
-        check_family_card_vs_cpu(fam, cfg, card, dtype, hw=hw, tag=tag)
+        check_family_card_vs_cpu(fam, cfg, card, dtype,
+                                 hw=fam.get("cmp_hw", hw), tag=tag)
 
-    if full:
+    if full and incremental:
         # run_incremental through the train_increment CLI's config path
         check_incremental(card, config, sets=(*sets, *FAMILY_INC_SETS),
                           **(inc_kw or {}))
@@ -2942,6 +3208,24 @@ def check_ddetr(card):
     for config in (DDETR_BASE, DDETR_REFINE):
         check_family(card, "deformable_detr", config, DDETR_SETS, hw=hw,
                      full=False)
+
+
+def check_dense_families(card):
+    """Phase 14: the dense single-stage families (GFL, RetinaNet, ATSS,
+    FCOS: R50, FPN-256, 4-conv towers, 80 classes) through check_family on
+    their configs' 800x1344 canvas, f32, B=2 with GT padded to the
+    config's max_gt: serving at B=1 and B=2, three steps, a profile, the
+    peak memory, check_dense, a step against the CPU on DENSE_CMP_HW; the
+    two-task incremental run for GFL alone. None of the port's kernels
+    runs."""
+    from dskd_tpu_torch.utils.config import apply_overrides, load_config
+
+    for arch, config in DENSE_CONFIGS.items():
+        t0 = time.perf_counter()
+        cfg = apply_overrides(load_config(config), list(DENSE_SETS))
+        check_family(card, arch, config, DENSE_SETS, n_train=2,
+                     hw=tuple(cfg.data.bucket), incremental=arch == "gfl")
+        print(f"{arch}: {time.perf_counter() - t0:.1f} s of phase 14")
 
 
 def main() -> int:
@@ -3075,6 +3359,9 @@ def main() -> int:
     t0 = time.perf_counter()
     check_ddetr(card)
     print(f"deformable-detr: phase 13 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_dense_families(card)
+    print(f"dense: phase 14 took {time.perf_counter() - t0:.1f} s")
 
     bwd_key = f"gather_weighted_bwd f32 Q={Q_TRAIN} 640x480"
     gw_key = f"gather_weighted f32 Q={Q_ENC}"

@@ -1,6 +1,7 @@
 """Box coordinate transforms and IoU family (port of dskd_tpu/core/boxes.py
-``bbox_cxcywh_to_xyxy``, ``bbox_xyxy_to_cxcywh``, ``bbox_area`` and
-``bbox_overlaps``)."""
+``bbox_cxcywh_to_xyxy``, ``bbox_xyxy_to_cxcywh``, ``bbox_area``,
+``bbox_overlaps``, ``bbox_clip``, ``distance2bbox`` and
+``bbox2distance``)."""
 from __future__ import annotations
 
 import torch
@@ -58,3 +59,36 @@ def bbox_overlaps(bboxes1: torch.Tensor, bboxes2: torch.Tensor,
     enclose_area = torch.clamp(enclose_wh[..., 0] * enclose_wh[..., 1],
                                min=eps)
     return ious - (enclose_area - union) / enclose_area
+
+
+def bbox_clip(bbox: torch.Tensor, img_hw) -> torch.Tensor:
+    """Clip xyxy boxes to [0, w] x [0, h]; ``img_hw`` = (h, w), scalars or
+    tensors that broadcast against the boxes' leading axes."""
+    h, w = (torch.as_tensor(v, dtype=bbox.dtype, device=bbox.device)
+            for v in img_hw)
+    return torch.stack([bbox[..., 0].clamp(min=0).minimum(w),
+                        bbox[..., 1].clamp(min=0).minimum(h),
+                        bbox[..., 2].clamp(min=0).minimum(w),
+                        bbox[..., 3].clamp(min=0).minimum(h)], dim=-1)
+
+
+def distance2bbox(points: torch.Tensor, distance: torch.Tensor,
+                  max_shape=None) -> torch.Tensor:
+    """(..., 2) centres and (..., 4) l, t, r, b distances -> xyxy boxes,
+    clipped to ``max_shape`` = (h, w) if given."""
+    out = torch.stack([points[..., 0] - distance[..., 0],
+                       points[..., 1] - distance[..., 1],
+                       points[..., 0] + distance[..., 2],
+                       points[..., 1] + distance[..., 3]], dim=-1)
+    return out if max_shape is None else bbox_clip(out, max_shape)
+
+
+def bbox2distance(points: torch.Tensor, bbox: torch.Tensor,
+                  max_dis: float = None, eps: float = 0.1) -> torch.Tensor:
+    """xyxy boxes -> l, t, r, b distances from the centres, clipped to
+    [0, max_dis - eps] if ``max_dis`` is given (the DFL target)."""
+    d = torch.stack([points[..., 0] - bbox[..., 0],
+                     points[..., 1] - bbox[..., 1],
+                     bbox[..., 2] - points[..., 0],
+                     bbox[..., 3] - points[..., 1]], dim=-1)
+    return d if max_dis is None else d.clamp(0, max_dis - eps)

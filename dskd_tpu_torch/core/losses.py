@@ -4,7 +4,7 @@ dskd_tpu/core/losses.py ``weight_reduce_loss``,
 ``mse_loss``, ``giou_loss``, ``iou_loss``, ``diou_loss``, ``ciou_loss``,
 ``quality_focal_loss``, ``distribution_focal_loss``, ``kd_kl_div_loss``,
 ``sigmoid_focal_loss``, ``gaussian_focal_loss``, ``varifocal_loss``,
-``cross_entropy_loss`` and ``square_iou_loss``), plus
+``bce_loss``, ``cross_entropy_loss`` and ``square_iou_loss``), plus
 ``kd_kl_div_loss_outer``, the port's closed form of one broadcast of
 ``kd_kl_div_loss``.
 
@@ -226,6 +226,13 @@ def varifocal_loss(pred, target, alpha: float = 0.75, gamma: float = 2.0,
     focal_w = (target if iou_weighted else 1.0) * pos \
         + alpha * (p ** gamma) * (1 - pos)
     return binary_cross_entropy_with_logits(pred, target) * focal_w
+
+
+@_weighted
+def bce_loss(pred, target):
+    """Weighted BCE on logits (mmdet's CrossEntropyLoss(use_sigmoid=True),
+    the ATSS and FCOS centerness loss)."""
+    return binary_cross_entropy_with_logits(pred, target)
 
 
 @_weighted

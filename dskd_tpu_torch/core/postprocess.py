@@ -1,6 +1,7 @@
 """Static-shape score filtering, top-k and class-aware NMS (port of
-dskd_tpu/core/postprocess.py ``filter_scores_and_topk``, ``_nms_keep_scan``,
-``_nms_keep_tiled`` and ``batched_nms``).
+dskd_tpu/core/postprocess.py ``filter_scores_and_topk``,
+``filter_scores_and_topk_mlvl``, ``_nms_keep_scan``, ``_nms_keep_tiled``
+and ``batched_nms``).
 
 The TPU-only approximate top-k branch is not ported.
 """
@@ -50,6 +51,23 @@ def filter_scores_and_topk(scores: torch.Tensor, score_thr: float,
     keep_idxs = torch.div(top_idx, k, rounding_mode="floor").to(torch.int32)
     labels = (top_idx % k).to(torch.int32)
     return TopkResult(top_scores, labels, keep_idxs, valid)
+
+
+def filter_scores_and_topk_mlvl(scores: torch.Tensor, score_thr: float,
+                                topk: int, level_sizes) -> TopkResult:
+    """Threshold + top-k per pyramid level: ``filter_scores_and_topk`` on
+    each level's rows of the (..., N, K) scores with ``min(topk,
+    size * K)`` entries, concatenated level-major, so that up to ``topk``
+    candidates of every level reach the NMS. ``keep_idxs`` index the
+    concatenated rows."""
+    parts, start = [], 0
+    k = scores.shape[-1]
+    for size in level_sizes:
+        r = filter_scores_and_topk(scores[..., start:start + size, :],
+                                   score_thr, min(topk, size * k))
+        parts.append(r._replace(keep_idxs=r.keep_idxs + start))
+        start += size
+    return TopkResult(*(torch.cat(f, dim=-1) for f in zip(*parts)))
 
 
 class NMSResult(NamedTuple):

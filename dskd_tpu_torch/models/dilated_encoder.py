@@ -120,9 +120,10 @@ def init_conv_bn(model: nn.Module, g: torch.Generator, init_of) -> None:
     """Every conv's kernel from the initializer ``init_of(module name)``
     names ("lecun": normal(0, 1/fan_in), flax's default scale;
     "normal_001": normal(0, 0.01); "caffe2_xavier": uniform +-sqrt(3 /
-    fan_in)), drawn on the CPU from ``g`` in module order, and a zero bias;
-    every BatchNorm the identity with zero mean and unit variance."""
-    from .detector import lecun_, put_
+    fan_in); "xavier": xavier-uniform), drawn on the CPU from ``g`` in
+    module order, and a zero bias; every BatchNorm the identity with zero
+    mean and unit variance, every GroupNorm the identity."""
+    from .detector import lecun_, put_, xavier_
     from .resnet import FrozenBatchNorm
 
     for name, mod in model.named_modules():
@@ -136,6 +137,8 @@ def init_conv_bn(model: nn.Module, g: torch.Generator, init_of) -> None:
                 bound = (3.0 / t[0].numel()) ** 0.5
                 put_(t, torch.empty(t.shape).uniform_(-bound, bound,
                                                       generator=g))
+            elif kind == "xavier":
+                xavier_(t, g)
             else:
                 raise ValueError(f"initializer {kind!r} of {name}")
             if mod.bias is not None:
@@ -145,3 +148,6 @@ def init_conv_bn(model: nn.Module, g: torch.Generator, init_of) -> None:
             mod.bias.zero_()
             mod.running_mean.zero_()
             mod.running_var.fill_(1.0)
+        elif isinstance(mod, nn.GroupNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()

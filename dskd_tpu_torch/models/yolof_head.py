@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..core import losses as L
 from ..core.anchors import base_anchors, delta2bbox, grid_anchors
+from ..core.boxes import bbox_clip
 from ..core.postprocess import batched_nms, filter_scores_and_topk
 from ..core.uniform_assigner import uniform_assign
 from .dilated_encoder import ConvModule
@@ -141,22 +142,13 @@ def yolof_detection_loss(out: YOLOFHeadOutputs, anchors, gt_bboxes,
     return dict(loss_cls=loss_cls, loss_bbox=loss_bbox), assign
 
 
-def clip_to_image(boxes: torch.Tensor, img_hw: torch.Tensor) -> torch.Tensor:
-    """(B, k, 4) xyxy boxes clipped to [0, w] x [0, h] of each image."""
-    hw = img_hw.to(boxes.dtype)
-    h, w = hw[:, 0, None], hw[:, 1, None]
-    return torch.stack([boxes[..., 0].clamp(min=0).minimum(w),
-                        boxes[..., 1].clamp(min=0).minimum(h),
-                        boxes[..., 2].clamp(min=0).minimum(w),
-                        boxes[..., 3].clamp(min=0).minimum(h)], -1)
-
-
 def nms_detections(boxes, top, img_hw, scale_factor, rescale,
                    nms_iou, max_per_img) -> Detections:
     """The top-k candidates (``top``, a TopkResult over flat positions) with
     their (B, k, 4) boxes: clipped to the image, class-aware NMS, rescaled
     if asked, and the positions of the survivors as ``keep_qid``."""
-    boxes = clip_to_image(boxes, img_hw)
+    hw = img_hw.to(boxes.dtype)
+    boxes = bbox_clip(boxes, (hw[:, 0, None], hw[:, 1, None]))
     res = batched_nms(boxes, top.scores, top.labels, nms_iou, max_per_img,
                       valid=top.valid)
     bboxes = res.bboxes

@@ -40,6 +40,10 @@ _LAZY = {
     "detr": "dskd_tpu_torch.models.detr",
     "yolof": "dskd_tpu_torch.models.yolof",
     "yoloy": "dskd_tpu_torch.models.yoloy",
+    "retinanet": "dskd_tpu_torch.models.retinanet",
+    "atss": "dskd_tpu_torch.models.atss",
+    "gfl": "dskd_tpu_torch.models.gfl",
+    "fcos": "dskd_tpu_torch.models.fcos",
 }
 
 

@@ -1,7 +1,9 @@
 """JAX variables -> the port's ``state_dict`` (the inverses of
 dskd_tpu/utils/torch_weights.py ``convert_mmdet_gfl_ddetr``,
-``convert_mmdet_detr`` and ``convert_mmdet_yolof``, and
-``deformable_detr_state_dict_from_jax`` under mmdet's names).
+``convert_mmdet_detr``, ``convert_mmdet_yolof``,
+``convert_mmdet_retinanet`` and ``convert_mmdet_gfl``, and
+``deformable_detr_state_dict_from_jax``, ``atss_state_dict_from_jax`` and
+``fcos_state_dict_from_jax`` under mmdet's names).
 
 The port names its parameters after the mmdet checkpoint keys that those
 converters read, so ``state_dict_from_jax`` (the flagship),
@@ -320,3 +322,83 @@ def yoloy_state_dict_from_jax(variables: Dict[str, Any]
         w.conv(f"bbox_head.multi_level_conv_{m.group(1)}.{m.group(2)}",
                head[name])
     return w.out
+
+
+def _fpn(w: _Writer, neck) -> None:
+    """JAX's FPN ``lateral{i}``, ``fpn_conv{i}`` and ``extra_conv{j}`` ->
+    ``neck.lateral_convs.i.conv`` and ``neck.fpn_convs.k.conv``, the extra
+    convs after the outputs' (mmdet's ``fpn_convs.{3,4}`` at P3-P7)."""
+    n = sum(bool(re.fullmatch(r"lateral\d+", k)) for k in neck)
+    for name, p in neck.items():
+        m = re.fullmatch(r"(lateral|fpn_conv|extra_conv)(\d+)", name)
+        kind, i = m.group(1), int(m.group(2))
+        if kind == "lateral":
+            w.conv(f"neck.lateral_convs.{i}.conv", p)
+        else:
+            w.conv(f"neck.fpn_convs.{i + n * (kind == 'extra_conv')}.conv",
+                   p)
+
+
+def _dense(variables, outputs, gn: bool) -> Dict[str, torch.Tensor]:
+    """A ResNet + FPN + dense head of JAX's: the towers ``{cls,reg}_conv{i}``
+    (and ``_gn{i}``) -> ``bbox_head.{cls,reg}_convs.i.conv`` (``.gn``), the
+    ``outputs`` convs under their own names, ``scale{l}`` ->
+    ``bbox_head.scales.l.scale``."""
+    params = variables["params"]
+    w = _Writer()
+    w.backbone(params["backbone"], variables["batch_stats"]["backbone"])
+    _fpn(w, params["neck"])
+    head = params["bbox_head"]
+    for name, p in head.items():
+        m = re.fullmatch(r"(cls|reg)_(conv|gn)(\d+)", name)
+        if m:
+            kind, part, i = m.groups()
+            dst = f"bbox_head.{kind}_convs.{i}.{part}"
+            if part == "conv":
+                w.conv(dst, p)
+            else:
+                w.norm(dst, p)
+            continue
+        m = re.fullmatch(r"scale(\d+)", name)
+        if m:
+            w.put(f"bbox_head.scales.{m.group(1)}.scale", p["scale"])
+        elif name in outputs:
+            w.conv(f"bbox_head.{name}", p)
+        else:
+            raise KeyError(f"unexpected head parameter {name!r}")
+    if gn != any("_gn" in k for k in head):
+        raise KeyError("the head's GroupNorms do not match the family")
+    return w.out
+
+
+def retinanet_state_dict_from_jax(variables: Dict[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/retinanet.RetinaNet`` variables -> mmdet-keyed CPU
+    tensors for the port's ``models.retinanet.RetinaNet`` (the inverse of
+    ``convert_mmdet_retinanet``)."""
+    return _dense(variables, ("retina_cls", "retina_reg"), gn=False)
+
+
+def atss_state_dict_from_jax(variables: Dict[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/atss.ATSS`` variables -> mmdet-keyed CPU tensors
+    for the port's ``models.atss.ATSS`` (mmdet's ``atss_head.py``
+    names)."""
+    return _dense(variables, ("atss_cls", "atss_reg", "atss_centerness"),
+                  gn=True)
+
+
+def gfl_state_dict_from_jax(variables: Dict[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/gfl.GFL`` variables -> mmdet-keyed CPU tensors for
+    the port's ``models.gfl.GFL`` (the inverse of ``convert_mmdet_gfl``)."""
+    return _dense(variables, ("gfl_cls", "gfl_reg"), gn=True)
+
+
+def fcos_state_dict_from_jax(variables: Dict[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/fcos.FCOS`` variables -> mmdet-keyed CPU tensors
+    for the port's ``models.fcos.FCOS`` (mmdet's ``fcos_head.py`` /
+    ``anchor_free_head.py`` names)."""
+    return _dense(variables, ("conv_cls", "conv_reg", "conv_centerness"),
+                  gn=True)

@@ -271,6 +271,60 @@ print(json.dumps({
                                             "dskd_tpu"))}))
 """
 
+_DENSE_SCRIPT = _REFUSE + r"""
+import importlib
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from dskd_tpu_torch import registry
+from dskd_tpu_torch.data.batch import Batch
+from dskd_tpu_torch.eval.evaluator import make_eval_step
+from dskd_tpu_torch.train.family import make_family_train_step
+from dskd_tpu_torch.train.optim import make_optimizer
+from dskd_tpu_torch.train.schedule import step_lr_schedule
+from dskd_tpu_torch.train.state import TrainState
+from dskd_tpu_torch.utils.config import (ExperimentConfig, ModelConfig,
+                                         load_config)
+
+for name in ("core.atss", "core.max_iou_assigner", "core.boxes",
+             "core.integral", "core.postprocess", "models.fpn",
+             "models.backbones", "models.gfl_head", "models.gfl",
+             "models.atss", "models.retinanet", "models.fcos",
+             "utils.weights"):
+    importlib.import_module("dskd_tpu_torch." + name)
+rng = np.random.RandomState(0)
+images = torch.from_numpy(rng.randn(2, 64, 64, 3).astype(np.float32))
+img_hw = torch.tensor([[64, 64], [48, 60]], dtype=torch.int32)
+gt = torch.tensor([[[4., 6., 40., 50.], [30., 10., 60., 30.]],
+                   [[2., 2., 20., 30.], [0., 0., 0., 0.]]])
+batch = Batch(images, img_hw, gt, torch.tensor([[1, 3], [2, 0]]),
+              torch.tensor([[True, True], [True, False]]))
+report = {}
+for arch in ("retinanet", "atss", "gfl", "fcos"):
+    cfg = load_config(f"configs/{arch}_r50_1x.py")
+    cfg.model = ModelConfig(arch=arch, num_classes=5, depth=18)
+    spec = registry.get_family(arch)
+    model = spec["build"](cfg.model, "cpu")
+    spec["init_weights"](model, 0)
+    with torch.no_grad():
+        out = model(images, img_hw)
+    state = TrainState.create(model, make_optimizer(
+        model, step_lr_schedule(1e-4)), seed=0)
+    step = make_family_train_step(arch, model, cfg, num_prev=0,
+                                  has_teacher=False)
+    state, losses = step(state, batch)
+    det = make_eval_step(model.eval(), cfg.model.reg_max, 0.0, 20,
+                         arch)(images, img_hw, torch.ones(2, 4))
+    report[arch] = [len(out.neck_feats), sorted(losses),
+                    all(bool(torch.isfinite(v)) for v in losses.values()),
+                    list(det.bboxes.shape)]
+print(json.dumps({
+    "dense": report,
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                            "dskd_tpu"))}))
+"""
+
 
 def _run(script, tmp_path):
     """Runs ``script`` in a fresh interpreter from the repo's root and
@@ -329,3 +383,15 @@ def test_deformable_detr_imports_no_jax(tmp_path):
         "base": [False, False, dec], "refine_": [True, False, dec],
         "twostage_": [True, True, sorted(enc + dec)],
         "cli": [["task_1_epoch_1", "task_2_epoch_1"], True]}
+
+
+def test_dense_families_import_no_jax(tmp_path):
+    report = _run(_DENSE_SCRIPT, tmp_path)
+    assert report["loaded"] == []
+    det = ["loss", "loss_bbox", "loss_centerness", "loss_cls"]
+    assert report["dense"] == {
+        "retinanet": [5, ["loss", "loss_bbox", "loss_cls"], True, [2, 20, 4]],
+        "atss": [5, det, True, [2, 20, 4]],
+        "gfl": [5, ["loss", "loss_bbox", "loss_cls", "loss_dfl"], True,
+                [2, 20, 4]],
+        "fcos": [5, det, True, [2, 20, 4]]}

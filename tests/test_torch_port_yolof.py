@@ -535,8 +535,9 @@ def _rows(work):
     return rows
 
 
-def run_two_tasks_against_jax(root, cfg_fn, v, check_buffers):
-    """``run_incremental`` of the tiny config (two tasks of 2 steps, B=2,
+def run_two_tasks_against_jax(root, cfg_fn, v, check_buffers, iters=2):
+    """``run_incremental`` of the tiny config (two tasks of ``iters`` steps,
+    B=2,
     eval and checkpoints after each, lr 1e-5) against JAX's
     ``train_one_task`` on a one-device mesh, from the same weights: train
     rows (1e-4 relative on a task's first step, 1e-3 after an update) and
@@ -554,7 +555,8 @@ def run_two_tasks_against_jax(root, cfg_fn, v, check_buffers):
 
     def run_cfg(mod, work, num_workers):
         cfg = cfg_fn(mod, base_lr=1e-5, warmup_iters=2, step_epochs=(10,),
-                     max_iters_per_task=2, eval_interval=1, ckpt_interval=1,
+                     max_iters_per_task=iters, eval_interval=1,
+                     ckpt_interval=1,
                      log_interval=1, use_dropout=False, seed=0,
                      work_dir=work)
         n = cfg.model.num_classes

@@ -1,0 +1,52 @@
+#!/usr/bin/env python3
+"""Where the dense families' f32 FPN-lateral gradient parts from the CPU's.
+
+    python3 tools/torch_dense_grad_check.py [ARCH ...]
+
+For each arch (default: gfl, atss), the step that ``chip_smoke.py``'s
+phase 14 holds against the CPU (``check_family_card_vs_cpu``: the
+config's seeded student, B=2 on ``chip_smoke.DENSE_CMP_HW``, the family's
+named gradients), run on one CUDA card and on the CPU twice: in f64, where
+every named gradient, the FPN lateral's included, is held to
+``GRAD_REL_TOL``; then in f32 with cuDNN off (PyTorch's native
+convolutions), so that the lateral's gap can be read without cuDNN's
+algorithm choice. TF32 stays off. Prints the card's name and power limit
+and each gradient's relative L2 error; a gradient past its tolerance
+raises.
+"""
+import os
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke as cs  # noqa: E402
+from dskd_tpu_torch.utils.config import apply_overrides, \
+    load_config  # noqa: E402
+
+
+def main(archs):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = cs.card_line()
+    print(f"card: {card}")
+    for arch in archs:
+        cfg = apply_overrides(load_config(cs.DENSE_CONFIGS[arch]),
+                              list(cs.DENSE_SETS))
+        fam = cs.FAMILIES[arch]
+        cs.check_family_card_vs_cpu(fam, cfg, card, torch.float64,
+                                    hw=cs.DENSE_CMP_HW, tag=f"{arch} f64")
+        torch.backends.cudnn.enabled = False
+        try:
+            cs.check_family_card_vs_cpu(fam, cfg, card, torch.float32,
+                                        hw=cs.DENSE_CMP_HW,
+                                        tag=f"{arch} f32 cuDNN off")
+        finally:
+            torch.backends.cudnn.enabled = True
+
+
+if __name__ == "__main__":
+    if not torch.cuda.is_available():
+        raise RuntimeError("this check needs a CUDA card")
+    main(sys.argv[1:] or ["gfl", "atss"])
