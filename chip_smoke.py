@@ -411,7 +411,9 @@ def model_launches(switch, cfg, forwards, backwards=0):
 
 # families whose step reads no teacher: JAX's deformable_detr losses
 # ignore the task-2 teacher its driver passes
-TEACHERLESS = ("deformable_detr", "retinanet", "atss", "gfl", "fcos")
+TEACHERLESS = ("deformable_detr", "retinanet", "atss", "gfl", "fcos", "paa",
+               "pisa_retinanet", "retinanet_ghm", "retinanet_fpg",
+               "retinanet_nasfpn")
 
 
 def path_launches(cfg, forwards, backwards=0):
@@ -2258,14 +2260,15 @@ KD_CLOSED_RTOL = 1e-5    # closed-form loss_kd against the (N, N) product
 THREAD_SPREAD_TOL = 2e-2
 
 
-def family_batch(device, n, hw=CANVAS_HW, max_gt=MAX_GT):
+def family_batch(device, n, hw=CANVAS_HW, max_gt=MAX_GT, seed=7):
     """n images of the canvas ``hw`` whose valid (h, w) cycle through
     CANVAS_VALID (scaled to ``hw``), ``max_gt`` GT of which 5-29 are valid,
-    in classes 40-79 and inside each image's valid region."""
+    in classes 40-79 and inside each image's valid region; drawn from
+    ``seed``."""
     from dskd_tpu_torch.data.batch import Batch
 
     H, W = hw
-    rng = np.random.RandomState(7)
+    rng = np.random.RandomState(seed)
     images = rng.randn(n, H, W, 3).astype(np.float32) * 0.5
     img_hw = np.array([CANVAS_VALID[i % len(CANVAS_VALID)] for i in range(n)],
                       np.int32) * np.array([H, W]) // 640
@@ -2614,7 +2617,16 @@ DENSE_GRAD_PARAMS = {
 # beside the CPU's own spread between thread counts, as YOLOF's neck is
 DENSE_SPREAD_PARAMS = ("neck.lateral_convs.0.conv.weight",)
 DENSE_CLS_CONV = {"retinanet": "retina_cls", "atss": "atss_cls",
-                  "gfl": "gfl_cls", "fcos": "conv_cls"}
+                  "gfl": "gfl_cls", "fcos": "conv_cls", "paa": "paa_cls"}
+# phase 15's archs -> the dense family whose anchors, assignment and decode
+# they share (LD is GFL's, LAD is PAA's, the variants are RetinaNet's)
+DENSE_KIND = {"ld": "gfl", "lad": "paa", "pisa_retinanet": "retinanet",
+              "retinanet_ghm": "retinanet", "retinanet_fpg": "retinanet",
+              "retinanet_nasfpn": "retinanet"}
+
+
+def dense_kind(arch: str) -> str:
+    return DENSE_KIND.get(arch, arch)
 DENSE_DECODE_BIAS = -4.0    # the decode model's class bias
 
 
@@ -2649,8 +2661,8 @@ def dense_decode_model(cfg, device):
         for mod in model.bbox_head.modules():
             if isinstance(mod, torch.nn.Conv2d):
                 lecun_(mod.weight, g)
-        getattr(model.bbox_head, DENSE_CLS_CONV[cfg.model.arch]).bias.fill_(
-            DENSE_DECODE_BIAS)
+        getattr(model.bbox_head, DENSE_CLS_CONV[dense_kind(
+            cfg.model.arch)]).bias.fill_(DENSE_DECODE_BIAS)
     return model.eval()
 
 
@@ -2666,6 +2678,7 @@ def dense_priors(arch, out, device):
     """The family's anchors or points of a forward ``out`` and their
     per-level counts."""
     sizes = [tuple(c.shape[1:3]) for c in out.head.cls_scores]
+    arch = dense_kind(arch)
     if arch == "retinanet":
         from dskd_tpu_torch.models.retinanet import retina_anchors
         return retina_anchors(sizes, device), None
@@ -2681,6 +2694,7 @@ def dense_assign(arch, cfg, priors, batch):
     or -1 / -2, labels, anything else it outputs)."""
     C = cfg.model.num_classes
     gt = (batch.gt_bboxes, batch.gt_labels, batch.gt_valid)
+    arch = dense_kind(arch)
     if arch == "retinanet":
         from dskd_tpu_torch.core.max_iou_assigner import max_iou_assign
         r = max_iou_assign(priors[0], *gt, C, pos_iou_thr=0.5,
@@ -2700,20 +2714,26 @@ def dense_decode(arch, out, priors, img_hw, max_per_img=100):
     forward at the families' test settings (threshold 0.05, 1000 per
     level)."""
     from dskd_tpu_torch.core.postprocess import filter_scores_and_topk_mlvl
-    from dskd_tpu_torch.models import atss, fcos, gfl_head, retinanet
+    from dskd_tpu_torch.models import atss, fcos, gfl_head, paa, retinanet
     from dskd_tpu_torch.models.gfl_head import cat_levels, level_sizes
 
     h = out.head
+    arch = dense_kind(arch)
     C = h.cls_scores[0].shape[-1] // (retinanet.NUM_ANCHORS
                                       if arch == "retinanet" else 1)
     scores = torch.sigmoid(cat_levels(h.cls_scores, C))
     if arch in ("atss", "fcos"):
         scores = scores * torch.sigmoid(cat_levels(h.centernesses, 1))
+    if arch == "paa":
+        scores = torch.sqrt((scores * torch.sigmoid(cat_levels(
+            h.iou_preds, 1))).clamp(min=1e-12))
     top = filter_scores_and_topk_mlvl(scores, 0.05, 1000,
                                       level_sizes(h.cls_scores, C))
     kw = dict(max_per_img=max_per_img)
     if arch == "retinanet":
         det = retinanet.retina_get_bboxes(h, priors[0], img_hw, **kw)
+    elif arch == "paa":
+        det = paa.paa_get_bboxes(h, priors[0], img_hw, **kw)
     elif arch == "atss":
         det = atss.atss_get_bboxes(h, priors[0], img_hw, **kw)
     elif arch == "gfl":
@@ -2792,7 +2812,7 @@ def check_dense(fam, cfg, card, student, teacher, batch):
     """Phase 14's family check: the family's assignment (max-IoU for
     RetinaNet, ATSS for ATSS and GFL, FCOS's targets) of the training
     batch on the card equals the CPU's exactly; then check_dense_decode."""
-    arch = cfg.model.arch
+    arch = dense_kind(cfg.model.arch)
     with torch.no_grad():
         out = student(batch.images[:1], batch.img_hw[:1])
     res = {}
@@ -3228,6 +3248,464 @@ def check_dense_families(card):
         print(f"{arch}: {time.perf_counter() - t0:.1f} s of phase 14")
 
 
+# --- LD, PAA, LAD and the RetinaNet variants (phase 15) ----------------------
+
+VARIANT_CONFIGS = {
+    arch: os.path.join(ROOT, "configs", f"{name}.py") for arch, name in (
+        ("ld", "ld_r18_gflv1_r101_1x"), ("paa", "paa_r50_1x"),
+        ("lad", "lad_r50_paa_r101_1x"),
+        ("pisa_retinanet", "pisa_retinanet_r50_1x"),
+        ("retinanet_ghm", "retinanet_ghm_r50_1x"),
+        ("retinanet_fpg", "retinanet_r50_fpg_50e"),
+        ("retinanet_nasfpn", "retinanet_r50_nasfpn_50e"))}
+# the head's gradients, which f32 decides closely at the init (the FPN
+# lateral's, held loosely in phase 14, is left out). Behind FPG's nine
+# stacks the cls tower's last conv, and in NAS-FPN's train-mode SepBN head
+# the reg tower's, part from the CPU's by 8.6e-4 and 3.0e-3 in f32, as much
+# as the CPU's own 1- and 8-thread steps part (2.5e-3, 3.0e-3), and agree
+# within 4e-14 in f64 (tools/torch_dense_grad_check.py on the card): they are
+# left out there rather than rerun on one thread here (~50 s each)
+_HEAD_GRADS = ("bbox_head.cls_convs.3.conv.weight",
+               "bbox_head.reg_convs.3.conv.weight")
+_RETINA_OUT = ("bbox_head.retina_cls.weight", "bbox_head.retina_reg.weight")
+VARIANT_GRAD_PARAMS = {
+    "gfl": _HEAD_GRADS + ("bbox_head.gfl_cls.weight",
+                          "bbox_head.gfl_reg.weight"),
+    "paa": _HEAD_GRADS + ("bbox_head.paa_cls.weight",
+                          "bbox_head.paa_reg.weight",
+                          "bbox_head.paa_iou.weight"),
+    "retinanet": _HEAD_GRADS + _RETINA_OUT,
+    "retinanet_fpg": _HEAD_GRADS[1:] + _RETINA_OUT,
+    "retinanet_nasfpn": _HEAD_GRADS[:1] + _RETINA_OUT}
+VARIANT_SETS = ()         # the configs as they are (a rehearsal cuts them)
+GHM_EMA_TOL = dict(rtol=1e-3, atol=2.0)   # EMAs of bin counts, 3 steps
+ISR_TOL = dict(rtol=1e-4, atol=1e-6)      # ISR-P weights, card vs CPU
+
+
+def variant_models(cfg, device, **overrides):
+    """Student (seed 0) and frozen teacher (seed 1); LD's and LAD's teacher
+    is the ResNet-101 model of ``build_teacher_model``."""
+    from dskd_tpu_torch.registry import get_family
+    from dskd_tpu_torch.train.incremental import build_teacher_model
+    from dskd_tpu_torch.train.state import frozen_copy
+
+    student, teacher = dense_models(cfg, device, **overrides)
+    if not cfg.model.teacher_depth:
+        return student, teacher
+    teacher = build_teacher_model(dataclasses.replace(cfg, model=dataclasses
+                                                      .replace(cfg.model,
+                                                               **overrides)),
+                                  torch.device(device))
+    get_family(cfg.model.arch)["init_weights"](teacher, 1)
+    return student, frozen_copy(teacher)
+
+
+def _gt_sets(cand_idx, is_pos):
+    """{(image, GT): frozenset of its positive anchors}."""
+    return {(b, g): frozenset(cand_idx[b, g][is_pos[b, g]].tolist())
+            for b in range(cand_idx.shape[0])
+            for g in range(cand_idx.shape[1])}
+
+
+def check_paa(fam, cfg, card, student, teacher, batch):
+    """PAA's and LAD's positives on the training batch, card against CPU,
+    from the same head outputs (the student's, or LAD's teacher's, taken on
+    the card): each GT's positive anchors must match wherever its valid
+    candidates' losses (on the CPU) stand more than twice the devices'
+    largest candidate-loss difference apart; then check_dense_decode."""
+    from dskd_tpu_torch.models import paa as P
+
+    lad = cfg.model.arch == "lad"
+    C = cfg.model.num_classes
+    with torch.no_grad():
+        out = (teacher if lad else student)(batch.images, batch.img_hw).head
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        h = type(out)(*(tuple(t.to(dev) for t in f) for f in out))
+        b = batch.to(dev)
+        anchors, counts = P.paa_anchors([tuple(c.shape[1:3])
+                                         for c in h.cls_scores], dev)
+        dec = P.delta2bbox(anchors[None], P.cat_levels(h.bbox_preds, 4),
+                           stds=P.DELTA_STDS)
+        args = (P.cat_levels(h.cls_scores, C), dec, anchors, counts,
+                b.gt_bboxes, b.gt_labels, b.gt_valid,
+                P.PAALossConfig(num_classes=C))
+        with torch.no_grad():
+            idx, score = P.paa_candidates(*args)
+            is_pos = P.gmm_split(score, score < 1e7)
+            assigned, pos, _ = P.paa_assign(*args)
+        got[dev] = [t.cpu() for t in (idx, score, is_pos, pos)]
+    (idx, score, is_pos, pos), (c_idx, c_score, c_pos, c_apos) = \
+        got[DEVICE], got["cpu"]
+    valid = c_score < 1e7
+    same_idx = (idx == c_idx) & valid
+    gap = float((score - c_score)[same_idx].abs().max())
+    card_sets, cpu_sets = _gt_sets(idx, is_pos), _gt_sets(c_idx, c_pos)
+    n_gt, excused, bad = 0, 0, []
+    for (b, g), want in cpu_sets.items():
+        vals = c_score[b, g][valid[b, g]].sort().values
+        if vals.numel() == 0:
+            continue
+        n_gt += 1
+        tied = vals.numel() > 1 and bool(((vals[1:] - vals[:-1])
+                                          <= 2 * gap).any())
+        if card_sets[(b, g)] != want:
+            if tied:
+                excused += 1
+            else:
+                bad.append((b, g))
+    print(f"{fam['tag']} assignment, card vs CPU on the "
+          f"{'teacher' if lad else 'student'}'s outputs (B="
+          f"{batch.images.shape[0]}, {tuple(batch.images.shape[1:3])}, "
+          f"{pos.shape[1]} anchors, GT padded to {batch.gt_valid.shape[1]}): "
+          f"positives per image card {pos.sum(1).tolist()} CPU "
+          f"{c_apos.sum(1).tolist()}; {n_gt} GT with candidates, "
+          f"{n_gt - excused - len(bad)} with the CPU's positives, {excused} "
+          f"differing where two candidate losses stand within 2 x {gap:.3e} "
+          f"(the devices' largest difference), {len(bad)} differing apart "
+          f"[{card}]")
+    if bad or not bool(c_apos.any()) or excused == n_gt:
+        raise AssertionError(f"{fam['tag']}: the card's positives differ "
+                             f"from the CPU's at GT {bad[:8]}")
+    check_dense_decode(fam, cfg, card)
+
+
+def check_pisa(fam, cfg, card, student, teacher, batch):
+    """check_dense (max-IoU), then ISR-P's weights of the training batch
+    from the same head outputs (taken on the card), card against CPU
+    (ISR_TOL) but at positives whose IoU with their target stands within
+    twice the devices' largest IoU difference of another positive's of
+    their class, where the rank may part."""
+    from dskd_tpu_torch.core.anchors import bbox2delta, delta2bbox
+    from dskd_tpu_torch.core.boxes import bbox_overlaps
+    from dskd_tpu_torch.core.max_iou_assigner import max_iou_assign
+    from dskd_tpu_torch.models import pisa, retinanet as R
+
+    check_dense(fam, cfg, card, student, teacher, batch)
+    C = cfg.model.num_classes
+    with torch.no_grad():
+        out = student(batch.images, batch.img_hw).head
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        h = type(out)(*(tuple(t.to(dev) for t in f) for f in out))
+        b = batch.to(dev)
+        with torch.no_grad():
+            anchors = R.retina_anchors([c.shape[1:3] for c in h.cls_scores],
+                                       dev)
+            a = max_iou_assign(anchors, b.gt_bboxes, b.gt_labels, b.gt_valid,
+                               C, pos_iou_thr=0.5, neg_iou_thr=0.4,
+                               min_pos_iou=0.0)
+            B, N = a.labels.shape
+            G = b.gt_bboxes.shape[1]
+            pos = a.assigned_gt >= 0
+            tgt = torch.gather(b.gt_bboxes, 1, a.assigned_gt.clamp(0, G - 1)[
+                ..., None].expand(-1, -1, 4))
+            dt = bbox2delta(anchors[None], tgt).reshape(-1, 4)
+            deltas = R.cat_levels(h.bbox_preds, 4).reshape(-1, 4)
+            af = anchors[None].expand(B, N, 4).reshape(-1, 4)
+            gt_off = a.assigned_gt + torch.arange(B, device=dev)[:, None] * G
+            w = pisa.isr_p_weights(R.cat_levels(h.cls_scores, C).reshape(
+                -1, C), deltas, af, a.labels.reshape(-1), pos.reshape(-1),
+                gt_off.reshape(-1), dt, C)
+            first = torch.argsort((~pos.reshape(-1)).to(torch.uint8),
+                                  stable=True)[:pisa.MAX_POS]
+            iou = bbox_overlaps(delta2bbox(af[first], deltas[first]),
+                                delta2bbox(af[first], dt[first]),
+                                is_aligned=True)
+        got[dev] = [t.cpu() for t in (w, pos.reshape(-1), first, iou,
+                                      a.labels.reshape(-1))]
+    (w, pos, first, iou, lab), (c_w, c_pos, c_first, c_iou, c_lab) = \
+        got[DEVICE], got["cpu"]
+    if not (torch.equal(pos, c_pos) and torch.equal(first, c_first)):
+        raise AssertionError("pisa: the positives differ card vs CPU")
+    n_pos = int(c_pos.sum())
+    P = min(n_pos, pisa.MAX_POS)
+    gap = float((iou - c_iou)[:P].abs().max())
+    ci, cl = c_iou[:P], c_lab[c_first[:P]]
+    near = ((ci[:, None] - ci[None, :]).abs() <= 2 * gap) & (
+        cl[:, None] == cl[None, :])
+    excused = torch.zeros_like(c_w, dtype=torch.bool)
+    excused[c_first[:P]] = (near.sum(1) > 1)
+    close = (w - c_w).abs() <= ISR_TOL["atol"] + ISR_TOL["rtol"] * c_w.abs()
+    bad = int((~close & ~excused).sum())
+    print(f"pisa ISR-P weights, card vs CPU on the student's outputs (B="
+          f"{batch.images.shape[0]}): {n_pos} positives, {P} weighted (cap "
+          f"{pisa.MAX_POS}, {max(n_pos - pisa.MAX_POS, 0)} past it keep 1), "
+          f"weights {float(c_w[c_first[:P]].min()):.4f}-"
+          f"{float(c_w[c_first[:P]].max()):.4f}; max abs err "
+          f"{float((w - c_w).abs().max()):.3e}, {int(excused.sum())} "
+          f"positives within 2 x {gap:.3e} (the devices' largest IoU "
+          f"difference) of another's IoU in their class, {bad} differing "
+          f"beyond {ISR_TOL} elsewhere [{card}]")
+    if bad or not n_pos:
+        raise AssertionError(f"pisa: {bad} ISR-P weights differ card vs CPU")
+
+
+def steps_vs_cpu(fam, cfg, n_steps=3, record=None, base_lr=None):
+    """``n_steps`` family steps from the seeded init on B=2 batches of
+    DENSE_CMP_HW (one batch, or with ``base_lr`` a batch of its own seed
+    each step and that learning rate) on the card and on the CPU, cfg's
+    optimizer; returns {device: (the running buffers after them, the last
+    losses)}. ``record(device)`` is a context manager run around each
+    device's steps."""
+    from dskd_tpu_torch.train.family import make_family_train_step
+
+    if base_lr is not None:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, base_lr=base_lr))
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        student, teacher = fam["models"](cfg, dev)
+        state = train_state(cfg, student)
+        step = make_family_train_step(cfg.model.arch, student, cfg,
+                                      num_prev=0, has_teacher=True)
+        with record(dev) if record else contextlib.nullcontext():
+            for i in range(n_steps):
+                batch = family_batch(dev, 2, DENSE_CMP_HW, fam["max_gt"](
+                    cfg), seed=7 if base_lr is None else 7 + i)
+                state, losses = step(state, batch, teacher)
+        out[dev] = ({k: v.cpu() for k, v in student.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))
+                     or k.startswith("ghm_acc_")},
+                    {k: v.cpu() for k, v in losses.items()})
+    return out
+
+
+@contextlib.contextmanager
+def ghm_bins(calls):
+    """Append each GHM loss call's bin indices (int8, on the CPU) to
+    ``calls`` while the block runs."""
+    from dskd_tpu_torch.core import losses as L
+
+    weights = L._ghm_weights
+
+    def recording(g, valid, tot, edges, bins, momentum, acc_sum):
+        idx = (torch.searchsorted(edges, g.reshape(-1).contiguous(),
+                                  right=True) - 1).clamp(0, bins - 1)
+        calls.append(torch.where(valid.reshape(-1), idx, -1).to(
+            torch.int8).cpu())
+        return weights(g, valid, tot, edges, bins, momentum, acc_sum)
+
+    L._ghm_weights = recording
+    try:
+        yield
+    finally:
+        L._ghm_weights = weights
+
+
+def check_ghm(fam, cfg, card, student, teacher, batch):
+    """check_dense (max-IoU), then three family steps card and CPU from the
+    seeded init on B=2 of DENSE_CMP_HW: GHM-C's and GHM-R's EMAs after them
+    within GHM_EMA_TOL, with the count of elements whose gradient norm fell
+    in another bin on the card than on the CPU."""
+    check_dense(fam, cfg, card, student, teacher, batch)
+    calls = {DEVICE: [], "cpu": []}
+    res = steps_vs_cpu(fam, cfg, record=lambda dev: ghm_bins(calls[dev]))
+    moved = [int((a != b).sum()) for a, b in zip(calls[DEVICE],
+                                                calls["cpu"])]
+    n_elem = sum(int((b >= 0).sum()) for b in calls["cpu"])
+    (bufs, losses), (c_bufs, c_losses) = res[DEVICE], res["cpu"]
+    for k in ("ghm_acc_c", "ghm_acc_r"):
+        print(f"ghm {k} after 3 steps (B=2, {DENSE_CMP_HW[0]}x"
+              f"{DENSE_CMP_HW[1]}): card {bufs[k].tolist()} max abs err "
+              f"{float((bufs[k] - c_bufs[k]).abs().max()):.4f} (tolerance "
+              f"{GHM_EMA_TOL}) [{card}]")
+        torch.testing.assert_close(bufs[k], c_bufs[k], **GHM_EMA_TOL, msg=k)
+    print(f"ghm: {sum(moved)} of {n_elem} valid elements in the 3 steps' "
+          f"{len(moved)} GHM calls fell in another bin on the card than on "
+          f"the CPU (per call {moved}); last losses card "
+          f"{ {k: round(float(v), 6) for k, v in losses.items()} } CPU "
+          f"{ {k: round(float(v), 6) for k, v in c_losses.items()} }")
+
+
+def check_nasfpn(fam, cfg, card, student, teacher, batch):
+    """check_dense (max-IoU), then three family steps card and CPU from the
+    seeded init, each on a B=2 batch of DENSE_CMP_HW of its own, at
+    learning rate 0: every running buffer after them within BN_TOL; the
+    SepBN head's have moved, NAS-FPN's have not (JAX's RetinaNet runs the
+    neck on its running statistics). At the config's learning rate AdamW's
+    first update, lr x sign(gradient) wherever the gradient is near 0,
+    takes the two devices' weights apart by up to 2 lr on such elements,
+    and the statistics of the steps after with them."""
+    check_dense(fam, cfg, card, student, teacher, batch)
+    res = steps_vs_cpu(fam, cfg, base_lr=0.0)
+    (bufs, _), (c_bufs, _) = res[DEVICE], res["cpu"]
+    err = {k: float((bufs[k] - v).abs().max()) for k, v in c_bufs.items()}
+    for k, v in c_bufs.items():
+        torch.testing.assert_close(bufs[k], v, **BN_TOL, msg=k)
+    # the seeded init's statistics: mean 0, variance 1
+    moved = sorted(k for k, v in c_bufs.items() if not torch.equal(
+        v, torch.full_like(v, float(k.endswith("running_var")))))
+    neck = [k for k in moved if k.startswith("neck.")]
+    print(f"nasfpn: {len(err)} running buffers after 3 steps at lr 0 (B=2, "
+          f"{DENSE_CMP_HW[0]}x{DENSE_CMP_HW[1]}, three batches) card vs CPU "
+          f"within {BN_TOL}, largest abs err {max(err.values()):.3e} "
+          f"({max(err, key=err.get)}); moved: {len(moved)}, all in the "
+          f"SepBN head {not neck} [{card}]")
+    if neck or not moved:
+        raise AssertionError(f"nasfpn: moved running buffers {moved[:6]}")
+    # the same at the config's learning rate, read and not held
+    res = steps_vs_cpu(fam, cfg)
+    (bufs, _), (c_bufs, _) = res[DEVICE], res["cpu"]
+    err = {k: float((bufs[k] - v).abs().max() / v.abs().max().clamp(
+        min=1e-12)) for k, v in c_bufs.items()}
+    far = sum(not torch.allclose(bufs[k], v, **BN_TOL)
+              for k, v in c_bufs.items())
+    print(f"nasfpn: after 3 steps on one batch at the config's lr "
+          f"{cfg.train.base_lr} (warmup {cfg.train.warmup_iters}), {far} of "
+          f"{len(err)} running buffers part from the CPU's beyond {BN_TOL}, "
+          f"the largest by {max(err.values()):.3e} of its max "
+          f"({max(err, key=err.get)}) [{card}]")
+
+
+def check_external_teacher_run(card, config, sets=()):
+    """LD or LAD through the train_increment CLI's config path and
+    ``run_incremental``: one task (the config's catsplit (80,)) of 2 steps
+    at B=2 on a synthetic COCO (4 train, 2 val images), eval after it, with
+    an external teacher: a ResNet-101 model (seed 1) that the port writes
+    as its own checkpoint, which ``build_teacher_model`` must rebuild and
+    load bit for bit."""
+    import tempfile
+
+    from dskd_tpu_torch.data.coco import COCO_CLASSES_ALPHA_ORDER
+    from dskd_tpu_torch.registry import get_family
+    from dskd_tpu_torch.tools.train_increment import build_parser, \
+        config_from_args
+    from dskd_tpu_torch.train import incremental
+    from dskd_tpu_torch.train.checkpoint import save_checkpoint
+    from dskd_tpu_torch.train.optim import make_optimizer
+    from dskd_tpu_torch.train.schedule import step_lr_schedule
+    from dskd_tpu_torch.train.state import TrainState
+
+    with tempfile.TemporaryDirectory() as root:
+        cats = [cid for _, cid in COCO_CLASSES_ALPHA_ORDER]
+        shapes = ((480, 640), (640, 480))
+        train_ann, train_dir = write_coco(root, "train", shapes * 2, cats,
+                                          seed=0)
+        val_ann, val_dir = write_coco(root, "val", shapes, cats, seed=1)
+        work = os.path.join(root, "work")
+        cfg = config_from_args(build_parser().parse_args([
+            config, "--work-dir", work, "--seed", "0", "--set",
+            f"data.train_ann={train_ann}", f"data.val_ann={val_ann}",
+            f"data.train_img_prefix={train_dir}",
+            f"data.val_img_prefix={val_dir}", "data.samples_per_device=2",
+            "data.num_workers=0", "train.max_iters_per_task=2",
+            "train.eval_interval=1", "train.log_interval=1", *sets]))
+        arch = cfg.model.arch
+        teacher = incremental.build_teacher_model(cfg, DEVICE)
+        get_family(arch)["init_weights"](teacher, 1)
+        path = os.path.dirname(save_checkpoint(
+            os.path.join(root, "teacher"), 1, 12, TrainState.create(
+                teacher, make_optimizer(teacher, step_lr_schedule(1e-5)),
+                seed=0)))
+        seen, train_one_task = [], incremental.train_one_task
+
+        def capture(model, cfg, tid, task_nums, teacher=None, device="cuda"):
+            seen.append(teacher)
+            return train_one_task(model, cfg, tid, task_nums, teacher, device)
+
+        incremental.train_one_task = capture
+        t0 = time.perf_counter()
+        try:
+            incremental.run_incremental(cfg, teacher_ckpt=path, device=DEVICE)
+        finally:
+            incremental.train_one_task = train_one_task
+        wall = time.perf_counter() - t0
+        rows = [json.loads(line) for name in sorted(os.listdir(work))
+                if name.endswith(".log.json")
+                for line in open(os.path.join(work, name))]
+    train = [r for r in rows if r["mode"] == "train"]
+    val = [r for r in rows if r["mode"] == "val"]
+    ext = seen[0] if seen else None
+    same = ext is not None and all(
+        torch.equal(t, teacher.state_dict()[k])
+        for k, t in ext.state_dict().items())
+    print(f"{arch} run_incremental, one task of {len(train)} steps (B=2, "
+          f"{tuple(cfg.data.bucket)}) with the external ResNet-"
+          f"{cfg.model.teacher_depth} teacher the port wrote: teacher "
+          f"layer3 of {0 if ext is None else len(ext.backbone.layer3)} "
+          f"blocks, its weights the checkpoint's bit for bit {same}; "
+          f"ms/step {[round(r['time'] * 1e3, 3) for r in train]} (the "
+          f"row's mean of the epoch so far), losses "
+          f"{[round(r['loss'], 5) for r in train]}, val bbox_mAP "
+          f"{val[0]['bbox_mAP'] if val else None}; run_incremental {wall:.3f} "
+          f"s [{card}]")
+    if not (same and len(ext.backbone.layer3) == 23 and len(train) == 2
+            and len(val) == 1 and len(seen) == 1
+            and all(np.isfinite(r["loss"]) for r in train)
+            and (arch != "ld" or all(r["loss_ld"] > 0 for r in train))):
+        raise AssertionError(f"{arch}: the run with the external teacher: "
+                             f"{train} {val}")
+
+
+for _arch, _desc in (
+        ("ld", "GFL head, integral over 17 bins, R101 teacher"),
+        ("paa", "PAA head (GN towers, IoU branch), one anchor per position"),
+        ("lad", "PAA head, R101 PAA teacher assigning"),
+        ("pisa_retinanet", "RetinaNet head, ISR-P + CARL"),
+        ("retinanet_ghm", "RetinaNet head, GHM-C + GHM-R"),
+        ("retinanet_fpg", "RetinaNet head on FPG's 9 stacks"),
+        ("retinanet_nasfpn", "RetinaSepBNHead on NAS-FPN's 7 stacks")):
+    _neck = {"retinanet_fpg": "FPG-256 P2-P6",
+             "retinanet_nasfpn": "NAS-FPN-256 P2-P6"}.get(_arch,
+                                                         "FPN-256 P3-P7")
+    FAMILIES[_arch] = dict(
+        FAMILIES["retinanet"], tag=_arch, models=variant_models,
+        grad_params=VARIANT_GRAD_PARAMS.get(_arch, VARIANT_GRAD_PARAMS.get(
+            dense_kind(_arch))),
+        describe=(lambda m, d=_desc, n=_neck: f"ResNet-{m.depth}, {n}, "
+                  f"4-conv towers, {d}"),
+        thread_spread_params=(),
+        train_checks={"paa": check_paa, "lad": check_paa,
+                      "pisa_retinanet": check_pisa,
+                      "retinanet_ghm": check_ghm,
+                      "retinanet_nasfpn": check_nasfpn}.get(_arch,
+                                                            check_dense))
+
+
+def check_variant_families(card):
+    """Phase 15: LD (R18 student, R101 teacher), PAA, LAD (R50, R101
+    teacher) and the RetinaNet variants PISA, GHM (R50, FPN), FPG and
+    NAS-FPN (R50, 640x640) through check_family at their configs' canvas
+    and full width, f32, seeded weights: the 800x1344 configs at B=2, the
+    640x640 ones at B=8, GT padded to the config's max_gt. Each: serving at
+    B=1 and B=2, three steps, a profile, the peak memory, its own checks
+    (the assignment: ATSS's for LD, PAA's positives for PAA and LAD,
+    max-IoU for the variants; PISA's ISR-P weights, GHM's EMAs and NAS-FPN's
+    running statistics after three steps; the decode) and a step against
+    the CPU on DENSE_CMP_HW; LD and LAD also run_incremental with an
+    external ResNet-101 teacher. Every port kernel's count stays 0 over the
+    phase."""
+    from dskd_tpu_torch.utils.config import apply_overrides, load_config
+
+    total = dict.fromkeys(counters(), 0)
+    reset = globals()["reset_counts"]
+
+    def accumulating():
+        for k, v in read_counts().items():
+            total[k] += v
+        reset()
+
+    globals()["reset_counts"] = accumulating
+    try:
+        for arch, config in VARIANT_CONFIGS.items():
+            t0 = time.perf_counter()
+            cfg = load_config(config)
+            n_train = 8 if tuple(cfg.data.bucket) == (640, 640) else 2
+            cfg = apply_overrides(cfg, list(VARIANT_SETS))
+            check_family(card, arch, config, VARIANT_SETS, n_train=n_train,
+                         hw=tuple(cfg.data.bucket), incremental=False)
+            if cfg.model.teacher_depth:
+                check_external_teacher_run(card, config, VARIANT_SETS)
+            print(f"{arch}: {time.perf_counter() - t0:.1f} s of phase 15")
+        accumulating()
+    finally:
+        globals()["reset_counts"] = reset
+    print(f"phase 15: port kernel launches over the phase {total}")
+    if any(total.values()):
+        raise AssertionError(f"phase 15 launched port kernels: {total}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; "
@@ -3362,6 +3840,9 @@ def main() -> int:
     t0 = time.perf_counter()
     check_dense_families(card)
     print(f"dense: phase 14 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_variant_families(card)
+    print(f"variants: phase 15 took {time.perf_counter() - t0:.1f} s")
 
     bwd_key = f"gather_weighted_bwd f32 Q={Q_TRAIN} 640x480"
     gw_key = f"gather_weighted f32 Q={Q_ENC}"

@@ -4,7 +4,8 @@ dskd_tpu/core/losses.py ``weight_reduce_loss``,
 ``mse_loss``, ``giou_loss``, ``iou_loss``, ``diou_loss``, ``ciou_loss``,
 ``quality_focal_loss``, ``distribution_focal_loss``, ``kd_kl_div_loss``,
 ``sigmoid_focal_loss``, ``gaussian_focal_loss``, ``varifocal_loss``,
-``bce_loss``, ``cross_entropy_loss`` and ``square_iou_loss``), plus
+``bce_loss``, ``cross_entropy_loss``, ``square_iou_loss``, ``ghm_c_loss``
+and ``ghm_r_loss``), plus
 ``kd_kl_div_loss_outer``, the port's closed form of one broadcast of
 ``kd_kl_div_loss``.
 
@@ -257,3 +258,80 @@ def kd_kl_div_loss_outer(pred, soft_label, weight, avg_factor,
     the product would not fit, so the port sums in this order instead."""
     kl = kd_kl_div_loss(pred, soft_label, T=T, reduction="none")
     return weight.sum() * kl.sum() / (avg_factor + _F32_EPS)
+
+
+def _ghm_edges(bins: int, like: torch.Tensor, last=None) -> torch.Tensor:
+    """The bins + 1 edges i / bins, the last one 1 + 1e-6 or ``last``,
+    computed in f32 as JAX's are, then in ``like``'s dtype and on its
+    device."""
+    edges = torch.arange(bins + 1, dtype=torch.float32) / bins
+    if last is None:
+        edges[-1] += 1e-6
+    else:
+        edges[-1] = last
+    return edges.to(like.device, like.dtype)
+
+
+def _ghm_weights(g, valid, tot, edges, bins: int, momentum: float, acc_sum):
+    """GHM's per-element weights: uniform bins of the gradient norm ``g``
+    (``edges[i] <= g < edges[i + 1]``), weight ``tot`` / (the bin's count,
+    or its EMA ``acc_sum`` when ``momentum`` > 0) over the number of bins
+    occupied. Only the occupied bins' EMA moves. Returns (weights of
+    ``g``'s shape, the new EMA)."""
+    gf = g.reshape(-1)
+    vf = valid.reshape(-1)
+    idx = (torch.searchsorted(edges, gf.contiguous(), right=True) - 1).clamp(
+        0, bins - 1)
+    # counted in int64: JAX's f32 weights stop counting at 2^24 elements,
+    # which RetinaNet's P3 at 800x1344 passes from B=2 on (80 classes)
+    num_in_bin = torch.bincount(torch.where(vf, idx, bins),
+                                minlength=bins + 1)[:bins].to(g.dtype)
+    occupied = num_in_bin > 0
+    n = occupied.sum().to(g.dtype).clamp(min=1.0)
+    if momentum > 0:
+        new_acc = torch.where(occupied, momentum * acc_sum
+                              + (1 - momentum) * num_in_bin, acc_sum)
+        denom = new_acc
+    else:
+        new_acc = acc_sum
+        denom = num_in_bin
+    per_bin = torch.where(occupied, tot / denom.clamp(min=1e-12),
+                          torch.zeros_like(denom)) / n
+    weights = torch.where(vf, per_bin[idx], torch.zeros_like(gf))
+    return weights.reshape(g.shape), new_acc
+
+
+def ghm_c_loss(pred, target, label_weight, bins: int = 10,
+               momentum: float = 0.0, acc_sum=None):
+    """GHM-C: BCE on logits weighted by the inverse density of the
+    gradient norm |sigmoid(pred) - target| (detached), over the count of
+    elements with ``label_weight`` > 0. ``acc_sum`` (bins,) is the EMA of
+    the bin counts (zeros if None). Returns (loss, new acc_sum)."""
+    edges = _ghm_edges(bins, pred)
+    if acc_sum is None:
+        acc_sum = pred.new_zeros(bins)
+    valid = label_weight > 0
+    tot = valid.sum().to(pred.dtype).clamp(min=1.0)
+    g = (torch.sigmoid(pred).detach() - target).abs()
+    weights, new_acc = _ghm_weights(g, valid, tot, edges, bins, momentum,
+                                    acc_sum)
+    loss = binary_cross_entropy_with_logits(pred, target)
+    return weight_reduce_loss(loss, weights, "mean", tot), new_acc
+
+
+def ghm_r_loss(pred, target, label_weight, mu: float = 0.02, bins: int = 10,
+               momentum: float = 0.0, acc_sum=None):
+    """GHM-R: the smooth L1 sqrt(d^2 + mu^2) - mu weighted by the inverse
+    density of its gradient norm |d / sqrt(d^2 + mu^2)| (detached); the
+    last edge is 1e3 and ``tot`` is the sum of ``label_weight``. Returns
+    (loss, new acc_sum)."""
+    edges = _ghm_edges(bins, pred, last=1e3)
+    if acc_sum is None:
+        acc_sum = pred.new_zeros(bins)
+    diff = pred - target
+    loss = torch.sqrt(diff * diff + mu * mu) - mu
+    g = (diff / torch.sqrt(mu * mu + diff * diff)).abs().detach()
+    tot = label_weight.to(pred.dtype).sum().clamp(min=1.0)
+    weights, new_acc = _ghm_weights(g, label_weight > 0, tot, edges, bins,
+                                    momentum, acc_sum)
+    return weight_reduce_loss(loss, weights, "mean", tot), new_acc

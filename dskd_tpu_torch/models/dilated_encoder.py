@@ -40,8 +40,10 @@ class TrainableBatchNorm(nn.Module):
         self.register_buffer("running_var",
                              torch.ones(channels, device=device))
 
-    def forward(self, x):
-        if not self.training:
+    def forward(self, x, train=None):
+        """``train`` overrides the module's mode (NAS-FPN's neck runs its
+        BatchNorms on their running statistics in training too)."""
+        if not (self.training if train is None else train):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         with torch.no_grad():

@@ -63,11 +63,12 @@ def dense_init_of(name: str) -> str:
 
 @torch.no_grad()
 def init_dense(model: nn.Module, seed: int, cls_conv: str,
-               cls_bias: float) -> None:
+               cls_bias: float, init_of=dense_init_of) -> None:
     """A dense detector's seeded random weights at the scales of JAX's
-    initializers (``dense_init_of``), drawn on the CPU; zero biases but
-    the head's ``cls_conv``'s, ``cls_bias``; identity norms; scales 1."""
-    init_conv_bn(model, torch.Generator().manual_seed(seed), dense_init_of)
+    initializers (``init_of``, by default ``dense_init_of``), drawn on the
+    CPU; zero biases but the head's ``cls_conv``'s, ``cls_bias``; identity
+    norms; scales 1."""
+    init_conv_bn(model, torch.Generator().manual_seed(seed), init_of)
     getattr(model.bbox_head, cls_conv).bias.fill_(cls_bias)
     for s in getattr(model.bbox_head, "scales", ()):
         s.scale.fill_(1.0)

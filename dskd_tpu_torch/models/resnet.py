@@ -25,6 +25,7 @@ import torch.nn.functional as F
 ARCH_SETTINGS = {
     18: ("basic", (2, 2, 2, 2)),        # the tests' tiny configuration
     50: ("bottleneck", (3, 4, 6, 3)),   # the flagship
+    101: ("bottleneck", (3, 4, 23, 3)),  # LD's and LAD's teachers
 }
 
 

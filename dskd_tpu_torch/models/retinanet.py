@@ -1,7 +1,8 @@
-"""RetinaNet (port of dskd_tpu/models/retinanet.py ``RetinaHead``,
-``RetinaNet``, ``retina_anchors``, ``RetinaLossConfig``,
-``retina_detection_loss``, ``retina_get_bboxes`` and its registry entry
-``retinanet``).
+"""RetinaNet and its variants (port of dskd_tpu/models/retinanet.py
+``RetinaHead``, ``RetinaNet``, ``retina_anchors``, ``RetinaLossConfig``,
+``retina_detection_loss``, ``retina_get_bboxes`` and its registry entries
+``retinanet``, ``pisa_retinanet``, ``retinanet_ghm``, ``retinanet_fpg`` and
+``retinanet_nasfpn``).
 
 ResNet -> FPN (C3-C5, P3-P7, the extra convs on the C5 input, no ReLU
 between them) -> two towers of 4 x (3x3 conv with bias, ReLU) shared
@@ -11,9 +12,20 @@ Loss: max-IoU assignment (positive from 0.5, negative below 0.4, each GT
 also its best anchor), focal loss over the anchors not ignored, L1 on the
 deltas of the positives. Decoding: per-level threshold and top-k of the
 (anchor, class) sigmoid scores, deltas decoded, clipped, class-aware NMS
-at IoU 0.5. The JAX module's other variants (``pisa_retinanet``,
-``retinanet_ghm``, ``retinanet_fpg``, ``retinanet_nasfpn``, the SepBN head
-and the non-ResNet backbones) are not ported.
+at IoU 0.5.
+
+The variants: ``pisa_retinanet`` weights the focal loss by ISR-P and adds
+CARL (``models/pisa.py``); ``retinanet_ghm`` swaps focal and L1 for GHM-C
+and GHM-R (L1 weight 10) level by level, their EMAs in the buffers
+``ghm_acc_c`` (30 bins) and ``ghm_acc_r`` (10), updated in place by the
+loss; ``retinanet_fpg`` and ``retinanet_nasfpn`` replace the FPN by FPG
+(``models/fpg.py``) or NAS-FPN (``models/nas_fpn.py``), which take all
+four ResNet stages (C2-C5, strides 4-32) and add one level, as the JAX
+module wires them, while the anchors stay at strides 8-128; NAS-FPN pairs
+with RetinaSepBNHead (``sepbn``): the towers' convs, without bias, shared
+across the levels, and a BatchNorm of each level's own after each, on the
+batch's statistics in training. The JAX module's non-ResNet backbones are
+not ported.
 """
 from __future__ import annotations
 
@@ -29,9 +41,13 @@ from ..core.max_iou_assigner import max_iou_assign
 from ..core.postprocess import filter_scores_and_topk_mlvl
 from .atss import PRIOR_BIAS
 from .backbones import build_backbone
+from .dilated_encoder import TrainableBatchNorm
+from .fpg import FPG
 from .fpn import FPN, ConvWrap
-from .gfl import init_dense
+from .gfl import dense_init_of, init_dense
 from .gfl_head import cat_levels, level_sizes, nhwc
+from .nas_fpn import NASFPN
+from .pisa import carl_loss, isr_p_weights
 from .yolof_head import Detections, nms_detections
 
 STRIDES = (8, 16, 32, 64, 128)
@@ -53,16 +69,21 @@ class RetinaNetOutputs(NamedTuple):
 
 class RetinaHead(nn.Module):
     def __init__(self, device, num_classes: int = 80, stacked_convs: int = 4,
-                 feat_channels: int = 256, sepbn: bool = False):
+                 feat_channels: int = 256, sepbn: bool = False,
+                 num_levels: int = 5):
         super().__init__()
-        if sepbn:
-            raise NotImplementedError("RetinaHead sepbn=True "
-                                      "(RetinaSepBNHead) is not ported")
         self.num_classes = num_classes
+        self.sepbn = sepbn
         for prefix in ("cls", "reg"):
             self.add_module(f"{prefix}_convs", nn.ModuleList(
-                ConvWrap(feat_channels, feat_channels, 3, device)
+                ConvWrap(feat_channels, feat_channels, 3, device,
+                         bias=not sepbn)
                 for _ in range(stacked_convs)))
+            if sepbn:
+                self.add_module(f"{prefix}_norms", nn.ModuleList(
+                    nn.ModuleList(TrainableBatchNorm(feat_channels, device)
+                                  for _ in range(stacked_convs))
+                    for _ in range(num_levels)))
         self.retina_cls = nn.Conv2d(feat_channels, NUM_ANCHORS * num_classes,
                                     3, padding=1, device=device)
         self.retina_reg = nn.Conv2d(feat_channels, NUM_ANCHORS * 4, 3,
@@ -70,10 +91,14 @@ class RetinaHead(nn.Module):
 
     def forward(self, feats) -> RetinaHeadOutputs:
         cls, reg = [], []
-        for f in feats:
+        for lvl, f in enumerate(feats):
             c = r = f
-            for cc, rc in zip(self.cls_convs, self.reg_convs):
-                c, r = F.relu(cc(c)), F.relu(rc(r))
+            for i, (cc, rc) in enumerate(zip(self.cls_convs, self.reg_convs)):
+                c, r = cc(c), rc(r)
+                if self.sepbn:
+                    c = self.cls_norms[lvl][i](c)
+                    r = self.reg_norms[lvl][i](r)
+                c, r = F.relu(c), F.relu(r)
             cls.append(nhwc(self.retina_cls(c)))
             reg.append(nhwc(self.retina_reg(r)))
         return RetinaHeadOutputs(tuple(cls), tuple(reg))
@@ -84,19 +109,26 @@ class RetinaNet(nn.Module):
                  frozen_stages: int = 1, backbone: str = "",
                  neck: str = "fpn", ghm: bool = False):
         super().__init__()
-        if neck != "fpn":
-            raise NotImplementedError(f"RetinaNet neck={neck!r} is not "
-                                      f"ported (the port builds 'fpn')")
-        if ghm:
-            raise NotImplementedError("RetinaNet ghm=True (GHM's EMA state) "
-                                      "is not ported")
+        if neck not in ("fpn", "fpg", "nasfpn"):
+            raise ValueError(f"RetinaNet neck={neck!r}")
         self.backbone, kind = build_backbone(backbone, depth, device,
                                              frozen_stages)
-        self.neck = FPN(self.backbone.out_channels, device,
-                        start_level=1 if kind == "c2345" else 0,
-                        add_extra_convs="on_input",
-                        relu_before_extra_convs=False)
-        self.bbox_head = RetinaHead(device, num_classes)
+        if neck == "fpg":
+            self.neck = FPG(self.backbone.out_channels, device)
+        elif neck == "nasfpn":
+            self.neck = NASFPN(self.backbone.out_channels, device)
+        else:
+            self.neck = FPN(self.backbone.out_channels, device,
+                            start_level=1 if kind == "c2345" else 0,
+                            add_extra_convs="on_input",
+                            relu_before_extra_convs=False)
+        self.bbox_head = RetinaHead(device, num_classes,
+                                    sepbn=neck == "nasfpn")
+        if ghm:
+            # the EMAs of GHM-C's 30 and GHM-R's 10 bin counts
+            # (RetinaLossConfig)
+            self.register_buffer("ghm_acc_c", torch.zeros(30, device=device))
+            self.register_buffer("ghm_acc_r", torch.zeros(10, device=device))
 
     def forward(self, images, img_hw) -> RetinaNetOutputs:
         """images (B, H, W, 3) normalised NHWC; img_hw is unused by the
@@ -124,6 +156,14 @@ class RetinaLossConfig(NamedTuple):
     loss_bbox_weight: float = 1.0
     pos_iou_thr: float = 0.5
     neg_iou_thr: float = 0.4
+    # GHM-C (30 bins, momentum 0.75) and GHM-R (mu 0.02, 10 bins, momentum
+    # 0.7) in place of focal and L1
+    ghm: bool = False
+    ghm_c_bins: int = 30
+    ghm_c_momentum: float = 0.75
+    ghm_r_mu: float = 0.02
+    ghm_r_bins: int = 10
+    ghm_r_momentum: float = 0.7
 
 
 def retina_detection_loss(out: RetinaHeadOutputs, anchors, gt_bboxes,
@@ -131,14 +171,12 @@ def retina_detection_loss(out: RetinaHeadOutputs, anchors, gt_bboxes,
                           pisa: bool = False, ghm_state=None):
     """Focal loss over the anchors not ignored and L1 on the positives'
     deltas, both over the positives' count; anchors (N, 4), gt_* (B, G,
-    ...) padded. The ``pisa`` and GHM (``ghm_state``) variants raise."""
-    if pisa:
-        raise NotImplementedError("retina_detection_loss pisa=True (ISR-P "
-                                  "and CARL) is not ported")
-    if ghm_state is not None:
-        raise NotImplementedError("retina_detection_loss ghm_state (GHM-C "
-                                  "and GHM-R) is not ported")
+    ...) padded. ``pisa``: the focal loss weighted by ISR-P and
+    ``loss_carl`` added. ``cfg.ghm``: GHM-C and GHM-R level by level, one
+    shared EMA updated once per level, from ``ghm_state`` ({"acc_c",
+    "acc_r"}); returns (losses, the new state)."""
     C = cfg.num_classes
+    B = out.cls_scores[0].shape[0]
     cls_flat = cat_levels(out.cls_scores, C)
     deltas = cat_levels(out.bbox_preds, 4)
     assign = max_iou_assign(anchors, gt_bboxes, gt_labels, gt_valid, C,
@@ -152,15 +190,55 @@ def retina_detection_loss(out: RetinaHeadOutputs, anchors, gt_bboxes,
         ..., None].expand(-1, -1, 4))
     delta_tgt = bbox2delta(anchors[None], tgt)
     onehot = F.one_hot(assign.labels, C + 1)[..., :C].to(cls_flat.dtype)
-    w = (~ignored).float().reshape(-1, 1)
+    w = (~ignored).to(cls_flat.dtype)                       # (B, N)
+    if cfg.ghm:
+        acc_c, acc_r = ghm_state["acc_c"], ghm_state["acc_r"]
+        posf = pos.to(cls_flat.dtype)
+        loss_cls = loss_bbox = 0.0
+        start = 0
+        for S in level_sizes(out.cls_scores, C):
+            sl = slice(start, start + S)
+            start += S
+            lc, acc_c = L.ghm_c_loss(
+                cls_flat[:, sl].reshape(-1, C), onehot[:, sl].reshape(-1, C),
+                w[:, sl].reshape(-1, 1).expand(B * S, C),
+                bins=cfg.ghm_c_bins, momentum=cfg.ghm_c_momentum,
+                acc_sum=acc_c)
+            lr, acc_r = L.ghm_r_loss(
+                deltas[:, sl].reshape(-1, 4), delta_tgt[:, sl].reshape(-1, 4),
+                posf[:, sl].reshape(-1, 1).expand(B * S, 4),
+                mu=cfg.ghm_r_mu, bins=cfg.ghm_r_bins,
+                momentum=cfg.ghm_r_momentum, acc_sum=acc_r)
+            loss_cls = loss_cls + lc
+            loss_bbox = loss_bbox + lr
+        losses = dict(loss_cls=cfg.loss_cls_weight * loss_cls,
+                      loss_bbox=cfg.loss_bbox_weight * loss_bbox)
+        return losses, {"acc_c": acc_c, "acc_r": acc_r}
+    w = w.reshape(-1)
+    if pisa:
+        N = cls_flat.shape[1]
+        gt_off = assign.assigned_gt + torch.arange(
+            B, device=pos.device)[:, None] * G
+        imp = isr_p_weights(
+            cls_flat.reshape(-1, C).detach(), deltas.reshape(-1, 4).detach(),
+            anchors[None].expand(B, N, 4).reshape(-1, 4),
+            assign.labels.reshape(-1), pos.reshape(-1), gt_off.reshape(-1),
+            delta_tgt.reshape(-1, 4).detach(), C)
+        w = w * imp.detach()
     loss_cls = cfg.loss_cls_weight * L.sigmoid_focal_loss(
-        cls_flat.reshape(-1, C), onehot.reshape(-1, C), weight=w,
-        avg_factor=num_total_pos, gamma=cfg.focal_gamma,
-        alpha=cfg.focal_alpha)
+        cls_flat.reshape(-1, C), onehot.reshape(-1, C),
+        weight=w.reshape(-1, 1), avg_factor=num_total_pos,
+        gamma=cfg.focal_gamma, alpha=cfg.focal_alpha)
     loss_bbox = cfg.loss_bbox_weight * L.l1_loss(
         deltas.reshape(-1, 4), delta_tgt.reshape(-1, 4),
-        weight=pos.float().reshape(-1, 1), avg_factor=num_total_pos)
-    return dict(loss_cls=loss_cls, loss_bbox=loss_bbox)
+        weight=pos.to(deltas.dtype).reshape(-1, 1), avg_factor=num_total_pos)
+    losses = dict(loss_cls=loss_cls, loss_bbox=loss_bbox)
+    if pisa:
+        losses["loss_carl"] = carl_loss(
+            cls_flat.reshape(-1, C), assign.labels.reshape(-1),
+            pos.reshape(-1), deltas.reshape(-1, 4),
+            delta_tgt.reshape(-1, 4).detach(), num_total_pos, C)
+    return losses
 
 
 def retina_get_bboxes(out: RetinaHeadOutputs, anchors, img_hw,
@@ -184,14 +262,57 @@ def retina_get_bboxes(out: RetinaHeadOutputs, anchors, img_hw,
 
 # --- init and family registration (dskd_tpu_torch/registry.py) -------------
 
+VARIANTS = ("retinanet", "pisa_retinanet", "retinanet_ghm", "retinanet_fpg",
+            "retinanet_nasfpn")
+_NECK = {"retinanet_fpg": "fpg", "retinanet_nasfpn": "nasfpn"}
+
+
 def build_retinanet(model_cfg, device="cuda") -> RetinaNet:
     m = model_cfg
     return RetinaNet(device, num_classes=m.num_classes, depth=m.depth,
-                     frozen_stages=m.frozen_stages, backbone=m.backbone)
+                     frozen_stages=m.frozen_stages, backbone=m.backbone,
+                     neck=_NECK.get(m.arch, "fpn"),
+                     ghm=m.arch == "retinanet_ghm")
+
+
+def _retina_init_of(name: str) -> str:
+    """FPG's and NAS-FPN's convs take flax's default lecun-normal; the
+    rest as ``dense_init_of``."""
+    return "lecun" if name.startswith("neck.") else dense_init_of(name)
 
 
 def init_retinanet(model: RetinaNet, seed: int = 0) -> None:
-    init_dense(model, seed, "retina_cls", PRIOR_BIAS)
+    """Seeded random weights at JAX's scales; the GHM EMAs zero."""
+    init_of = (dense_init_of if isinstance(model.neck, FPN)
+               else _retina_init_of)
+    init_dense(model, seed, "retina_cls", PRIOR_BIAS, init_of)
+    for name, buf in model.named_buffers():
+        if name.startswith("ghm_acc_"):
+            buf.zero_()
+
+
+def retina_losses_fn(arch: str, det_cfg: RetinaLossConfig):
+    """``losses_fn(model, batch, teacher, generator)`` of a RetinaNet
+    variant; JAX's read no teacher. GHM's loss writes the new EMAs into the
+    model's buffers in place, as a train-mode BatchNorm carries JAX's
+    ``new_batch_stats``."""
+    def losses_fn(model, batch, teacher, generator):
+        out = model(batch.images, batch.img_hw)
+        anchors = retina_anchors([c.shape[1:3] for c in out.head.cls_scores],
+                                 batch.images.device)
+        args = (out.head, anchors, batch.gt_bboxes, batch.gt_labels,
+                batch.gt_valid, det_cfg)
+        if not det_cfg.ghm:
+            return retina_detection_loss(
+                *args, pisa=arch == "pisa_retinanet")
+        losses, new = retina_detection_loss(
+            *args, ghm_state={"acc_c": model.ghm_acc_c,
+                              "acc_r": model.ghm_acc_r})
+        with torch.no_grad():
+            model.ghm_acc_c.copy_(new["acc_c"])
+            model.ghm_acc_r.copy_(new["acc_r"])
+        return losses
+    return losses_fn
 
 
 def _register():
@@ -199,18 +320,12 @@ def _register():
     from ..utils.weights import retinanet_state_dict_from_jax
 
     def losses(model, cfg, *, num_prev, has_teacher, use_dropout):
-        det_cfg = RetinaLossConfig(num_classes=cfg.model.num_classes)
-
-        # JAX's RetinaNet losses read no teacher
-        def losses_fn(model, batch, teacher, generator):
-            out = model(batch.images, batch.img_hw)
-            anchors = retina_anchors(
-                [c.shape[1:3] for c in out.head.cls_scores],
-                batch.images.device)
-            return retina_detection_loss(out.head, anchors, batch.gt_bboxes,
-                                         batch.gt_labels, batch.gt_valid,
-                                         det_cfg)
-        return losses_fn
+        ghm = cfg.model.arch == "retinanet_ghm"
+        # the GHM recipe's GHM-R weighs 10
+        det_cfg = RetinaLossConfig(num_classes=cfg.model.num_classes,
+                                   ghm=ghm,
+                                   loss_bbox_weight=10.0 if ghm else 1.0)
+        return retina_losses_fn(cfg.model.arch, det_cfg)
 
     def eval_step(model, *, score_thr, max_per_img, reg_max=None):
         @torch.inference_mode()
@@ -224,10 +339,11 @@ def _register():
                                      max_per_img=max_per_img, rescale=True)
         return step
 
-    register_family("retinanet", build=build_retinanet,
-                    init_weights=init_retinanet,
-                    from_jax=retinanet_state_dict_from_jax, losses=losses,
-                    eval_step=eval_step)
+    for name in VARIANTS:
+        register_family(name, build=build_retinanet,
+                        init_weights=init_retinanet,
+                        from_jax=retinanet_state_dict_from_jax,
+                        losses=losses, eval_step=eval_step)
 
 
 _register()

@@ -44,6 +44,13 @@ _LAZY = {
     "atss": "dskd_tpu_torch.models.atss",
     "gfl": "dskd_tpu_torch.models.gfl",
     "fcos": "dskd_tpu_torch.models.fcos",
+    "ld": "dskd_tpu_torch.models.ld",
+    "paa": "dskd_tpu_torch.models.paa",
+    "lad": "dskd_tpu_torch.models.paa",
+    "pisa_retinanet": "dskd_tpu_torch.models.retinanet",
+    "retinanet_ghm": "dskd_tpu_torch.models.retinanet",
+    "retinanet_fpg": "dskd_tpu_torch.models.retinanet",
+    "retinanet_nasfpn": "dskd_tpu_torch.models.retinanet",
 }
 
 

@@ -17,14 +17,18 @@ Task loop:
     ``eval_interval`` epochs (``val`` rows), EMA weights with ``use_ema``;
   * ``resume_by_task`` skips the tasks before it, restoring their latest
     checkpoint; ``student_ckpt`` / ``teacher_ckpt`` seed the first task's
-    student / an external teacher from the port's own checkpoints.
+    student / an external teacher from the port's own checkpoints. With
+    ``model.teacher_depth`` other than ``depth`` (LD's and LAD's R101
+    teachers) the external teacher is its own module
+    (``build_teacher_model``); a run of more than one task cannot promote
+    the student to such a teacher and raises a ValueError before task 1.
 
 The JAX package evaluates on a background thread while the next epoch
 trains; the port evaluates synchronously at the end of the epoch. One
 process drives one device (``device``, the card unless the caller asks for
 the CPU). Not ported (raise NotImplementedError, naming the option):
-non-COCO dataset types, ``yolox_cosine``, FSDP, a teacher of another depth,
-ResNet weights from a file and mmdet ``.pth`` checkpoints.
+non-COCO dataset types, ``yolox_cosine``, FSDP, ResNet weights from a file
+and mmdet ``.pth`` checkpoints.
 """
 from __future__ import annotations
 
@@ -72,12 +76,28 @@ def build_model(cfg: ExperimentConfig, device="cuda") -> nn.Module:
     registry ``build``; with ``cfg.train.use_dropout`` False its dropout
     rate is 0."""
     m = cfg.model
-    if m.teacher_depth and m.teacher_depth != m.depth:
-        raise NotImplementedError("model.teacher_depth (a teacher of another "
-                                  "depth) is not ported")
     if not cfg.train.use_dropout:
         m = dataclasses.replace(m, dropout=0.0)
     return get_family(m.arch)["build"](m, torch.device(device))
+
+
+def other_depth_teacher(cfg: ExperimentConfig) -> bool:
+    """Whether ``model.teacher_depth`` names a depth other than the
+    student's."""
+    td = cfg.model.teacher_depth
+    return bool(td) and td != cfg.model.depth
+
+
+def build_teacher_model(cfg: ExperimentConfig, device="cuda") -> nn.Module:
+    """The frozen teacher's module, before its weights: the student's
+    unless ``model.teacher_depth`` names another backbone depth (LD's R18
+    and LAD's R50 students learn from R101 teachers), then the same model
+    at that depth."""
+    if not other_depth_teacher(cfg):
+        return build_model(cfg, device)
+    tcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, depth=cfg.model.teacher_depth))
+    return build_model(tcfg, device)
 
 
 def init_variables(model: nn.Module, cfg: ExperimentConfig, seed: int,
@@ -276,6 +296,16 @@ def run_incremental(cfg: ExperimentConfig, student_ckpt: Optional[str] = None,
     """
     device = resolve_device(device)
     task_nums = len(cfg.data.catsplit)
+    if task_nums > 1 and other_depth_teacher(cfg):
+        # each task after the first promotes the student to its teacher
+        # (JAX snapshots the student's variables), which a teacher module
+        # of another depth cannot take: refused before task 1 trains
+        raise ValueError(
+            f"model.teacher_depth={cfg.model.teacher_depth} differs from "
+            f"model.depth={cfg.model.depth}, so task 2 of "
+            f"catsplit={tuple(cfg.data.catsplit)} cannot promote the "
+            f"student to its teacher; a teacher of another depth trains "
+            f"single-task configs only")
     log.info("environment: %s", collect_env())
     dump_config(cfg, cfg.train.work_dir)
     cfg.train.seed = init_random_seed(cfg.train.seed)
@@ -287,7 +317,7 @@ def run_incremental(cfg: ExperimentConfig, student_ckpt: Optional[str] = None,
         load_weights(model, student_ckpt)
         log.info("student initialized from %s", student_ckpt)
     if teacher_ckpt:
-        external = build_model(cfg, device)
+        external = build_teacher_model(cfg, device)
         load_weights(external, teacher_ckpt)
         teacher = frozen_copy(external)
         log.info("external teacher loaded from %s", teacher_ckpt)

@@ -2,8 +2,9 @@
 dskd_tpu/utils/torch_weights.py ``convert_mmdet_gfl_ddetr``,
 ``convert_mmdet_detr``, ``convert_mmdet_yolof``,
 ``convert_mmdet_retinanet`` and ``convert_mmdet_gfl``, and
-``deformable_detr_state_dict_from_jax``, ``atss_state_dict_from_jax`` and
-``fcos_state_dict_from_jax`` under mmdet's names).
+``deformable_detr_state_dict_from_jax``, ``atss_state_dict_from_jax``,
+``fcos_state_dict_from_jax`` and ``paa_state_dict_from_jax`` under mmdet's
+names).
 
 The port names its parameters after the mmdet checkpoint keys that those
 converters read, so ``state_dict_from_jax`` (the flagship),
@@ -324,7 +325,7 @@ def yoloy_state_dict_from_jax(variables: Dict[str, Any]
     return w.out
 
 
-def _fpn(w: _Writer, neck) -> None:
+def _fpn(w: _Writer, neck, stats=None) -> None:
     """JAX's FPN ``lateral{i}``, ``fpn_conv{i}`` and ``extra_conv{j}`` ->
     ``neck.lateral_convs.i.conv`` and ``neck.fpn_convs.k.conv``, the extra
     convs after the outputs' (mmdet's ``fpn_convs.{3,4}`` at P3-P7)."""
@@ -339,16 +340,72 @@ def _fpn(w: _Writer, neck) -> None:
                    p)
 
 
-def _dense(variables, outputs, gn: bool) -> Dict[str, torch.Tensor]:
-    """A ResNet + FPN + dense head of JAX's: the towers ``{cls,reg}_conv{i}``
-    (and ``_gn{i}``) -> ``bbox_head.{cls,reg}_convs.i.conv`` (``.gn``), the
+_FPG_TRANSITIONS = {"same_up": "same_up", "lateral": "across_lateral",
+                    "across_down": "across_down", "skip": "across_skip"}
+
+
+def _fpg(w: _Writer, neck, stats=None) -> None:
+    """JAX's FPG ``lateral{i}``, ``extra_down{e}``, ``s{i}_l{l}_<kind>`` and
+    ``out{l}`` (each transition a ``conv`` and a ``gn``) ->
+    ``neck.lateral_convs.i``, ``neck.extra_downsamples.e``,
+    ``neck.fpn_transitions.i.l.<mmdet kind>`` and
+    ``neck.output_transition.l``."""
+    for name, p in neck.items():
+        m = re.fullmatch(r"(lateral|extra_down)(\d+)", name)
+        if m:
+            dst = {"lateral": "lateral_convs",
+                   "extra_down": "extra_downsamples"}[m.group(1)]
+            w.conv(f"neck.{dst}.{m.group(2)}", p)
+            continue
+        m = re.fullmatch(r"s(\d+)_l(\d+)_(same_up|lateral|across_down|skip)",
+                         name)
+        if m:
+            dst = (f"neck.fpn_transitions.{m.group(1)}.{m.group(2)}."
+                   f"{_FPG_TRANSITIONS[m.group(3)]}")
+        else:
+            lvl = re.fullmatch(r"out(\d+)", name).group(1)
+            dst = f"neck.output_transition.{lvl}"
+        w.conv(f"{dst}.conv", p["conv"])
+        w.norm(f"{dst}.gn", p["gn"])
+
+
+def _nasfpn(w: _Writer, neck, stats) -> None:
+    """JAX's NAS-FPN ``lateral{i}`` / ``lateral_bn{i}``, ``extra{j}`` /
+    ``extra_bn{j}`` and ``s{s}_<cell>`` (``out_conv``, ``out_bn``) ->
+    ``neck.lateral_convs.i``, ``neck.extra_downsamples.j`` and
+    ``neck.fpn_stages.s.<cell>.out_conv`` (``.conv``, ``.bn``), the
+    BatchNorms' running statistics included."""
+    for name, p in neck.items():
+        m = re.fullmatch(r"(lateral|extra)(_bn)?(\d+)", name)
+        if m:
+            dst = {"lateral": "lateral_convs",
+                   "extra": "extra_downsamples"}[m.group(1)]
+            dst = f"neck.{dst}.{m.group(3)}"
+            if m.group(2):
+                w.bn(f"{dst}.bn", p, stats[name])
+            else:
+                w.conv(f"{dst}.conv", p)
+            continue
+        stage, cell = re.fullmatch(r"s(\d+)_(\w+)", name).groups()
+        dst = f"neck.fpn_stages.{stage}.{cell}.out_conv"
+        w.conv(f"{dst}.conv", p["out_conv"])
+        w.bn(f"{dst}.bn", p["out_bn"], stats[name]["out_bn"])
+
+
+def _dense(variables, outputs, gn: bool, neck=_fpn
+           ) -> Dict[str, torch.Tensor]:
+    """A ResNet + neck (``neck`` writes it: FPN's by default) + dense head
+    of JAX's: the towers ``{cls,reg}_conv{i}`` (and ``_gn{i}``) ->
+    ``bbox_head.{cls,reg}_convs.i.conv`` (``.gn``), RetinaSepBNHead's
+    ``{cls,reg}_bn{i}_lvl{l}`` -> ``bbox_head.{cls,reg}_norms.l.i``, the
     ``outputs`` convs under their own names, ``scale{l}`` ->
-    ``bbox_head.scales.l.scale``."""
-    params = variables["params"]
+    ``bbox_head.scales.l.scale``; GHM's EMAs in ``batch_stats`` ->
+    ``ghm_acc_c`` / ``ghm_acc_r``."""
+    params, stats = variables["params"], variables["batch_stats"]
     w = _Writer()
-    w.backbone(params["backbone"], variables["batch_stats"]["backbone"])
-    _fpn(w, params["neck"])
-    head = params["bbox_head"]
+    w.backbone(params["backbone"], stats["backbone"])
+    neck(w, params["neck"], stats.get("neck", {}))
+    head, hstats = params["bbox_head"], stats.get("bbox_head", {})
     for name, p in head.items():
         m = re.fullmatch(r"(cls|reg)_(conv|gn)(\d+)", name)
         if m:
@@ -359,6 +416,11 @@ def _dense(variables, outputs, gn: bool) -> Dict[str, torch.Tensor]:
             else:
                 w.norm(dst, p)
             continue
+        m = re.fullmatch(r"(cls|reg)_bn(\d+)_lvl(\d+)", name)
+        if m:
+            kind, i, lvl = m.groups()
+            w.bn(f"bbox_head.{kind}_norms.{lvl}.{i}", p, hstats[name])
+            continue
         m = re.fullmatch(r"scale(\d+)", name)
         if m:
             w.put(f"bbox_head.scales.{m.group(1)}.scale", p["scale"])
@@ -368,15 +430,24 @@ def _dense(variables, outputs, gn: bool) -> Dict[str, torch.Tensor]:
             raise KeyError(f"unexpected head parameter {name!r}")
     if gn != any("_gn" in k for k in head):
         raise KeyError("the head's GroupNorms do not match the family")
+    for name in ("ghm_acc_c", "ghm_acc_r"):
+        if name in stats:
+            w.put(name, stats[name])
     return w.out
 
 
 def retinanet_state_dict_from_jax(variables: Dict[str, Any]
                                   ) -> Dict[str, torch.Tensor]:
-    """The JAX ``models/retinanet.RetinaNet`` variables -> mmdet-keyed CPU
-    tensors for the port's ``models.retinanet.RetinaNet`` (the inverse of
-    ``convert_mmdet_retinanet``)."""
-    return _dense(variables, ("retina_cls", "retina_reg"), gn=False)
+    """The JAX ``models/retinanet.RetinaNet`` variables -> CPU tensors for
+    the port's ``models.retinanet.RetinaNet``, every variant: mmdet's names
+    with the FPN (the inverse of ``convert_mmdet_retinanet``), FPG's or
+    NAS-FPN's neck by its parameter names, the SepBN head's per-level
+    BatchNorms and GHM's EMAs."""
+    neck = variables["params"]["neck"]
+    writer = (_fpg if "extra_down0" in neck else
+              _nasfpn if "lateral_bn0" in neck else _fpn)
+    return _dense(variables, ("retina_cls", "retina_reg"), gn=False,
+                  neck=writer)
 
 
 def atss_state_dict_from_jax(variables: Dict[str, Any]
@@ -402,3 +473,11 @@ def fcos_state_dict_from_jax(variables: Dict[str, Any]
     ``anchor_free_head.py`` names)."""
     return _dense(variables, ("conv_cls", "conv_reg", "conv_centerness"),
                   gn=True)
+
+
+def paa_state_dict_from_jax(variables: Dict[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/paa.PAA`` variables (PAA and LAD, any depth) ->
+    CPU tensors for the port's ``models.paa.PAA`` (JAX's head names
+    ``paa_cls``, ``paa_reg``, ``paa_iou``; mmdet's elsewhere)."""
+    return _dense(variables, ("paa_cls", "paa_reg", "paa_iou"), gn=True)

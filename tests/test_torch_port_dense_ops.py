@@ -243,9 +243,7 @@ def test_unported_options_raise_with_their_names():
     from dskd_tpu_torch.models.atss import ATSS
     from dskd_tpu_torch.models.backbones import build_backbone
     from dskd_tpu_torch.models.fcos import FCOS
-    from dskd_tpu_torch.models.retinanet import (RetinaHead, RetinaNet,
-                                                 RetinaLossConfig,
-                                                 retina_detection_loss)
+    from dskd_tpu_torch.models.retinanet import RetinaNet
 
     for spec in ("resnext", "regnetx_3.2gf", "effb3", "hrnet_w18",
                  "swin_tiny"):
@@ -253,23 +251,12 @@ def test_unported_options_raise_with_their_names():
             build_backbone(spec, 50, "cpu")
         with pytest.raises(NotImplementedError, match=repr(spec)):
             RetinaNet("cpu", depth=18, backbone=spec)
-    for neck in ("fpg", "nasfpn"):
-        with pytest.raises(NotImplementedError, match=neck):
-            RetinaNet("cpu", depth=18, neck=neck)
-    with pytest.raises(NotImplementedError, match="ghm"):
-        RetinaNet("cpu", depth=18, ghm=True)
-    with pytest.raises(NotImplementedError, match="sepbn"):
-        RetinaHead("cpu", sepbn=True)
-    for kw, name in ((dict(pisa=True), "pisa"),
-                     (dict(ghm_state={}), "ghm")):
-        with pytest.raises(NotImplementedError, match=name):
-            retina_detection_loss(None, None, None, None, None,
-                                  RetinaLossConfig(), **kw)
+    with pytest.raises(ValueError, match="hrfpn"):
+        RetinaNet("cpu", depth=18, neck="hrfpn")
     with pytest.raises(NotImplementedError, match="dyhead"):
         ATSS("cpu", depth=18, dyhead_blocks=6)
     with pytest.raises(NotImplementedError, match="nas_fpn"):
         FCOS("cpu", depth=18, nas_fpn=True)
-    for arch in ("pisa_retinanet", "retinanet_ghm", "retinanet_fpg",
-                 "retinanet_nasfpn", "nasfcos", "ld", "vfnet", "tood"):
+    for arch in ("nasfcos", "vfnet", "tood", "sabl_retina"):
         with pytest.raises(ValueError, match=repr(arch)):
             registry.get_family(arch)

@@ -17,8 +17,9 @@ class-aware NMS on both of its paths, and reports which modules it
 loaded. A second fresh interpreter loads the three
 ``configs/deformable_detr_*.py``, cut to a tiny size, runs one family step
 of each, and the ``train_increment`` and ``test`` CLIs on the two-stage
-config. An import hook refuses ``jax``, ``jaxlib``, ``flax`` and
-``dskd_tpu`` throughout."""
+config. Further interpreters step the dense families, and LD with its
+ResNet-101 teacher and NAS-FPN from their configs. An import hook refuses
+``jax``, ``jaxlib``, ``flax`` and ``dskd_tpu`` throughout."""
 import json
 import os
 import subprocess
@@ -325,6 +326,60 @@ print(json.dumps({
                                             "dskd_tpu"))}))
 """
 
+_LD_NASFPN_SCRIPT = _REFUSE + r"""
+import importlib
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from dskd_tpu_torch import registry
+from dskd_tpu_torch.data.batch import Batch
+from dskd_tpu_torch.train.family import make_family_train_step
+from dskd_tpu_torch.train.incremental import build_teacher_model
+from dskd_tpu_torch.train.optim import make_optimizer
+from dskd_tpu_torch.train.schedule import step_lr_schedule
+from dskd_tpu_torch.train.state import TrainState, frozen_copy
+from dskd_tpu_torch.utils.config import load_config
+
+for name in ("models.ld", "models.paa", "models.pisa", "models.fpg",
+             "models.nas_fpn", "models.retinanet", "core.losses",
+             "utils.weights"):
+    importlib.import_module("dskd_tpu_torch." + name)
+rng = np.random.RandomState(0)
+images = torch.from_numpy(rng.randn(2, 64, 64, 3).astype(np.float32))
+img_hw = torch.tensor([[64, 64], [48, 60]], dtype=torch.int32)
+gt = torch.tensor([[[4., 6., 40., 50.], [30., 10., 60., 30.]],
+                   [[2., 2., 20., 30.], [0., 0., 0., 0.]]])
+batch = Batch(images, img_hw, gt, torch.tensor([[1, 3], [2, 0]]),
+              torch.tensor([[True, True], [True, False]]))
+report = {}
+for config, sets in (("ld_r18_gflv1_r101_1x", {}),
+                     ("retinanet_r50_nasfpn_50e", {"depth": 18})):
+    cfg = load_config(f"configs/{config}.py")
+    cfg.model = dataclasses.replace(cfg.model, num_classes=5, **sets)
+    spec = registry.get_family(cfg.model.arch)
+    model = spec["build"](cfg.model, "cpu")
+    spec["init_weights"](model, 0)
+    teacher = None
+    if cfg.model.teacher_depth:
+        t = build_teacher_model(cfg, "cpu")
+        spec["init_weights"](t, 1)
+        teacher = frozen_copy(t)
+    state = TrainState.create(model, make_optimizer(
+        model, step_lr_schedule(1e-4)), seed=0)
+    step = make_family_train_step(cfg.model.arch, model, cfg, num_prev=0,
+                                  has_teacher=teacher is not None)
+    state, losses = step(state, batch, teacher)
+    report[cfg.model.arch] = [
+        cfg.model.depth, None if teacher is None else
+        len(teacher.backbone.layer3), sorted(losses),
+        all(bool(torch.isfinite(v)) for v in losses.values())]
+print(json.dumps({
+    "variants": report,
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                            "dskd_tpu"))}))
+"""
+
 
 def _run(script, tmp_path):
     """Runs ``script`` in a fresh interpreter from the repo's root and
@@ -395,3 +450,16 @@ def test_dense_families_import_no_jax(tmp_path):
         "gfl": [5, ["loss", "loss_bbox", "loss_cls", "loss_dfl"], True,
                 [2, 20, 4]],
         "fcos": [5, det, True, [2, 20, 4]]}
+
+
+def test_ld_teacher_and_nasfpn_import_no_jax(tmp_path):
+    """A third interpreter: LD's R18 step with its R101 teacher
+    (``build_teacher_model``) and a NAS-FPN RetinaNet step at R18, loaded
+    from their configs."""
+    report = _run(_LD_NASFPN_SCRIPT, tmp_path)
+    assert report["loaded"] == []
+    assert report["variants"] == {
+        "ld": [18, 23, ["loss", "loss_bbox", "loss_cls", "loss_dfl",
+                        "loss_ld"], True],
+        "retinanet_nasfpn": [18, None, ["loss", "loss_bbox", "loss_cls"],
+                             True]}
