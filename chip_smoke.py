@@ -15,6 +15,8 @@ Phases; the first failure raises and the script exits non-zero:
      kernels; gather_weighted.cu carries fused_window, gather_weighted_bwd.cu
      the windowed weighted backward), one nvcc per source, all started
      together, and prints the registers and spills of each instantiation;
+     then starts phase 8's forgetting A/B in its child processes, which run
+     beside phases 3-7 (so phase 7's ms are taken beside them);
   3. kernels: each kernel against its plain PyTorch twin on the card at the
      flagship's shapes (B=2, H=8, D=32, P=4; the levels of the 640x640
      serving canvas with Q=8500 encoder and Q=300 decoder queries, and of
@@ -65,21 +67,23 @@ Phases; the first failure raises and the script exits non-zero:
      its workers starting), and the task-2 checkpoint restored by
      init_detector to the final model's detections bit for bit; each number
      beside the card's name and power limit;
-  8. distill menu: every distill branch beyond the flagship's corr +
-     decode_v1, in four configs (DISTILL_MENU: soft + ld_bbox + ld_logit +
-     kldv + memory; corr + sg_out with the pre-merge GT; fg_only and
-     decode_v2 with fix_fg_grad_direction), each in full-width f32 steps
+  8. distill menu: the forgetting A/B's results, collected first (so that
+     this phase's own timings run alone; below); every distill branch
+     beyond the flagship's corr + decode_v1, in four configs
+     (DISTILL_MENU: soft + ld_bbox + ld_logit + kldv + memory; corr +
+     sg_out with the pre-merge GT; fg_only and decode_v2 with
+     fix_fg_grad_direction), each in full-width f32 steps
      (dropout 0, launches held to expected_launches, loss keys and ms/step)
      and at 2+2 layers against the CPU; one full-width step with the
      exact JV matcher (its C++ solve's total cost against the plain
      lap_jv twin and not above the auction's on the same cost stacks,
-     with the host ms of its solves beside the auction's); and the
-     forgetting A/B of dskd_tpu_torch/tools/ab_forgetting.py at the 400/600
-     horizon (ResNet-18, 1+1 layers, 128x128) for 8 initial-weight seeds at
-     once, each a dskd_tpu_torch.tools.sweep_forgetting process: each
-     seed's old / new mAP and ms/step per phase, then the mean over the
-     seeds held to tests/test_forgetting_ab.py's margins, and the wall
-     time, each beside the card's name and power limit;
+     with the host ms of its solves beside the auction's). The forgetting
+     A/B is dskd_tpu_torch/tools/ab_forgetting.py at the 400/600 horizon
+     (ResNet-18, 1+1 layers, 128x128) for 8 initial-weight seeds at once,
+     each a dskd_tpu_torch.tools.sweep_forgetting process: each seed's old
+     / new mAP and ms/step per phase, then the mean over the seeds held to
+     tests/test_forgetting_ab.py's margins, and the wall time from their
+     start, each beside the card's name and power limit;
   9. times: kernels against twins (and against one PyTorch library call
      where one computes the same function: index_select, index_add, or
      F.embedding_bag for gather_weighted, fused_sample and fused_window) in
@@ -118,8 +122,8 @@ Phases; the first failure raises and the script exits non-zero:
      against the literal (N, N) product at B=2, a full-depth B=2 step
      against the CPU in f32 and in f64 (losses, four named gradients and
      every BatchNorm running buffer; in f32 the two neck gradients within
-     THREAD_SPREAD_TOL, beside the CPU's spread between its thread
-     counts), and the
+     THREAD_SPREAD_TOL, which the CPU's spread between its thread counts
+     sets), and the
      two-task train_increment path, whose task-2 teacher carries task 1's
      final running buffers and whose task-2 checkpoint restores, buffers
      included, bit for bit;
@@ -149,15 +153,36 @@ Phases; the first failure raises and the script exits non-zero:
      CPU's where the CPU's scores stand apart; a B=2 step against the CPU
      on 384x640 (losses and named gradients); the two-task train_increment
      path for GFL.
-The last three lines are the card, the kernel report as JSON and the result
-as JSON.
+ 15. variants: LD, PAA, LAD and the RetinaNet variants PISA, GHM, FPG and
+     NAS-FPN (their stacks cut to VARIANT_STACKS) through the same family
+     check, each with its own checks.
+ 16. dcn: deform_conv2d (plain PyTorch: one gather of the four corners'
+     rows, a batched 1 x 4 matmul and the taps' matmul) on the
+     card against the CPU at DyHead's P3 shape of 800x1344, v1 and v2,
+     stride 1 and 2, offsets zero and a few pixels off, taps outside the
+     map, forward and gradients; then ATSS-DyHead, NAS-FCOS, VFNet and
+     RepPoints (their 1x configs: ResNet-50 at full width, six DyHead
+     blocks, 80 classes, seeded weights, f32) through the same family check
+     on 800x1344 at B=2: serving at B=1 and B=2, three steps, a profile,
+     the peak memory, the assignment (ATSS, FCOS's targets, the point and
+     refine max-IoU) and the decode against the CPU, the deformable convs'
+     share of the forward + backward's device time, a step against the CPU
+     on 384x640 (ATSS-DyHead's also with its offset convs redrawn), and
+     none of the port's kernels launched over the phase.
+Phases 10-16 take the CPU sides of their comparisons against the CPU (the
+serving heads and the steps) from one spawned worker process, queued at
+phase 10's start; it stops while the script times the card or the host.
+The last three lines are the card, the kernel report as JSON and the
+result as JSON.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -265,15 +290,16 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters=20, warmup=3) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    with card_alone():
+        for _ in range(warmup):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
@@ -286,28 +312,41 @@ def device_ms(fn, iters=20, warmup=3) -> float:
     that waits for the card, as the host-to-device copies of some plain
     twins do, ends the spin early; such a function is timed by
     ``cuda_ms``."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    held = not start.query()        # still spinning after the last call
-    torch.cuda.synchronize()
+    with card_alone():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        held = not start.query()        # still spinning after the last call
+        torch.cuda.synchronize()
     if held:
         return start.elapsed_time(end) / iters
     return cuda_ms(fn, iters, warmup=0)
 
 
+DeviceEvent = collections.namedtuple("DeviceEvent",
+                                     "key count self_device_time_total")
+
+
 def device_events(prof):
-    """The kernels and copies of a profile, by name."""
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
+    """The kernels and copies of a profile, by name: each name's launches
+    and device us. Read from the profiler's raw events, as key_averages()
+    sums them, without building an event for every host op first (seconds
+    for one step's trace)."""
+    totals = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or \
+                e.is_user_annotation():
+            continue
+        n, us = totals.get(e.name(), (0, 0.0))
+        totals[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    return [DeviceEvent(k, n, us) for k, (n, us) in totals.items()]
 
 
 def gather_weighted_bags(table, idx, w):
@@ -413,7 +452,7 @@ def model_launches(switch, cfg, forwards, backwards=0):
 # ignore the task-2 teacher its driver passes
 TEACHERLESS = ("deformable_detr", "retinanet", "atss", "gfl", "fcos", "paa",
                "pisa_retinanet", "retinanet_ghm", "retinanet_fpg",
-               "retinanet_nasfpn")
+               "retinanet_nasfpn", "nasfcos", "vfnet", "reppoints")
 
 
 def path_launches(cfg, forwards, backwards=0):
@@ -1065,6 +1104,18 @@ def time_window_kernels(gen):
     return out
 
 
+def cpu_slice_heads(cfg, images, img_hw):
+    """The last layer's head outputs of the flagship's seed-0 model on the
+    CPU (the plain twins)."""
+    from dskd_tpu_torch.apis.inference import init_detector
+
+    cpu_model, _ = init_detector(cfg, device="cpu", seed=0)
+    with torch.inference_mode():
+        ref = cpu_model(images, img_hw).head
+    return {name: getattr(ref, name)[-1] for name in ("cls_scores",
+                                                      "bbox_preds")}
+
+
 def check_slice(imgs):
     from dskd_tpu_torch.apis.inference import (inference_detector,
                                                init_detector, prepare_batch)
@@ -1093,13 +1144,12 @@ def check_slice(imgs):
 
     # the head outputs against the same weights on the CPU (plain twins)
     images, img_hw, _ = prepare_batch(cfg, imgs, DEVICE)
-    cpu_model, _ = init_detector(cfg, device="cpu", seed=0)
     with torch.inference_mode():
         out = model(images, img_hw).head
-        ref = cpu_model(images.cpu(), img_hw.cpu()).head
+    ref = cpu_result(cpu_slice_heads, cfg, images.cpu(), img_hw.cpu())
     errs = {}
     for name in ("cls_scores", "bbox_preds"):
-        got, want = getattr(out, name)[-1].cpu(), getattr(ref, name)[-1]
+        got, want = getattr(out, name)[-1].cpu(), ref[name]
         if not torch.isfinite(got).all():
             raise AssertionError(f"non-finite {name}")
         torch.testing.assert_close(got, want, **HEAD_TOL)
@@ -1261,41 +1311,52 @@ def random_msda_kernels(model, seed):
                         lin.weight.shape, generator=g) * MSDA_WEIGHT_STD)
 
 
-def check_train_card_vs_cpu(cfg, dcfg=None, tag="train"):
-    """One step at full width with 2+2 layers, f32, dropout 0: every loss
-    key and the gradients of GRAD_PARAMS, card against CPU, with the
-    config's distills or ``dcfg``'s."""
+def flagship_step(cfg, dcfg, device, tinfo=None, assigned=None):
+    """One flagship step at full width with 2+2 layers, f32, dropout 0, on
+    ``device`` (MSDA kernels redrawn, seed 3), with the config's distills
+    or ``dcfg``'s, under the teacher info ``tinfo`` and the assignment
+    ``assigned`` where given: (teacher info, targets, losses, the
+    gradients of GRAD_PARAMS on the CPU)."""
     from dskd_tpu_torch.train.step import compute_losses, parse_losses, \
         teacher_info
 
     small = dict(num_encoder_layers=2, num_decoder_layers=2, dropout=0.0)
-    student, teacher = build_models(cfg, DEVICE, **small)
-    cpu_student, cpu_teacher = build_models(cfg, "cpu", **small)
-    for model in (student, cpu_student):
-        random_msda_kernels(model, seed=3)
-    _, _, det_cfg, dcfg = train_setup(cfg, student, torch.float32, dcfg)
+    model, tmodel = build_models(cfg, device, **small)
+    random_msda_kernels(model, seed=3)
+    _, _, det_cfg, dcfg = train_setup(cfg, model, torch.float32, dcfg)
     thr, kmax = cfg.distill.teacher_score_thr, cfg.distill.teacher_max_per_img
-    batch = train_batch(DEVICE)
-    cpu_batch = batch.to("cpu")
+    b = train_batch(device)
+    model.train()
+    if tinfo is None:
+        tinfo = teacher_info(tmodel, b, det_cfg, thr, kmax)
+    losses, targets = compute_losses(model, b, det_cfg, tinfo, dcfg,
+                                     assigned=assigned)
+    parse_losses(losses).backward()
+    params = dict(model.named_parameters())
+    grads = {n: params[n].grad.detach().cpu() for n in GRAD_PARAMS}
+    return tinfo, targets, losses, grads
 
-    def run(model, tmodel, b, tinfo=None, assigned=None):
-        model.train()
-        if tinfo is None:
-            tinfo = teacher_info(tmodel, b, det_cfg, thr, kmax)
-        losses, targets = compute_losses(model, b, det_cfg, tinfo, dcfg,
-                                         assigned=assigned)
-        parse_losses(losses).backward()
-        params = dict(model.named_parameters())
-        return (tinfo, targets, losses,
-                {n: params[n].grad.detach().cpu() for n in GRAD_PARAMS})
 
-    tinfo, targets, losses, grads = run(student, teacher, batch)
-    c_tinfo, c_targets, c_losses, c_grads = run(cpu_student, cpu_teacher,
-                                                cpu_batch)
+def cpu_flagship_step(cfg, dcfg):
+    """flagship_step on the CPU: what check_train_card_vs_cpu reads of it,
+    the teacher's keep_qid and valid, the assignment, losses, gradients."""
+    tinfo, targets, losses, grads = flagship_step(cfg, dcfg, "cpu")
+    return {"teacher": list(tinfo.det[4:]), "assigned": targets.assigned_gt,
+            "losses": {k: v.detach() for k, v in losses.items()},
+            "grads": grads}
+
+
+def check_train_card_vs_cpu(cfg, dcfg=None, tag="train"):
+    """One step at full width with 2+2 layers, f32, dropout 0: every loss
+    key and the gradients of GRAD_PARAMS, card against CPU (flagship_step;
+    the CPU's from the CPU worker), with the config's distills or
+    ``dcfg``'s."""
+    tinfo, targets, losses, grads = flagship_step(cfg, dcfg, DEVICE)
+    cpu = cpu_result(cpu_flagship_step, cfg, dcfg)
+    c_losses, c_grads = cpu["losses"], cpu["grads"]
     same_teacher = all(torch.equal(a.cpu(), b) for a, b in zip(
-        tinfo.det[4:], c_tinfo.det[4:]))            # keep_qid, valid
-    same_assign = torch.equal(targets.assigned_gt.cpu(),
-                              c_targets.assigned_gt)
+        tinfo.det[4:], cpu["teacher"]))            # keep_qid, valid
+    same_assign = torch.equal(targets.assigned_gt.cpu(), cpu["assigned"])
     print(f"{tag} card vs CPU (2+2 layers): teacher kept "
           f"{int(tinfo.det.valid.sum())} detections, same on both devices: "
           f"{same_teacher}; same auction assignments: {same_assign}")
@@ -1303,9 +1364,8 @@ def check_train_card_vs_cpu(cfg, dcfg=None, tag="train"):
         print(f"{tag} card vs CPU: the devices differ at near-ties; the CPU "
               "losses are recomputed under the card's teacher and "
               "assignments")
-        cpu_student.zero_grad(set_to_none=True)
-        _, _, c_losses, c_grads = run(
-            cpu_student, cpu_teacher, cpu_batch, _to_cpu(tinfo),
+        _, _, c_losses, c_grads = flagship_step(
+            cfg, dcfg, "cpu", _to_cpu(tinfo),
             (_to_cpu(targets), losses["auction_fallback"].cpu()))
     loss_err = {}
     for k, v in c_losses.items():
@@ -1682,20 +1742,22 @@ def time_train(state, step, teacher, batch, iters=5):
     return ms, B / ms * 1e3
 
 
-def profile(fn, what):
-    """Device time by kernel over one call of ``fn`` (the 15 largest and
-    the port's own kernels), and the device's idle share of its wall time
-    (one stream: kernels do not overlap)."""
+def profile(fn, what, top=15):
+    """Device time by kernel over one call of ``fn`` (the ``top`` largest
+    and the port's own kernels), and the device's idle share of its wall
+    time (one stream: kernels do not overlap); returns the device busy
+    ms."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    fn()
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with card_alone():
         fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
     kernels = device_events(prof)
     busy = sum(e.self_device_time_total for e in kernels)
     print(f"profile: {what} under the profiler: wall {wall_us / 1e3:.3f} "
@@ -1703,12 +1765,13 @@ def profile(fn, what):
           f"{1 - busy / wall_us:.3f}, {sum(e.count for e in kernels)} kernel "
           f"launches of {len(kernels)} kernels")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    # the 15 largest, then the port's own kernels among the others
-    port = [e for e in ranked[15:] if any(n in e.key for n in counters())]
-    for e in ranked[:15] + port:
+    # the largest, then the port's own kernels among the others
+    port = [e for e in ranked[top:] if any(n in e.key for n in counters())]
+    for e in ranked[:top] + port:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.self_device_time_total / busy:6.1%} x{e.count:<5d} "
               f"{e.key[:100]}")
+    return busy / 1e3
 
 
 def report_kernel_times(card, gen):
@@ -2054,10 +2117,11 @@ def timed_steps(cfg, card, tag, dcfg=None, matcher="auction", n_steps=2):
     ms = []
     for i in range(n_steps):
         reset_counts()
-        t0 = time.perf_counter()
-        state, losses = step(state, batch, teacher)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
+        with card_alone():
+            t0 = time.perf_counter()
+            state, losses = step(state, batch, teacher)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
         per_step = read_counts()
         if per_step != want:
             raise AssertionError(f"{tag}: launches per step {per_step}, "
@@ -2139,25 +2203,45 @@ def check_jv(cfg, card):
     return jv_ms, auc_ms
 
 
-def run_ab_seeds(seeds):
-    """``python -m dskd_tpu_torch.tools.sweep_forgetting AB_VARIANT`` on
-    DEVICE once per initial-weight seed of ``seeds``, all at once, one
+def start_ab_seeds(seeds=AB_SEEDS):
+    """Start ``python -m dskd_tpu_torch.tools.sweep_forgetting AB_VARIANT``
+    on DEVICE once per initial-weight seed of ``seeds``, all at once, one
     thread each: one A/B leaves the card idle through most of its step,
-    which its host's eager launches and the auction's syncs hold. Returns
-    each child's SWEEP result in seed order; a child that fails raises, and
-    the children still running are killed."""
+    which its host's eager launches and the auction's syncs hold. They run
+    beside phases 3-7 and stop while the main process times anything
+    (card_alone). Returns the running children with their seeds and start
+    time, for check_forgetting_ab; stop_ab_seeds kills those still
+    running."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     running = [(seed, subprocess.Popen(
         [sys.executable, "-m", "dskd_tpu_torch.tools.sweep_forgetting",
          AB_VARIANT, "--device", DEVICE, "--seed", str(seed)], cwd=ROOT,
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         for seed in seeds]
+    for _, proc in running:
+        # card_alone stops them while the main process times anything
+        _BACKGROUND[proc.pid] = lambda proc=proc: proc.poll() is None
+    return time.perf_counter(), running
+
+
+def stop_ab_seeds(ab) -> None:
+    """Kill and reap the A/B children of start_ab_seeds still running."""
+    for _, proc in ab[1]:
+        _BACKGROUND.pop(proc.pid, None)
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def collect_ab_seeds(ab):
+    """Each child's SWEEP result in seed order and the wall seconds since
+    the start; a child that fails raises, and the children still running
+    are killed."""
+    t0, running = ab
     results = []
     try:
-        while running:
-            seed, proc = running[0]
+        for seed, proc in running:
             out, err = proc.communicate()
-            running.pop(0)
             lines = [ln for ln in out.splitlines()
                      if ln.startswith("SWEEP ")]
             if proc.returncode != 0 or not lines:
@@ -2165,26 +2249,24 @@ def run_ab_seeds(seeds):
                                    f"(exit {proc.returncode}): {err[-2000:]}")
             results.append(json.loads(lines[-1][len("SWEEP "):]))
     finally:
-        for _, proc in running:
-            proc.kill()
-            proc.wait()
-    return results
+        stop_ab_seeds(ab)
+    return results, time.perf_counter() - t0
 
 
-def check_forgetting_ab(card, seeds=AB_SEEDS):
+def check_forgetting_ab(card, ab):
     """The forgetting A/B (dskd_tpu_torch.tools.ab_forgetting) on the card
     at the pinned 400/600 horizon (AB_VARIANT), once per initial-weight
-    seed of ``seeds`` (run_ab_seeds): each seed's old / new mAP of teacher,
-    distilled and fine-tuned students and ms/step per phase, then their
-    mean and sd over the seeds; each of tests/test_forgetting_ab.py's
-    margins must hold on the mean."""
+    seed of AB_SEEDS, from the children of start_ab_seeds (started after
+    the build, collected at phase 8's start): each seed's old / new
+    mAP of teacher, distilled and fine-tuned students and ms/step per
+    phase, then their mean and sd over the seeds; each of
+    tests/test_forgetting_ab.py's margins must hold on the mean."""
     from dskd_tpu_torch.tools.ab_forgetting import margins
 
     keys = ("teacher_old", "teacher_new", "distill_old", "distill_new",
             "finetune_old", "finetune_new")
-    t0 = time.perf_counter()
-    runs = run_ab_seeds(seeds)
-    wall = time.perf_counter() - t0
+    seeds = [seed for seed, _ in ab[1]]
+    runs, wall = collect_ab_seeds(ab)
     for seed, r in zip(seeds, runs):
         print(f"forgetting A/B {AB_VARIANT} seed {seed}: old/new mAP "
               f"teacher {r['teacher_old']:.2f}/{r['teacher_new']:.2f}, "
@@ -2192,7 +2274,7 @@ def check_forgetting_ab(card, seeds=AB_SEEDS):
               f"finetune {r['finetune_old']:.2f}/{r['finetune_new']:.2f}; "
               f"ms/step task1 {r['task1_ms']:.3f}, distill "
               f"{r['distill_ms']:.3f}, finetune {r['finetune_ms']:.3f} "
-              f"(host clock, synchronised) [{card}]")
+              f"(host clock, synchronised, beside phases 3-7) [{card}]")
     mean = {k: float(np.mean([r[k] for r in runs])) for k in keys}
     sd = {k: float(np.std([r[k] for r in runs], ddof=1)) if len(runs) > 1
           else 0.0 for k in keys}
@@ -2201,7 +2283,7 @@ def check_forgetting_ab(card, seeds=AB_SEEDS):
     print(f"forgetting A/B {AB_VARIANT}: mean (sd) over {len(runs)} seeds: "
           + ", ".join(f"{k} {mean[k]:.2f} ({sd[k]:.2f})" for k in keys)
           + f"; combined distill {comb_d:.2f} vs finetune {comb_f:.2f}; "
-          f"wall {wall:.1f} s, all at once [{card}]")
+          f"wall {wall:.1f} s from their start, all at once [{card}]")
     held = margins(mean)
     print(f"forgetting A/B margins (tests/test_forgetting_ab.py) on the "
           f"mean of {len(runs)} seeds: {held}")
@@ -2211,10 +2293,13 @@ def check_forgetting_ab(card, seeds=AB_SEEDS):
     return mean
 
 
-def check_distill_menu(cfg, card):
-    """Phase 8: every distill branch beyond corr + decode_v1 in a full-width
-    f32 step (launches held to expected_launches) and card against CPU at
-    2+2 layers; the JV matcher; the forgetting A/B."""
+def check_distill_menu(cfg, card, ab):
+    """Phase 8: the forgetting A/B of the children ``ab`` (collected first,
+    so that the phase's timings run alone); every distill branch beyond
+    corr + decode_v1 in a full-width f32 step (launches held to
+    expected_launches) and card against CPU at 2+2 layers; the JV
+    matcher."""
+    check_forgetting_ab(card, ab)
     for name, (flags, fix, keys) in DISTILL_MENU.items():
         dcfg = menu_distill_cfg(cfg, flags, fix)
         tag = f"distill menu [{name}]"
@@ -2226,7 +2311,6 @@ def check_distill_menu(cfg, card):
                                      for k in keys))
         check_train_card_vs_cpu(cfg, dcfg, tag)
     check_jv(cfg, card)
-    check_forgetting_ab(card)
 
 
 # --- the families behind the registry: DETR-IL, YOLOF-IL, YOLOY-IL ----------
@@ -2613,16 +2697,17 @@ DENSE_GRAD_PARAMS = {
              "neck.lateral_convs.0.conv.weight", "bbox_head.scales.0.scale")}
 # the FPN lateral's gradient at the init comes back through four towers of
 # std-0.01 convs and their GroupNorms: f32 decides it only loosely (3.1e-3
-# card vs CPU in GFL's first run), so it is held to THREAD_SPREAD_TOL
-# beside the CPU's own spread between thread counts, as YOLOF's neck is
+# card vs CPU in GFL's first run), so it is held to THREAD_SPREAD_TOL,
+# as YOLOF's neck is
 DENSE_SPREAD_PARAMS = ("neck.lateral_convs.0.conv.weight",)
 DENSE_CLS_CONV = {"retinanet": "retina_cls", "atss": "atss_cls",
-                  "gfl": "gfl_cls", "fcos": "conv_cls", "paa": "paa_cls"}
+                  "gfl": "gfl_cls", "fcos": "conv_cls", "paa": "paa_cls",
+                  "vfnet": "vfnet_cls", "reppoints": "reppoints_cls_out"}
 # phase 15's archs -> the dense family whose anchors, assignment and decode
 # they share (LD is GFL's, LAD is PAA's, the variants are RetinaNet's)
 DENSE_KIND = {"ld": "gfl", "lad": "paa", "pisa_retinanet": "retinanet",
               "retinanet_ghm": "retinanet", "retinanet_fpg": "retinanet",
-              "retinanet_nasfpn": "retinanet"}
+              "retinanet_nasfpn": "retinanet", "nasfcos": "fcos"}
 
 
 def dense_kind(arch: str) -> str:
@@ -2645,12 +2730,13 @@ def dense_models(cfg, device, **overrides):
     return student, frozen_copy(teacher)
 
 
-def dense_decode_model(cfg, device):
+def dense_decode_model(cfg, device, bias=DENSE_DECODE_BIAS):
     """A dense model whose scores pass the decode's 0.05: seed 2, every
-    head conv redrawn lecun-normal (normal(0.01) leaves the towers' and
-    outputs' spread ~1e-3) from a CPU generator, so that each device gets
-    the same weights, and the class bias DENSE_DECODE_BIAS."""
+    head conv (the deformable ones too) redrawn lecun-normal (normal(0.01)
+    leaves the towers' and outputs' spread ~1e-3) from a CPU generator, so
+    that each device gets the same weights, and the class bias ``bias``."""
     from dskd_tpu_torch.models.detector import lecun_
+    from dskd_tpu_torch.ops.deform_conv import DeformConv
     from dskd_tpu_torch.registry import get_family
 
     spec = get_family(cfg.model.arch)
@@ -2659,10 +2745,10 @@ def dense_decode_model(cfg, device):
     g = torch.Generator().manual_seed(5)
     with torch.no_grad():
         for mod in model.bbox_head.modules():
-            if isinstance(mod, torch.nn.Conv2d):
+            if isinstance(mod, (torch.nn.Conv2d, DeformConv)):
                 lecun_(mod.weight, g)
         getattr(model.bbox_head, DENSE_CLS_CONV[dense_kind(
-            cfg.model.arch)]).bias.fill_(DENSE_DECODE_BIAS)
+            cfg.model.arch)]).bias.fill_(bias)
     return model.eval()
 
 
@@ -2685,6 +2771,12 @@ def dense_priors(arch, out, device):
     if arch == "fcos":
         from dskd_tpu_torch.models.fcos import fcos_points
         return fcos_points(sizes, device)
+    if arch == "vfnet":
+        from dskd_tpu_torch.models.vfnet import vfnet_points
+        return vfnet_points(sizes, device)
+    if arch == "reppoints":
+        from dskd_tpu_torch.models.reppoints import reppoints_centers
+        return reppoints_centers(sizes, device)
     from dskd_tpu_torch.models.atss import atss_anchors
     return atss_anchors(sizes, device)
 
@@ -2705,7 +2797,7 @@ def dense_assign(arch, cfg, priors, batch):
         labels, tgt, pos = _fcos_targets(*priors, *gt, C)
         return torch.where(pos, 0, -1), labels, tgt
     from dskd_tpu_torch.core.atss import atss_assign
-    r = atss_assign(*priors, *gt, C)
+    r = atss_assign(*(priors[1:] if arch == "vfnet" else priors), *gt, C)
     return r.assigned_gt, r.labels, r.pos_mask
 
 
@@ -2714,7 +2806,8 @@ def dense_decode(arch, out, priors, img_hw, max_per_img=100):
     forward at the families' test settings (threshold 0.05, 1000 per
     level)."""
     from dskd_tpu_torch.core.postprocess import filter_scores_and_topk_mlvl
-    from dskd_tpu_torch.models import atss, fcos, gfl_head, paa, retinanet
+    from dskd_tpu_torch.models import (atss, fcos, gfl_head, paa, reppoints,
+                                       retinanet, vfnet)
     from dskd_tpu_torch.models.gfl_head import cat_levels, level_sizes
 
     h = out.head
@@ -2738,6 +2831,10 @@ def dense_decode(arch, out, priors, img_hw, max_per_img=100):
         det = atss.atss_get_bboxes(h, priors[0], img_hw, **kw)
     elif arch == "gfl":
         det = gfl_head.gfl_get_bboxes(h, img_hw, **kw)
+    elif arch == "vfnet":
+        det = vfnet.vfnet_get_bboxes(h, priors[0], img_hw, **kw)
+    elif arch == "reppoints":
+        det = reppoints.reppoints_get_bboxes(h, out.moment, img_hw, **kw)
     else:
         det = fcos.fcos_get_bboxes(h, priors[0], img_hw, **kw)
     return scores, top, det
@@ -2762,9 +2859,10 @@ def check_dense_decode(fam, cfg, card, n=2):
     alone keeps unless its score stands that close to another
     candidate's."""
     arch = cfg.model.arch
+    bias = fam.get("decode_bias", DENSE_DECODE_BIAS)
     got = {}
     for dev in (DEVICE, "cpu"):
-        model = dense_decode_model(cfg, dev)
+        model = dense_decode_model(cfg, dev, bias)
         batch = family_batch(dev, n, DENSE_CMP_HW, fam["max_gt"](cfg))
         with torch.inference_mode():
             out = model(batch.images, batch.img_hw)
@@ -2795,7 +2893,7 @@ def check_dense_decode(fam, cfg, card, n=2):
                 bad_surv += 1
     print(f"{fam['tag']} decode, card vs CPU (B={n}, {DENSE_CMP_HW[0]}x"
           f"{DENSE_CMP_HW[1]}, head convs lecun, class bias "
-          f"{DENSE_DECODE_BIAS}): {n_top} top-k candidates above 0.05 "
+          f"{bias}): {n_top} top-k candidates above 0.05 "
           f"({tv.shape[1]} slots an image), {int(far.sum())} stand > 2 x "
           f"{gap:.3e} (the devices' largest score difference) apart and "
           f"the card holds the CPU's (position, class) in "
@@ -2906,66 +3004,341 @@ def rel_l2(got, want):
     return float((got - want).norm() / want.norm())
 
 
-def check_family_card_vs_cpu(fam, cfg, card, dtype, n=2, hw=CANVAS_HW,
-                             tag=None):
-    """One family step's losses, named gradients and BatchNorm running
-    buffers at B=n on the canvas ``hw``, dropout 0, card against CPU
-    (LOSS_TOL, GRAD_REL_TOL, BN_TOL) in ``dtype``, through the registry's
-    losses_fn: DETR and Deformable DETR at 2+2 layers, YOLOF and YOLOY at
-    full depth; a family's ``prepare_compare`` first (Deformable DETR's
-    tie_proposals). ``grad_params`` names the gradients compared, or maps
-    the model config to them (Deformable DETR); a name the model lacks
-    raises. A family's
-    ``thread_spread_params`` are gradients that f32 decides only loosely at
-    the init: in f32 the CPU's step is rerun on one thread, and each of
-    them is held to THREAD_SPREAD_TOL instead, beside its spread between
-    the CPU's thread counts."""
+def family_step(fam, cfg, dtype, n, hw, dev, prepare=None):
+    """One family step at B=n on the canvas ``hw``, dropout 0, in ``dtype``
+    on ``dev`` through the registry's losses_fn (DETR and Deformable DETR
+    at 2+2 layers, YOLOF and YOLOY at full depth), after the family's
+    ``prepare_compare`` (Deformable DETR's tie_proposals) or the function
+    named ``prepare``: its losses, the gradients of ``grad_params`` (names,
+    or a map from the model config to them: Deformable DETR's; a name the
+    model lacks raises) and its BatchNorm running buffers, on the CPU."""
     from dskd_tpu_torch.registry import get_family
     from dskd_tpu_torch.train.step import parse_losses
 
     losses_fn = get_family(cfg.model.arch)["losses"](
         None, cfg, num_prev=cfg.data.catsplit[0], has_teacher=True,
         use_dropout=False)
-
-    def step(dev):
-        student, teacher = (mdl.to(dtype) for mdl in fam["models"](
-            cfg, dev, **fam["small"]))
-        if fam.get("prepare_compare"):
-            fam["prepare_compare"](student)
-        student.train()
-        batch = family_batch(dev, n, hw, fam["max_gt"](cfg))
-        batch = type(batch)(*(t.to(dtype) if t is not None and
-                              t.is_floating_point() else t for t in batch))
-        losses = losses_fn(student, batch, teacher, None)
-        parse_losses(losses).backward()
-        params = dict(student.named_parameters())
-        return ({k: v.detach().cpu() for k, v in losses.items()},
-                {k: params[k].grad.cpu() for k in grad_params},
-                {k: v.cpu() for k, v in student.state_dict().items()
-                 if k.endswith(("running_mean", "running_var"))})
-
     grad_params = fam["grad_params"]
     if callable(grad_params):
         grad_params = grad_params(cfg.model)
-    (losses, grads, bufs), (c_losses, c_grads, c_bufs) = step(DEVICE), \
-        step("cpu")
+    student, teacher = (mdl.to(dtype) for mdl in fam["models"](
+        cfg, dev, **fam["small"]))
+    prep = globals()[prepare] if prepare else fam.get("prepare_compare")
+    if prep:
+        prep(student)
+    student.train()
+    batch = family_batch(dev, n, hw, fam["max_gt"](cfg))
+    batch = type(batch)(*(t.to(dtype) if t is not None and
+                          t.is_floating_point() else t for t in batch))
+    losses = losses_fn(student, batch, teacher, None)
+    parse_losses(losses).backward()
+    params = dict(student.named_parameters())
+    return ({k: v.detach().cpu() for k, v in losses.items()},
+            {k: params[k].grad.cpu() for k in grad_params},
+            {k: v.cpu() for k, v in student.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))})
+
+
+# --- the CPU worker: the CPU side of phases 10-16's comparisons --------------
+#
+# The families' checks against the CPU cost the host more than the card
+# costs them: one spawned process computes their CPU sides in turn, queued
+# at phase 10's start, while the main process drives the card; it stops
+# (SIGSTOP) whenever the main process times the card or the host
+# (card_alone), so that no timing of those phases runs beside it.
+
+_WORKER = None
+_QUEUED = {}
+# pid -> "still running" of the child processes that card_alone stops: the
+# CPU worker and the forgetting A/B's children
+_BACKGROUND = {}
+_ALONE = [0]
+
+
+def cpu_family_step(key, cfg, dtype, n, hw, prepare=None):
+    """family_step of FAMILIES[key] on the CPU, with FPG's and NAS-FPN's
+    stacks cut as phase 15 cuts them."""
+    with cut_stacks(key):
+        return family_step(FAMILIES[key], cfg, dtype, n, hw, "cpu", prepare)
+
+
+def cpu_serve_heads(key, cfg, images, img_hw):
+    """The head outputs of the family's seed-0 model on the CPU (the
+    registry's init_detector), after its ``prepare_compare``."""
+    from dskd_tpu_torch.apis.inference import init_detector
+
+    fam = FAMILIES[key]
+    with cut_stacks(key):
+        cpu_model, _ = init_detector(cfg, device="cpu", seed=0)
+    if fam.get("prepare_compare"):
+        fam["prepare_compare"](cpu_model)
+    with torch.inference_mode():
+        return fam["heads"](cfg, cpu_model(images, img_hw))
+
+
+def _tree(x, leaf):
+    """``x`` with every tensor or array leaf mapped by ``leaf``."""
+    if isinstance(x, dict):
+        return {k: _tree(v, leaf) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        items = [_tree(v, leaf) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+    return leaf(x)
+
+
+def _to_numpy(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _to_torch(x):
+    return torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+
+
+def _cpu_worker_loop(jobs, results):
+    """The worker: (ticket, function name, args) from ``jobs`` in turn, each
+    result (or the traceback) to ``results``; None ends it. A thread reads
+    the jobs, so that the main process never waits to queue one."""
+    import queue
+    import threading
+    import traceback
+
+    todo = queue.Queue()
+
+    def read():
+        while True:
+            msg = jobs.recv()
+            todo.put(msg)
+            if msg is None:
+                return
+
+    threading.Thread(target=read, daemon=True).start()
+    while True:
+        msg = todo.get()
+        if msg is None:
+            return
+        ticket, name, args = msg
+        try:
+            out = ("ok", _tree(globals()[name](*_tree(args, _to_torch)),
+                               _to_numpy))
+        except BaseException:
+            out = ("error", traceback.format_exc())
+        results.send((ticket, out))
+
+
+class CpuWorker:
+    """One spawned process running _cpu_worker_loop; a thread of the main
+    process takes its results as they come, so that it never waits to send
+    one."""
+
+    def __init__(self):
+        import multiprocessing
+        import threading
+
+        ctx = multiprocessing.get_context("spawn")
+        jobs_out, self._jobs = ctx.Pipe(duplex=False)
+        self._results, results_in = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_cpu_worker_loop,
+                                args=(jobs_out, results_in), daemon=True)
+        self.proc.start()
+        _BACKGROUND[self.proc.pid] = self.proc.is_alive
+        jobs_out.close()
+        results_in.close()
+        self._done, self._next = {}, 0
+        self._cond = threading.Condition()
+        threading.Thread(target=self._collect, daemon=True).start()
+
+    def _collect(self):
+        while True:
+            try:
+                ticket, out = self._results.recv()
+            except (EOFError, OSError):
+                out, ticket = None, None
+            with self._cond:
+                if ticket is None:
+                    self._done["ended"] = True
+                else:
+                    self._done[ticket] = out
+                self._cond.notify_all()
+            if ticket is None:
+                return
+
+    def submit(self, name, args):
+        ticket, self._next = self._next, self._next + 1
+        self._jobs.send((ticket, name, _tree(args, _to_numpy)))
+        return ticket
+
+    def result(self, ticket, name):
+        with self._cond:
+            while ticket not in self._done and "ended" not in self._done:
+                self._cond.wait()
+            out = self._done.pop(ticket, None)
+        if out is None:
+            raise RuntimeError(f"the CPU worker ended (exit "
+                               f"{self.proc.exitcode}) before {name}")
+        if out[0] != "ok":
+            raise RuntimeError(f"{name} failed in the CPU worker:\n{out[1]}")
+        return _tree(out[1], _to_torch)
+
+    def close(self):
+        _BACKGROUND.pop(self.proc.pid, None)
+        if self.proc.is_alive():
+            os.kill(self.proc.pid, signal.SIGCONT)
+            try:
+                self._jobs.send(None)
+            except OSError:
+                pass
+            self.proc.join(60)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+
+
+@contextlib.contextmanager
+def cpu_worker():
+    """Run the CPU worker while the block runs; print how many of its jobs
+    were queued ahead and how many were asked for unqueued."""
+    global _WORKER
+    _WORKER, stats = CpuWorker(), {"queued": 0, "used": 0, "unqueued": 0}
+    _WORKER.stats = stats
+    try:
+        yield
+    finally:
+        worker, _WORKER = _WORKER, None
+        unused = len(_QUEUED)
+        _QUEUED.clear()
+        worker.close()
+        print(f"cpu worker: {stats['queued']} jobs queued ahead, "
+              f"{stats['used']} used, {unused} unused, "
+              f"{stats['unqueued']} computed when asked")
+
+
+def _job_key(fn, args):
+    import hashlib
+    import pickle
+
+    return fn.__name__, hashlib.sha256(pickle.dumps(
+        _tree(args, _to_numpy))).hexdigest()
+
+
+def cpu_queue(fn, *args) -> None:
+    """Queue fn(*args) on the CPU worker, if one runs, for cpu_result."""
+    if _WORKER is not None:
+        _QUEUED[_job_key(fn, args)] = _WORKER.submit(fn.__name__, args)
+        _WORKER.stats["queued"] += 1
+
+
+def cpu_result(fn, *args):
+    """fn(*args): from the CPU worker, queued ahead by cpu_queue or now;
+    without a worker, computed here."""
+    if _WORKER is None:
+        return fn(*args)
+    ticket = _QUEUED.pop(_job_key(fn, args), None)
+    if ticket is None:
+        _WORKER.stats["unqueued"] += 1
+        ticket = _WORKER.submit(fn.__name__, args)
+    else:
+        _WORKER.stats["used"] += 1
+    return _WORKER.result(ticket, fn.__name__)
+
+
+def _signal_background(sig) -> None:
+    for pid, running in list(_BACKGROUND.items()):
+        if running():
+            os.kill(pid, sig)
+
+
+@contextlib.contextmanager
+def card_alone():
+    """The block times the card or the host: the background processes (the
+    CPU worker, the A/B's children) stop (SIGSTOP) while it runs."""
+    if _ALONE[0] == 0:
+        _signal_background(signal.SIGSTOP)
+    _ALONE[0] += 1
+    try:
+        yield
+    finally:
+        _ALONE[0] -= 1
+        if _ALONE[0] == 0:
+            _signal_background(signal.SIGCONT)
+
+
+def serve_inputs(fam, cfg, full=True):
+    """check_family's serving batches {B: prepare_batch(...) on the card}:
+    B=1 and the family's ``serve_batches`` (B=1 alone unless ``full``) of
+    images of several aspect ratios (seed 3)."""
+    from dskd_tpu_torch.apis.inference import prepare_batch
+
+    rng = np.random.RandomState(3)
+    imgs = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            for h, w in fam.get("serve_shapes", CANVAS_VALID * 2)]
+    sizes = fam.get("serve_batches", (1, 8)) if full else (1,)
+    return {bsz: prepare_batch(cfg, imgs[:1] if bsz == 1 else imgs[-bsz:],
+                               DEVICE) for bsz in sizes}
+
+
+def queue_family_cpu(key, config, sets=(), hw=CANVAS_HW, full=True):
+    """Queue on the CPU worker the CPU sides of check_family's comparisons
+    for FAMILIES[key] on ``config``: the serving heads (``full``) and a
+    step per dtype of ``vs_cpu_dtypes`` (ATSS-DyHead's also with its
+    offset convs redrawn)."""
+    from dskd_tpu_torch.utils.config import apply_overrides, load_config
+
+    fam = FAMILIES[key]
+    cfg = apply_overrides(load_config(config), list(sets))
+    if full:
+        images, img_hw, _ = serve_inputs(fam, cfg)[max(fam.get(
+            "serve_batches", (1, 8)))]
+        cpu_queue(cpu_serve_heads, key, cfg, images.cpu(), img_hw.cpu())
+    for dtype in fam["vs_cpu_dtypes"]:
+        cpu_queue(cpu_family_step, key, cfg, dtype, 2,
+                  tuple(fam.get("cmp_hw", hw)), None)
+    if key == "atss_dyhead":
+        cpu_queue(cpu_family_step, key, cfg, torch.float32, 2,
+                  tuple(DENSE_CMP_HW), "redraw_dyhead_offsets")
+
+
+def queue_phase_cpu():
+    """Queue the CPU sides of phases 10-16's family checks, in their
+    order."""
+    from dskd_tpu_torch.utils.config import load_config
+
+    for key, config in (("detr", DETR_CONFIG), ("yolof", YOLOF_CONFIG),
+                        ("yoloy", YOLOY_CONFIG)):
+        queue_family_cpu(key, config)
+    bucket = tuple(load_config(DDETR_TWOSTAGE).data.bucket)
+    for config, full in ((DDETR_TWOSTAGE, True), (DDETR_BASE, False),
+                         (DDETR_REFINE, False)):
+        queue_family_cpu("deformable_detr", config, DDETR_SETS, bucket,
+                         full)
+    for key, config in DENSE_CONFIGS.items():
+        queue_family_cpu(key, config, DENSE_SETS)
+    for key, config in VARIANT_CONFIGS.items():
+        queue_family_cpu(key, config, VARIANT_SETS)
+    for key, config in DCN_CONFIGS.items():
+        queue_family_cpu(key, config, DCN_SETS)
+
+
+def check_family_card_vs_cpu(fam, cfg, card, dtype, n=2, hw=CANVAS_HW,
+                             tag=None, prepare=None):
+    """One family step's losses, named gradients and BatchNorm running
+    buffers (family_step, after ``prepare`` where given) card against CPU
+    (LOSS_TOL, GRAD_REL_TOL, BN_TOL); the CPU's from the CPU worker where
+    one runs. A family's ``thread_spread_params`` are gradients that f32
+    decides only loosely at the init: in f32 each of them is held to
+    THREAD_SPREAD_TOL instead (PERF.md gives the CPU's own spread between
+    its thread counts, which the bound stands on)."""
+    hw = tuple(hw)
+    losses, grads, bufs = family_step(fam, cfg, dtype, n, hw, DEVICE,
+                                      prepare)
+    c_losses, c_grads, c_bufs = cpu_result(cpu_family_step, fam["key"], cfg,
+                                           dtype, n, hw, prepare)
+    grad_params = list(grads)
     tag = tag or fam["tag"]
     tol = dict.fromkeys(grad_params, GRAD_REL_TOL)
     spread_params = (fam["thread_spread_params"] if dtype == torch.float32
                      else ())
-    if spread_params:
-        threads = torch.get_num_threads()
-        torch.set_num_threads(1)
-        try:
-            one_thread = step("cpu")[1]
-        finally:
-            torch.set_num_threads(threads)
-        for k in spread_params:
-            tol[k] = THREAD_SPREAD_TOL
-            spread = rel_l2(one_thread[k], c_grads[k])
-            print(f"{tag} f32 on the CPU, 1 thread against {threads}: grad "
-                  f"{k}: relative L2 err {spread:.3e} (B={n}, "
-                  f"{hw[0]}x{hw[1]})")
+    for k in spread_params:
+        tol[k] = THREAD_SPREAD_TOL
     loss_err = {}
     for k, v in c_losses.items():
         torch.testing.assert_close(losses[k], v, **LOSS_TOL, msg=k)
@@ -2994,7 +3367,7 @@ def check_family_card_vs_cpu(fam, cfg, card, dtype, n=2, hw=CANVAS_HW,
 
 
 def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
-                 inc_kw=None, full=True, incremental=True):
+                 inc_kw=None, full=True, incremental=True, family=None):
     """Phases 10-13: one family of the registry (FAMILIES) at the config's
     width and depth, f32, TF32 off, seeded weights. Serving: the registry's
     eval step at B=1 and B=8 (the family's ``serve_batches``) on the
@@ -3017,13 +3390,15 @@ def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
     step, and skips the profile, the peak memory, the family's own checks
     and the incremental run; the step against the CPU stays, on the
     family's ``cmp_hw`` where it has one (the dense families), else on
-    ``hw``. ``incremental=False`` leaves out the incremental run alone."""
-    from dskd_tpu_torch.apis.inference import init_detector, prepare_batch
+    ``hw``. ``incremental=False`` leaves out the incremental run alone.
+    ``family`` names the FAMILIES entry where it is not the arch's own
+    (ATSS-DyHead's)."""
+    from dskd_tpu_torch.apis.inference import init_detector
     from dskd_tpu_torch.eval.evaluator import make_eval_step
     from dskd_tpu_torch.train.family import make_family_train_step
     from dskd_tpu_torch.utils.config import apply_overrides, load_config
 
-    fam = FAMILIES[arch]
+    fam = FAMILIES[family or arch]
     tag = fam["tag"] if full else f"{fam['tag']} {os.path.basename(config)}"
     cfg = apply_overrides(load_config(config), list(sets))
     m, d = cfg.model, cfg.distill
@@ -3042,12 +3417,8 @@ def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
     model, _ = init_detector(cfg, device=DEVICE, seed=0)
     step = make_eval_step(model, cfg.model.reg_max, cfg.test_score_thr,
                           cfg.test_max_per_img, arch=m.arch)
-    rng = np.random.RandomState(3)
-    imgs = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
-            for h, w in fam.get("serve_shapes", CANVAS_VALID * 2)]
-    sizes = fam.get("serve_batches", (1, 8)) if full else (1,)
-    batches = {bsz: prepare_batch(cfg, imgs[:1] if bsz == 1 else
-                                  imgs[-bsz:], DEVICE) for bsz in sizes}
+    batches = serve_inputs(fam, cfg, full)
+    sizes = tuple(batches)
     reset_counts()
     for bsz, batch in batches.items():
         det = step(*batch)
@@ -3067,14 +3438,15 @@ def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
     if full:
         check_serve_heads_vs_cpu(fam, cfg, tag, model, images, img_hw)
     for bsz, batch in batches.items():
-        for _ in range(2):
-            step(*batch)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            step(*batch)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / 5 * 1e3
+        with card_alone():
+            for _ in range(2):
+                step(*batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                step(*batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 5 * 1e3
         print(f"  {tag} serve B={bsz}: eval step {ms / bsz:.3f} ms/image "
               f"({ms:.3f} ms/batch; host clock around synchronised calls, "
               f"f32) [{card}]")
@@ -3094,7 +3466,7 @@ def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
     per_step = step_launches(cfg, has_teacher=True)
     n_steps = 3 if full else 1
     reset_counts()
-    with ctx:
+    with ctx, card_alone():
         for i in range(n_steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3123,8 +3495,9 @@ def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
                 f"one {tag} B={n} f32 train step")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        train(state, batch, teacher)
-        torch.cuda.synchronize()
+        with card_alone():
+            train(state, batch, teacher)
+            torch.cuda.synchronize()
         print(f"{tag} train: peak memory of one B={n} step "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
               f"(torch.cuda.max_memory_allocated) [{card}]")
@@ -3140,22 +3513,21 @@ def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
 
     if full and incremental:
         # run_incremental through the train_increment CLI's config path
-        check_incremental(card, config, sets=(*sets, *FAMILY_INC_SETS),
-                          **(inc_kw or {}))
+        with card_alone():
+            check_incremental(card, config, sets=(*sets, *FAMILY_INC_SETS),
+                              **(inc_kw or {}))
 
 
 def check_serve_heads_vs_cpu(fam, cfg, tag, model, images, img_hw):
     """The head outputs of ``model`` on the card against the same seed's
-    model on the CPU (HEAD_TOL), after the family's ``prepare_compare``."""
-    from dskd_tpu_torch.apis.inference import init_detector
-
-    cpu_model, _ = init_detector(cfg, device="cpu", seed=0)
+    model on the CPU (HEAD_TOL, cpu_serve_heads), after the family's
+    ``prepare_compare``."""
     if fam.get("prepare_compare"):
         fam["prepare_compare"](model)
-        fam["prepare_compare"](cpu_model)
     with torch.inference_mode():
         got_heads = fam["heads"](cfg, model(images, img_hw))
-        want_heads = fam["heads"](cfg, cpu_model(images.cpu(), img_hw.cpu()))
+    want_heads = cpu_result(cpu_serve_heads, fam["key"], cfg, images.cpu(),
+                            img_hw.cpu())
     errs = {}
     for name, want in want_heads.items():
         got = got_heads[name].cpu()
@@ -3278,6 +3650,9 @@ VARIANT_GRAD_PARAMS = {
     "retinanet_fpg": _HEAD_GRADS[1:] + _RETINA_OUT,
     "retinanet_nasfpn": _HEAD_GRADS[:1] + _RETINA_OUT}
 VARIANT_SETS = ()         # the configs as they are (a rehearsal cuts them)
+# FPG's and NAS-FPN's stacks in phase 15, cut from 9 and 7 to keep the
+# script inside its time; each stack repeats the same searched block
+VARIANT_STACKS = {"retinanet_fpg": 3, "retinanet_nasfpn": 3}
 GHM_EMA_TOL = dict(rtol=1e-3, atol=2.0)   # EMAs of bin counts, 3 steps
 ISR_TOL = dict(rtol=1e-4, atol=1e-6)      # ISR-P weights, card vs CPU
 
@@ -3544,18 +3919,6 @@ def check_nasfpn(fam, cfg, card, student, teacher, batch):
           f"SepBN head {not neck} [{card}]")
     if neck or not moved:
         raise AssertionError(f"nasfpn: moved running buffers {moved[:6]}")
-    # the same at the config's learning rate, read and not held
-    res = steps_vs_cpu(fam, cfg)
-    (bufs, _), (c_bufs, _) = res[DEVICE], res["cpu"]
-    err = {k: float((bufs[k] - v).abs().max() / v.abs().max().clamp(
-        min=1e-12)) for k, v in c_bufs.items()}
-    far = sum(not torch.allclose(bufs[k], v, **BN_TOL)
-              for k, v in c_bufs.items())
-    print(f"nasfpn: after 3 steps on one batch at the config's lr "
-          f"{cfg.train.base_lr} (warmup {cfg.train.warmup_iters}), {far} of "
-          f"{len(err)} running buffers part from the CPU's beyond {BN_TOL}, "
-          f"the largest by {max(err.values()):.3e} of its max "
-          f"({max(err, key=err.get)}) [{card}]")
 
 
 def check_external_teacher_run(card, config, sets=()):
@@ -3644,8 +4007,11 @@ for _arch, _desc in (
         ("lad", "PAA head, R101 PAA teacher assigning"),
         ("pisa_retinanet", "RetinaNet head, ISR-P + CARL"),
         ("retinanet_ghm", "RetinaNet head, GHM-C + GHM-R"),
-        ("retinanet_fpg", "RetinaNet head on FPG's 9 stacks"),
-        ("retinanet_nasfpn", "RetinaSepBNHead on NAS-FPN's 7 stacks")):
+        ("retinanet_fpg", f"RetinaNet head on FPG's "
+                          f"{VARIANT_STACKS['retinanet_fpg']} stacks (of 9)"),
+        ("retinanet_nasfpn", f"RetinaSepBNHead on NAS-FPN's "
+                             f"{VARIANT_STACKS['retinanet_nasfpn']} stacks "
+                             f"(of 7)")):
     _neck = {"retinanet_fpg": "FPG-256 P2-P6",
              "retinanet_nasfpn": "NAS-FPN-256 P2-P6"}.get(_arch,
                                                          "FPN-256 P3-P7")
@@ -3663,21 +4029,11 @@ for _arch, _desc in (
                                                             check_dense))
 
 
-def check_variant_families(card):
-    """Phase 15: LD (R18 student, R101 teacher), PAA, LAD (R50, R101
-    teacher) and the RetinaNet variants PISA, GHM (R50, FPN), FPG and
-    NAS-FPN (R50, 640x640) through check_family at their configs' canvas
-    and full width, f32, seeded weights: the 800x1344 configs at B=2, the
-    640x640 ones at B=8, GT padded to the config's max_gt. Each: serving at
-    B=1 and B=2, three steps, a profile, the peak memory, its own checks
-    (the assignment: ATSS's for LD, PAA's positives for PAA and LAD,
-    max-IoU for the variants; PISA's ISR-P weights, GHM's EMAs and NAS-FPN's
-    running statistics after three steps; the decode) and a step against
-    the CPU on DENSE_CMP_HW; LD and LAD also run_incremental with an
-    external ResNet-101 teacher. Every port kernel's count stays 0 over the
-    phase."""
-    from dskd_tpu_torch.utils.config import apply_overrides, load_config
-
+@contextlib.contextmanager
+def summed_counts():
+    """The port kernels' counts summed over the block (every reset_counts
+    inside it adds the counts so far to the sum), yielded as a dict that
+    holds the sum once the block ends."""
     total = dict.fromkeys(counters(), 0)
     reset = globals()["reset_counts"]
 
@@ -3688,22 +4044,378 @@ def check_variant_families(card):
 
     globals()["reset_counts"] = accumulating
     try:
+        yield total
+        accumulating()
+    finally:
+        globals()["reset_counts"] = reset
+
+
+_STACKS_CUT = set()
+
+
+@contextlib.contextmanager
+def cut_stacks(arch):
+    """The port's RetinaNet builds FPG or NAS-FPN with VARIANT_STACKS[arch]
+    stacks while the block runs (any other arch: unchanged)."""
+    from dskd_tpu_torch.models import retinanet
+
+    name = {"retinanet_fpg": "FPG", "retinanet_nasfpn": "NASFPN"}.get(arch)
+    if name is None or arch in _STACKS_CUT:
+        yield
+        return
+    _STACKS_CUT.add(arch)
+    neck = getattr(retinanet, name)
+    setattr(retinanet, name, lambda *a, **kw: neck(
+        *a, **kw, stack_times=VARIANT_STACKS[arch]))
+    try:
+        yield
+    finally:
+        setattr(retinanet, name, neck)
+        _STACKS_CUT.discard(arch)
+
+
+def check_variant_families(card):
+    """Phase 15: LD (R18 student, R101 teacher), PAA, LAD (R50, R101
+    teacher) and the RetinaNet variants PISA, GHM (R50, FPN), FPG and
+    NAS-FPN (R50, 640x640, VARIANT_STACKS stacks) through check_family at
+    their configs' canvas and full width, f32, seeded weights: the 800x1344
+    configs at B=2, the 640x640 ones at B=8, GT padded to the config's
+    max_gt. Each: serving at B=1 and B=2, three steps, a profile, the peak
+    memory, its own checks (the assignment: ATSS's for LD, PAA's positives
+    for PAA and LAD, max-IoU for the variants; PISA's ISR-P weights, GHM's
+    EMAs and NAS-FPN's running statistics after three steps; the decode)
+    and a step against the CPU on DENSE_CMP_HW; LD and LAD also
+    run_incremental with an external ResNet-101 teacher. Every port
+    kernel's count stays 0 over the phase."""
+    from dskd_tpu_torch.utils.config import apply_overrides, load_config
+
+    with summed_counts() as total:
         for arch, config in VARIANT_CONFIGS.items():
             t0 = time.perf_counter()
             cfg = load_config(config)
             n_train = 8 if tuple(cfg.data.bucket) == (640, 640) else 2
             cfg = apply_overrides(cfg, list(VARIANT_SETS))
-            check_family(card, arch, config, VARIANT_SETS, n_train=n_train,
-                         hw=tuple(cfg.data.bucket), incremental=False)
+            with cut_stacks(arch):
+                check_family(card, arch, config, VARIANT_SETS,
+                             n_train=n_train, hw=tuple(cfg.data.bucket),
+                             incremental=False)
             if cfg.model.teacher_depth:
-                check_external_teacher_run(card, config, VARIANT_SETS)
+                with card_alone():
+                    check_external_teacher_run(card, config, VARIANT_SETS)
             print(f"{arch}: {time.perf_counter() - t0:.1f} s of phase 15")
-        accumulating()
-    finally:
-        globals()["reset_counts"] = reset
     print(f"phase 15: port kernel launches over the phase {total}")
     if any(total.values()):
         raise AssertionError(f"phase 15 launched port kernels: {total}")
+
+
+# --- deformable convolution and the DCN families (phase 16) ------------------
+
+DCN_CONFIGS = {key: os.path.join(ROOT, "configs", f"{name}.py")
+               for key, name in (("atss_dyhead", "atss_r50_dyhead_1x"),
+                                 ("nasfcos", "nasfcos_r50_1x"),
+                                 ("vfnet", "vfnet_r50_1x"),
+                                 ("reppoints", "reppoints_moment_r50_1x"))}
+DCN_SETS = ()             # the configs as they are (a rehearsal cuts them)
+DCN_HW = (100, 168)       # DyHead's P3 on 800x1344
+DCN_TOL = dict(rtol=1e-4, atol=1e-4)    # deform_conv2d forward, card vs CPU
+DCN_GRAD_REL_TOL = 1e-4                 # its gradients, relative L2
+# the head's and the last DyHead block's gradients (the FPN lateral's, held
+# loosely in phase 14, and the necks' behind the towers are left out)
+_BLOCK5 = "dyhead.dyhead_blocks.5."
+DCN_GRAD_PARAMS = {
+    "atss_dyhead": tuple(_BLOCK5 + k for k in (
+        "spatial_conv_offset.weight", "spatial_conv_mid.conv.weight",
+        "spatial_conv_low.conv.weight", "spatial_conv_high.conv.weight")) + (
+        "bbox_head.atss_cls.weight", "bbox_head.atss_reg.weight",
+        "bbox_head.atss_centerness.weight"),
+    "nasfcos": ("bbox_head.cls_convs.3.conv.weight",
+                "bbox_head.reg_convs.3.conv.weight",
+                "bbox_head.conv_cls.weight", "bbox_head.conv_reg.weight",
+                "bbox_head.conv_centerness.weight"),
+    "vfnet": ("bbox_head.vfnet_reg_refine_dconv.weight",
+              "bbox_head.vfnet_cls_dconv.weight", "bbox_head.vfnet_cls.weight",
+              "bbox_head.vfnet_reg.weight", "bbox_head.vfnet_reg_refine.weight",
+              "bbox_head.reg_convs.2.conv.weight"),
+    "reppoints": ("bbox_head.reppoints_cls_conv.weight",
+                  "bbox_head.reppoints_pts_refine_conv.weight",
+                  "bbox_head.reppoints_cls_out.weight",
+                  "bbox_head.reppoints_pts_init_out.weight",
+                  "bbox_head.reppoints_pts_refine_out.weight")}
+
+
+def deform_case(gen, modulated, stride, offsets, hw):
+    """B=2 inputs of deform_conv2d at ``hw`` with 256 channels in and out:
+    x, offsets (zero, or N(0, 3 px) with every tap of the first output row
+    20 px above the map), the weight, the mask (v2), the cotangent."""
+    (H, W), C = hw, 256
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    x = torch.randn(2, H, W, C, generator=gen)
+    if offsets == "zero":
+        off = torch.zeros(2, Ho, Wo, 18)
+    else:
+        off = torch.randn(2, Ho, Wo, 18, generator=gen) * 3
+        off[:, 0, :, 0::2] = -20.0
+    weight = torch.randn(C, C, 3, 3, generator=gen) / (9 * C) ** 0.5
+    mask = (torch.sigmoid(torch.randn(2, Ho, Wo, 9, generator=gen))
+            if modulated else None)
+    cot = torch.randn(2, Ho, Wo, C, generator=gen)
+    return x, off, weight, mask, cot
+
+
+def check_deform_conv(card, gen):
+    """deform_conv2d on the card against the CPU at DyHead's P3 (B=2,
+    100x168, 256 channels in and out): v1 stride 1 with offsets a few
+    pixels off, v2 stride 1 at zero offsets (every sample on a pixel, the
+    offset gradient one-sided), v2 stride 2 off, v1 stride 2 at zero; the
+    forward within DCN_TOL, the gradients of x, offsets, weight and mask
+    within DCN_GRAD_REL_TOL relative L2; device ms of the forward and of
+    forward + backward, and the peak memory of the latter."""
+    from dskd_tpu_torch.ops.deform_conv import deform_conv2d
+
+    for modulated, stride, offsets in ((False, 1, "random"),
+                                       (True, 1, "zero"),
+                                       (True, 2, "random"),
+                                       (False, 2, "zero")):
+        case = deform_case(gen, modulated, stride, offsets, DCN_HW)
+        res = {}
+        for dev in (DEVICE, "cpu"):
+            # detach: .to("cpu") of a CPU tensor is the tensor itself
+            x, off, w, mask = (None if t is None else
+                               t.to(dev).detach().requires_grad_()
+                               for t in case[:4])
+            out = deform_conv2d(x, off, w, stride=stride, mask=mask)
+            (out * case[4].to(dev)).sum().backward()
+            res[dev] = [out.detach().cpu()] + [
+                t.grad.cpu() for t in (x, off, w, mask) if t is not None]
+        (out, *grads), (c_out, *c_grads) = res[DEVICE], res["cpu"]
+        torch.testing.assert_close(out, c_out, **DCN_TOL)
+        rels = [rel_l2(g, c) for g, c in zip(grads, c_grads)]
+        H, W = DCN_HW
+        Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+        ys = (torch.arange(Ho)[:, None, None] * stride - 1
+              + torch.arange(3).repeat_interleave(3) + case[1][..., 0::2])
+        xs = (torch.arange(Wo)[None, :, None] * stride - 1
+              + torch.arange(3).repeat(3) + case[1][..., 1::2])
+        gone = ((ys <= -1) | (ys >= H) | (xs <= -1) | (xs >= W)).float()
+        x, off, w, mask = (None if t is None else t.to(DEVICE)
+                           for t in case[:4])
+        with torch.no_grad():
+            fwd_ms = device_ms(lambda: deform_conv2d(
+                x, off, w, stride=stride, mask=mask), iters=5, warmup=1)
+        ts = [None if t is None else t.requires_grad_() for t in
+              (x, off, w, mask)]
+        cot = case[4].to(DEVICE)
+
+        def fwd_bwd():
+            (deform_conv2d(ts[0], ts[1], ts[2], stride=stride, mask=ts[3])
+             * cot).sum().backward()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        both_ms = device_ms(fwd_bwd, iters=5, warmup=1)
+        print(f"deform_conv2d {'v2' if modulated else 'v1'} stride {stride} "
+              f"offsets {offsets} (B=2, {H}x{W} in, {Ho}x{Wo} out, 256 -> "
+              f"256, f32): {float(gone.mean()):.2%} of the taps wholly "
+              f"outside the map; card vs CPU forward max abs err "
+              f"{float((out - c_out).abs().max()):.3e} (tolerance {DCN_TOL}),"
+              f" gradients x / offsets / weight{' / mask' * modulated} "
+              f"relative L2 {' / '.join(f'{r:.3e}' for r in rels)} "
+              f"(tolerance {DCN_GRAD_REL_TOL}); forward {fwd_ms:.3f} ms, "
+              f"forward + backward {both_ms:.3f} ms (device), forward + "
+              f"backward peak {peak / 2 ** 30:.3f} GiB above its inputs "
+              f"[{card}]")
+        if not all(r <= DCN_GRAD_REL_TOL for r in rels):
+            raise AssertionError(f"deform_conv2d gradients differ card vs "
+                                 f"CPU: {rels}")
+
+
+def dcn_share(fam, cfg, card, student, teacher, batch):
+    """The deformable convs' share of one family forward + backward's
+    device time: the step's deform_conv2d calls are recorded by shape, each
+    shape timed alone forward + backward on random inputs (device ms),
+    summed over the calls, and set against the profiled busy ms."""
+    from dskd_tpu_torch.ops import deform_conv as dc
+    from dskd_tpu_torch.registry import get_family
+    from dskd_tpu_torch.train.step import parse_losses
+
+    losses_fn = get_family(cfg.model.arch)["losses"](
+        None, cfg, num_prev=0, has_teacher=False, use_dropout=False)
+    calls = {}
+    plain = dc.deform_conv2d
+
+    def recording(x, offsets, weight, bias=None, stride=1, padding=1,
+                  dilation=1, mask=None):
+        key = (tuple(x.shape), tuple(weight.shape), stride, mask is not None)
+        calls[key] = calls.get(key, 0) + 1
+        return plain(x, offsets, weight, bias, stride, padding, dilation,
+                     mask)
+
+    def fwd_bwd():
+        student.zero_grad(set_to_none=True)
+        parse_losses(losses_fn(student, batch, teacher, None)).backward()
+
+    n = batch.images.shape[0]
+    dc.deform_conv2d = recording
+    try:
+        busy = profile(fwd_bwd, f"one {fam['tag']} B={n} f32 forward + "
+                       f"backward", top=8)
+    finally:
+        dc.deform_conv2d = plain
+    student.zero_grad(set_to_none=True)
+    gen = torch.Generator().manual_seed(17)
+    dcn_ms = 0.0
+    for (xs, ws, stride, modulated), count in calls.items():
+        x = torch.randn(xs, generator=gen).to(DEVICE).requires_grad_()
+        Ho, Wo = (xs[1] - 1) // stride + 1, (xs[2] - 1) // stride + 1
+        off = (torch.randn(xs[0], Ho, Wo, 18, generator=gen) * 2).to(
+            DEVICE).requires_grad_()
+        w = (torch.randn(ws, generator=gen) * 0.01).to(DEVICE)
+        w.requires_grad_()
+        mask = (torch.rand(xs[0], Ho, Wo, 9, generator=gen).to(DEVICE)
+                .requires_grad_() if modulated else None)
+        ms = device_ms(lambda: plain(x, off, w, stride=stride,
+                                     mask=mask).sum().backward(),
+                       iters=3, warmup=1)
+        dcn_ms += ms * (count // 2)         # profile() ran fwd_bwd twice
+    print(f"{fam['tag']}: {sum(calls.values()) // 2} deform_conv2d calls "
+          f"in one forward + backward, {len(calls)} shapes; timed alone "
+          f"they take {dcn_ms:.3f} device ms of the profiled {busy:.3f} ms "
+          f"busy: {dcn_ms / busy:.1%} [{card}]")
+
+
+def redraw_dyhead_offsets(model):
+    """Every DyHead offset conv's kernel 4x lecun-normal from a CPU
+    generator (the same on each device): its offsets leave the pixel grid
+    by about a pixel and more, and its mask logits spread."""
+    from dskd_tpu_torch.models.detector import lecun_
+
+    g = torch.Generator().manual_seed(19)
+    with torch.no_grad():
+        for blk in model.dyhead.dyhead_blocks:
+            w = blk.spatial_conv_offset.weight
+            lecun_(w, g)
+            w.mul_(4.0)
+
+
+def check_reppoints(fam, cfg, card, student, batch):
+    """The point assignment of the training batch's GT and the refined
+    stage's max-IoU assignment on the student's decoded initial boxes
+    (computed once, on the card) on the card equal the CPU's exactly."""
+    from dskd_tpu_torch.core.max_iou_assigner import max_iou_assign
+    from dskd_tpu_torch.models import reppoints as R
+    from dskd_tpu_torch.models.gfl_head import cat_levels
+
+    C = cfg.model.num_classes
+    lcfg = R.RepPointsLossConfig(num_classes=C)
+    with torch.no_grad():
+        out = student(batch.images, batch.img_hw)
+        centers, strides, counts = R.reppoints_centers(
+            [c.shape[1:3] for c in out.head.cls_scores], DEVICE)
+        boxes = R._decoded_boxes(cat_levels(out.head.pts_init, 18), centers,
+                                 strides, out.moment)
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        b = batch.to(dev)
+        gt = (b.gt_bboxes, b.gt_labels, b.gt_valid)
+        a_init, pos_i, _ = R.point_assign(centers.to(dev), counts, *gt, C)
+        ref = max_iou_assign(boxes.to(dev), *gt, C,
+                             pos_iou_thr=lcfg.refine_pos_iou,
+                             neg_iou_thr=lcfg.refine_neg_iou,
+                             min_pos_iou=0.0, match_low_quality=True)
+        res[dev] = [t.cpu() for t in (a_init, ref.assigned_gt, ref.labels,
+                                      ref.max_ious)]
+    exact = all(torch.equal(a, c) for a, c in zip(res[DEVICE], res["cpu"]))
+    a_init, a_ref = res["cpu"][:2]
+    print(f"reppoints assignment, card vs CPU on the training batch (B="
+          f"{batch.images.shape[0]}, {tuple(batch.images.shape[1:3])}, "
+          f"{a_init.shape[1]} cells, GT padded to {batch.gt_valid.shape[1]} "
+          f"of which {batch.gt_valid.sum(1).tolist()} valid): point stage "
+          f"positives {(a_init >= 0).sum(1).tolist()}; refine stage on the "
+          f"card's initial boxes positives {(a_ref >= 0).sum(1).tolist()}, "
+          f"ignored {(a_ref == -2).sum(1).tolist()}, largest IoU "
+          f"{float(res['cpu'][3].max()):.4f}; equal {exact} [{card}]")
+    if not exact or not bool((a_init >= 0).any(1).all()):
+        raise AssertionError("reppoints: the card's assignment differs from "
+                             "the CPU's (or has no positive)")
+
+
+def check_dcn(fam, cfg, card, student, teacher, batch):
+    """Phase 16's family check: the assignment and the decode against the
+    CPU (check_dense; RepPoints' two stages in check_reppoints); NAS-FCOS's
+    neck BatchNorms still at their seeded statistics after the steps;
+    the deformable convs' share of the device time; ATSS-DyHead's step
+    against the CPU once more with its offset convs redrawn."""
+    arch = cfg.model.arch
+    if arch == "reppoints":
+        check_reppoints(fam, cfg, card, student, batch)
+        check_dense_decode(fam, cfg, card)
+    else:
+        check_dense(fam, cfg, card, student, teacher, batch)
+    if arch == "nasfcos":
+        bufs = {k: v for k, v in student.neck.state_dict().items()
+                if k.endswith(("running_mean", "running_var"))}
+        moved = [k for k, v in bufs.items() if not torch.equal(
+            v, torch.full_like(v, float(k.endswith("running_var"))))]
+        print(f"nasfcos: {len(bufs)} neck BatchNorm buffers after the "
+              f"steps, {len(moved)} moved from the seeded statistics")
+        if moved:
+            raise AssertionError(f"nasfcos: neck buffers moved {moved[:6]}")
+    else:
+        with card_alone():
+            dcn_share(fam, cfg, card, student, teacher, batch)
+    if fam["tag"] == "atss_dyhead":
+        check_family_card_vs_cpu(fam, cfg, card, torch.float32,
+                                 hw=DENSE_CMP_HW,
+                                 tag="atss_dyhead, offset convs redrawn",
+                                 prepare="redraw_dyhead_offsets")
+
+
+for _key, _desc in (
+        ("atss_dyhead", "FPN-256 P3-P7, {} DyHead blocks, ATSS head "
+                        "without towers"),
+        ("nasfcos", "NAS-FCOS neck P3-P7, 4-conv towers, FCOS head"),
+        ("vfnet", "FPN-256 P3-P7, 3-conv towers, star-DCN refine and cls"),
+        ("reppoints", "FPN-256 P3-P7, 3-conv towers, DCNs on 9 points")):
+    FAMILIES[_key] = dict(
+        FAMILIES["atss"], tag=_key, grad_params=DCN_GRAD_PARAMS[_key],
+        describe=(lambda m, d=_desc: f"ResNet-{m.depth}, "
+                  f"{d.format(m.dyhead_blocks)}"),
+        thread_spread_params=(), train_checks=check_dcn)
+# DyHead's outputs spread less than an FPN level, and VFNet's star taps
+# fall mostly outside the maps at the init: their class logits pass 0.05
+# with a class bias of -2 and -3
+FAMILIES["atss_dyhead"]["decode_bias"] = -2.0
+FAMILIES["vfnet"]["decode_bias"] = -3.0
+for _key, _fam in FAMILIES.items():
+    _fam["key"] = _key
+
+
+def check_dcn_families(card):
+    """Phase 16: check_deform_conv, then ATSS-DyHead, NAS-FCOS, VFNet and
+    RepPoints through check_family at their configs' 800x1344 canvas and
+    full width and depth, f32, seeded weights, B=2 with GT padded to the
+    config's max_gt, with check_dcn as their own checks. Every port
+    kernel's count stays 0 over the phase."""
+    from dskd_tpu_torch.utils.config import apply_overrides, load_config
+
+    with summed_counts() as total:
+        t0 = time.perf_counter()
+        check_deform_conv(card, torch.Generator().manual_seed(16))
+        print(f"deform_conv2d: {time.perf_counter() - t0:.1f} s of phase 16")
+        for key, config in DCN_CONFIGS.items():
+            t0 = time.perf_counter()
+            cfg = apply_overrides(load_config(config), list(DCN_SETS))
+            check_family(card, cfg.model.arch, config, DCN_SETS, n_train=2,
+                         hw=tuple(cfg.data.bucket), incremental=False,
+                         family=key)
+            print(f"{key}: {time.perf_counter() - t0:.1f} s of phase 16")
+    print(f"phase 16: port kernel launches over the phase {total}")
+    if any(total.values()):
+        raise AssertionError(f"phase 16 launched port kernels: {total}")
 
 
 def main() -> int:
@@ -3725,7 +4437,6 @@ def main() -> int:
         if os.environ.pop(k, None) is not None:
             print(f"{k} was set; unset it: the default path comes first")
 
-    from dskd_tpu_torch.apis.inference import prepare_batch
     from dskd_tpu_torch.ops import _build
     from dskd_tpu_torch.ops import fused_sample, mxu_gather, pack_kernel, \
         window
@@ -3743,6 +4454,22 @@ def main() -> int:
           f"s")
     for name, (secs, log) in _build.BUILD_LOG.items():
         print(f"build: {name} nvcc {secs:.2f} s; {'; '.join(ptxas(log))}")
+
+    # phase 8's forgetting A/B: eight host-bound child processes that
+    # leave the card idle most of the time, so they run beside phases 3-7,
+    # whose checks do not depend on time; phase 8 collects them
+    ab = start_ab_seeds()
+    print(f"forgetting A/B: {len(AB_SEEDS)} seeds started beside phases 3-7")
+    try:
+        return check_phases(card, kind, t_start, ab)
+    finally:
+        stop_ab_seeds(ab)
+
+
+def check_phases(card, kind, t_start, ab) -> int:
+    """Phases 1-16 after the build, then the kernel report and the result
+    line; ``ab`` the forgetting A/B's children (start_ab_seeds)."""
+    from dskd_tpu_torch.apis.inference import prepare_batch
 
     gen = torch.Generator().manual_seed(0)
     err = check_kernels(gen)
@@ -3797,52 +4524,59 @@ def main() -> int:
 
     check_incremental(card)
     t8 = time.perf_counter()
-    check_distill_menu(cfg, card)
-    print(f"distill menu, JV and A/B: phase 8 took "
+    check_distill_menu(cfg, card, ab)
+    print(f"A/B, distill menu and JV: phase 8 took "
           f"{time.perf_counter() - t8:.1f} s")
 
-    ktimes, kbounds, sampling, wtimes = report_kernel_times(card, gen)
-    stimes = time_slice(model, cfg, {1: imgs[:1], 4: imgs})
-    for bsz, (e2e, fwd) in stimes.items():
-        print(f"  serve B={bsz}: inference_detector {e2e:.3f} ms/image, "
-              f"model forward {fwd:.3f} ms/image (f32)")
-    for tag, (st, sp, tch) in (("f32", (state32, step32, teacher32)),
-                               ("bf16", (state16, step16, teacher16))):
-        ms, img_s = time_train(st, sp, tch, batch)
-        print(f"  train {tag} B={B} {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
-              f"{ms:.3f} ms/step, {img_s:.3f} img/s")
-    for switch, (st, sp, tch, sw_batch) in switch_states.items():
-        with switched(TRAIN_SWITCHES[switch]):
-            ms, img_s = time_train(st, sp, tch, sw_batch)
-        h, w = TRAIN_CANVAS.get(switch, TRAIN_HW)
-        print(f"  train f32 {switch} {TRAIN_SWITCHES[switch]} B={B} "
-              f"{h}x{w}: {ms:.3f} ms/step, {img_s:.3f} img/s")
-    images, img_hw, _ = prepare_batch(cfg, imgs, DEVICE)
-    with torch.inference_mode():
-        profile(lambda: model(images, img_hw),
-                f"one B={len(imgs)} serving forward (f32)")
-    profile(lambda: step16(state16, batch, teacher16),
-            f"one B={B} bf16 train step")
+    with card_alone():           # phase 9 times the card and the host
+        ktimes, kbounds, sampling, wtimes = report_kernel_times(card, gen)
+        stimes = time_slice(model, cfg, {1: imgs[:1], 4: imgs})
+        for bsz, (e2e, fwd) in stimes.items():
+            print(f"  serve B={bsz}: inference_detector {e2e:.3f} ms/image, "
+                  f"model forward {fwd:.3f} ms/image (f32)")
+        for tag, (st, sp, tch) in (("f32", (state32, step32, teacher32)),
+                                   ("bf16", (state16, step16, teacher16))):
+            ms, img_s = time_train(st, sp, tch, batch)
+            print(f"  train {tag} B={B} {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
+                  f"{ms:.3f} ms/step, {img_s:.3f} img/s")
+        for switch, (st, sp, tch, sw_batch) in switch_states.items():
+            with switched(TRAIN_SWITCHES[switch]):
+                ms, img_s = time_train(st, sp, tch, sw_batch)
+            h, w = TRAIN_CANVAS.get(switch, TRAIN_HW)
+            print(f"  train f32 {switch} {TRAIN_SWITCHES[switch]} B={B} "
+                  f"{h}x{w}: {ms:.3f} ms/step, {img_s:.3f} img/s")
+        images, img_hw, _ = prepare_batch(cfg, imgs, DEVICE)
+        with torch.inference_mode():
+            profile(lambda: model(images, img_hw),
+                    f"one B={len(imgs)} serving forward (f32)")
+        profile(lambda: step16(state16, batch, teacher16),
+                f"one B={B} bf16 train step")
     del state16, step16, teacher16, switch_states
 
-    t10 = time.perf_counter()
-    check_detr(card)
-    print(f"detr-il: phase 10 took {time.perf_counter() - t10:.1f} s")
-    for phase, arch, config in ((11, "yolof", YOLOF_CONFIG),
-                                (12, "yoloy", YOLOY_CONFIG)):
+    with cpu_worker():
+        t10 = time.perf_counter()
+        queue_phase_cpu()
+        check_detr(card)
+        print(f"detr-il: phase 10 took {time.perf_counter() - t10:.1f} s")
+        for phase, arch, config in ((11, "yolof", YOLOF_CONFIG),
+                                    (12, "yoloy", YOLOY_CONFIG)):
+            t0 = time.perf_counter()
+            check_family(card, arch, config)
+            print(f"{FAMILIES[arch]['tag']}: phase {phase} took "
+                  f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        check_family(card, arch, config)
-        print(f"{FAMILIES[arch]['tag']}: phase {phase} took "
+        check_ddetr(card)
+        print(f"deformable-detr: phase 13 took "
               f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    check_ddetr(card)
-    print(f"deformable-detr: phase 13 took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    check_dense_families(card)
-    print(f"dense: phase 14 took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    check_variant_families(card)
-    print(f"variants: phase 15 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        check_dense_families(card)
+        print(f"dense: phase 14 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        check_variant_families(card)
+        print(f"variants: phase 15 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        check_dcn_families(card)
+        print(f"dcn: phase 16 took {time.perf_counter() - t0:.1f} s")
 
     bwd_key = f"gather_weighted_bwd f32 Q={Q_TRAIN} 640x480"
     gw_key = f"gather_weighted f32 Q={Q_ENC}"

@@ -11,7 +11,9 @@ square anchor of 8 strides per position. Loss: ATSS assignment, focal
 loss, GIoU of the decoded boxes weighted by the centerness target, BCE on
 the centerness. Decoding: sigmoid(cls) x sigmoid(centerness), per-level
 threshold and top-k, deltas decoded at stds (0.1, 0.1, 0.2, 0.2), clipped,
-class-aware NMS at IoU 0.6. The JAX module's DyHead option is not ported.
+class-aware NMS at IoU 0.6. With ``dyhead_blocks`` (ATSS-DyHead) the
+DyHead blocks (``models/dyhead.py``) sit between the FPN and a head
+without towers, and their outputs are the ``neck_feats``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from ..core import losses as L
 from ..core.anchors import base_anchors, delta2bbox, grid_anchors
 from ..core.atss import atss_assign
 from ..core.postprocess import filter_scores_and_topk_mlvl
+from .dyhead import DyHead, init_dyhead
 from .fpn import FPN
 from .gfl import init_dense
 from .gfl_head import (ConvGN, Scale, cat_levels, centres, level_sizes, nhwc,
@@ -81,22 +84,25 @@ class ATSSHead(nn.Module):
 
 class ATSS(nn.Module):
     def __init__(self, device, num_classes: int = 80, depth: int = 50,
-                 frozen_stages: int = 1, dyhead_blocks: int = 0):
+                 frozen_stages: int = 1, dyhead_blocks: int = 0,
+                 head_stacked_convs: int = 4):
         super().__init__()
-        if dyhead_blocks:
-            raise NotImplementedError(f"ATSS dyhead_blocks={dyhead_blocks} "
-                                      f"(DyHead) is not ported")
         self.backbone = ResNet(depth, device, out_indices=(0, 1, 2, 3),
                                frozen_stages=frozen_stages)
         self.neck = FPN(self.backbone.out_channels, device, start_level=1,
                         add_extra_convs="on_output",
                         relu_before_extra_convs=True)
-        self.bbox_head = ATSSHead(device, num_classes)
+        self.dyhead = (DyHead(device, num_blocks=dyhead_blocks)
+                       if dyhead_blocks else None)
+        self.bbox_head = ATSSHead(device, num_classes,
+                                  stacked_convs=head_stacked_convs)
 
     def forward(self, images, img_hw) -> ATSSOutputs:
         """images (B, H, W, 3) normalised NHWC; img_hw is unused by the
         forward."""
         neck = self.neck(self.backbone(images.permute(0, 3, 1, 2)))
+        if self.dyhead is not None:
+            neck = self.dyhead(neck)
         return ATSSOutputs(self.bbox_head(neck), neck)
 
 
@@ -189,11 +195,14 @@ def build_atss(model_cfg, device="cuda") -> ATSS:
     m = model_cfg
     return ATSS(device, num_classes=m.num_classes, depth=m.depth,
                 frozen_stages=m.frozen_stages,
-                dyhead_blocks=m.dyhead_blocks)
+                dyhead_blocks=m.dyhead_blocks,
+                head_stacked_convs=0 if m.dyhead_blocks else 4)
 
 
 def init_atss(model: ATSS, seed: int = 0) -> None:
     init_dense(model, seed, "atss_cls", PRIOR_BIAS)
+    if model.dyhead is not None:
+        init_dyhead(model.dyhead, torch.Generator().manual_seed(seed + 1))
 
 
 def _register():

@@ -1,7 +1,7 @@
 """FCOS (port of dskd_tpu/models/fcos.py ``Scale``, ``FCOSHead``,
 ``FCOS``, ``fcos_points``, ``_fcos_targets``, ``FCOSLossConfig``,
 ``fcos_detection_loss``, ``fcos_get_bboxes`` and its registry entry
-``fcos``).
+``fcos`` and ``nasfcos``).
 
 ResNet -> FPN (C3-C5, P3-P7, extra convs on the output with a ReLU
 between them) -> two towers of 4 x (conv, GroupNorm(32), ReLU) shared
@@ -12,8 +12,9 @@ least area (the first of equal ones) that contains it and whose largest
 distance falls in the level's regress range. Loss: focal loss, -log IoU
 weighted by the centerness target, BCE on the centerness. Decoding:
 sigmoid(cls) x sigmoid(centerness), per-level threshold and top-k, clipped,
-class-aware NMS at IoU 0.5. The JAX module's NAS-FCOS neck and non-ResNet
-backbones are not ported.
+class-aware NMS at IoU 0.5. ``nasfcos`` swaps the FPN for the NAS-FCOS
+searched neck on C3-C5 (``models/nasfcos_fpn.py``); the JAX module's
+non-ResNet backbones are not ported.
 """
 from __future__ import annotations
 
@@ -30,8 +31,9 @@ from ..core.postprocess import filter_scores_and_topk_mlvl
 from .atss import PRIOR_BIAS
 from .backbones import build_backbone
 from .fpn import FPN
-from .gfl import init_dense
+from .gfl import dense_init_of, init_dense
 from .gfl_head import ConvGN, Scale, cat_levels, level_sizes, nhwc, tower
+from .nasfcos_fpn import NASFCOSFPN
 from .yolof_head import Detections, nms_detections
 
 STRIDES = (8, 16, 32, 64, 128)
@@ -84,21 +86,24 @@ class FCOS(nn.Module):
                  frozen_stages: int = 1, backbone: str = "",
                  nas_fpn: bool = False):
         super().__init__()
-        if nas_fpn:
-            raise NotImplementedError("FCOS nas_fpn=True (the NAS-FCOS "
-                                      "neck) is not ported")
         self.backbone, kind = build_backbone(backbone, depth, device,
                                              frozen_stages)
-        self.neck = FPN(self.backbone.out_channels, device,
-                        start_level=1 if kind == "c2345" else 0,
-                        add_extra_convs="on_output",
-                        relu_before_extra_convs=True)
+        start = 1 if kind == "c2345" else 0
+        self.neck_start = start if nas_fpn else 0
+        if nas_fpn:
+            self.neck = NASFCOSFPN(self.backbone.out_channels[start:],
+                                   device)
+        else:
+            self.neck = FPN(self.backbone.out_channels, device,
+                            start_level=start, add_extra_convs="on_output",
+                            relu_before_extra_convs=True)
         self.bbox_head = FCOSHead(device, num_classes)
 
     def forward(self, images, img_hw) -> FCOSOutputs:
         """images (B, H, W, 3) normalised NHWC; img_hw is unused by the
         forward."""
-        neck = self.neck(self.backbone(images.permute(0, 3, 1, 2)))
+        feats = self.backbone(images.permute(0, 3, 1, 2))
+        neck = self.neck(feats[self.neck_start:])
         return FCOSOutputs(self.bbox_head(neck), neck)
 
 
@@ -209,11 +214,19 @@ def fcos_get_bboxes(out: FCOSHeadOutputs, points, img_hw,
 def build_fcos(model_cfg, device="cuda") -> FCOS:
     m = model_cfg
     return FCOS(device, num_classes=m.num_classes, depth=m.depth,
-                frozen_stages=m.frozen_stages, backbone=m.backbone)
+                frozen_stages=m.frozen_stages, backbone=m.backbone,
+                nas_fpn=m.arch == "nasfcos")
+
+
+def _nasfcos_init_of(name: str) -> str:
+    """flax's default lecun-normal for the NAS-FCOS neck's convs."""
+    return "lecun" if name.startswith("neck.") else dense_init_of(name)
 
 
 def init_fcos(model: FCOS, seed: int = 0) -> None:
-    init_dense(model, seed, "conv_cls", PRIOR_BIAS)
+    init_dense(model, seed, "conv_cls", PRIOR_BIAS,
+               _nasfcos_init_of if isinstance(model.neck, NASFCOSFPN)
+               else dense_init_of)
 
 
 def _register():
@@ -246,9 +259,10 @@ def _register():
                                    max_per_img=max_per_img, rescale=True)
         return step
 
-    register_family("fcos", build=build_fcos, init_weights=init_fcos,
-                    from_jax=fcos_state_dict_from_jax, losses=losses,
-                    eval_step=eval_step)
+    for name in ("fcos", "nasfcos"):
+        register_family(name, build=build_fcos, init_weights=init_fcos,
+                        from_jax=fcos_state_dict_from_jax, losses=losses,
+                        eval_step=eval_step)
 
 
 _register()

@@ -44,6 +44,9 @@ _LAZY = {
     "atss": "dskd_tpu_torch.models.atss",
     "gfl": "dskd_tpu_torch.models.gfl",
     "fcos": "dskd_tpu_torch.models.fcos",
+    "nasfcos": "dskd_tpu_torch.models.fcos",
+    "vfnet": "dskd_tpu_torch.models.vfnet",
+    "reppoints": "dskd_tpu_torch.models.reppoints",
     "ld": "dskd_tpu_torch.models.ld",
     "paa": "dskd_tpu_torch.models.paa",
     "lad": "dskd_tpu_torch.models.paa",

@@ -3,8 +3,9 @@ dskd_tpu/utils/torch_weights.py ``convert_mmdet_gfl_ddetr``,
 ``convert_mmdet_detr``, ``convert_mmdet_yolof``,
 ``convert_mmdet_retinanet`` and ``convert_mmdet_gfl``, and
 ``deformable_detr_state_dict_from_jax``, ``atss_state_dict_from_jax``,
-``fcos_state_dict_from_jax`` and ``paa_state_dict_from_jax`` under mmdet's
-names).
+``fcos_state_dict_from_jax``, ``paa_state_dict_from_jax``,
+``vfnet_state_dict_from_jax`` and ``reppoints_state_dict_from_jax`` under
+mmdet's names).
 
 The port names its parameters after the mmdet checkpoint keys that those
 converters read, so ``state_dict_from_jax`` (the flagship),
@@ -33,7 +34,10 @@ class _Writer:
         self.out: Dict[str, torch.Tensor] = {}
 
     def put(self, key, arr):
-        self.out[key] = torch.from_numpy(np.array(arr, np.float32))
+        """f32, or f64 where ``arr`` is (a gradient held in f64)."""
+        arr = np.asarray(arr)
+        self.out[key] = torch.from_numpy(np.array(
+            arr, np.float64 if arr.dtype == np.float64 else np.float32))
 
     def linear(self, dst, p):
         self.put(dst + ".weight", np.asarray(p["kernel"]).T)
@@ -392,7 +396,7 @@ def _nasfpn(w: _Writer, neck, stats) -> None:
         w.bn(f"{dst}.bn", p["out_bn"], stats[name]["out_bn"])
 
 
-def _dense(variables, outputs, gn: bool, neck=_fpn
+def _dense(variables, outputs, gn: bool, neck=_fpn, extra=None
            ) -> Dict[str, torch.Tensor]:
     """A ResNet + neck (``neck`` writes it: FPN's by default) + dense head
     of JAX's: the towers ``{cls,reg}_conv{i}`` (and ``_gn{i}``) ->
@@ -400,13 +404,16 @@ def _dense(variables, outputs, gn: bool, neck=_fpn
     ``{cls,reg}_bn{i}_lvl{l}`` -> ``bbox_head.{cls,reg}_norms.l.i``, the
     ``outputs`` convs under their own names, ``scale{l}`` ->
     ``bbox_head.scales.l.scale``; GHM's EMAs in ``batch_stats`` ->
-    ``ghm_acc_c`` / ``ghm_acc_r``."""
+    ``ghm_acc_c`` / ``ghm_acc_r``. ``extra(w, name, p)`` writes a head
+    parameter of the family's own and says whether it did."""
     params, stats = variables["params"], variables["batch_stats"]
     w = _Writer()
     w.backbone(params["backbone"], stats["backbone"])
     neck(w, params["neck"], stats.get("neck", {}))
     head, hstats = params["bbox_head"], stats.get("bbox_head", {})
     for name, p in head.items():
+        if extra is not None and extra(w, name, p):
+            continue
         m = re.fullmatch(r"(cls|reg)_(conv|gn)(\d+)", name)
         if m:
             kind, part, i = m.groups()
@@ -450,13 +457,37 @@ def retinanet_state_dict_from_jax(variables: Dict[str, Any]
                   neck=writer)
 
 
+def _dyhead(w: _Writer, dyhead) -> None:
+    """JAX's DyHead ``block{i}`` -> ``dyhead.dyhead_blocks.i``: the three
+    ``spatial_conv_*`` kernels and GroupNorms (``.conv``, ``.norm``), the
+    offset conv, ``scale_attn_conv`` -> ``scale_attn_module.1`` and
+    ``task_attn`` -> ``task_attn_module.conv{1,2}.conv``."""
+    for name, blk in dyhead.items():
+        dst = "dyhead.dyhead_blocks." + re.fullmatch(r"block(\d+)", name)[1]
+        for part in ("high", "mid", "low"):
+            p = blk[f"spatial_conv_{part}"]
+            w.conv(f"{dst}.spatial_conv_{part}.conv", p)
+            w.norm(f"{dst}.spatial_conv_{part}.norm", p["gn"])
+        w.conv(f"{dst}.spatial_conv_offset", blk["spatial_conv_offset"])
+        w.conv(f"{dst}.scale_attn_module.1", blk["scale_attn_conv"])
+        for c in ("conv1", "conv2"):
+            w.conv(f"{dst}.task_attn_module.{c}.conv", blk["task_attn"][c])
+
+
 def atss_state_dict_from_jax(variables: Dict[str, Any]
                              ) -> Dict[str, torch.Tensor]:
     """The JAX ``models/atss.ATSS`` variables -> mmdet-keyed CPU tensors
-    for the port's ``models.atss.ATSS`` (mmdet's ``atss_head.py``
-    names)."""
-    return _dense(variables, ("atss_cls", "atss_reg", "atss_centerness"),
-                  gn=True)
+    for the port's ``models.atss.ATSS`` (mmdet's ``atss_head.py`` names;
+    ATSS-DyHead's blocks under ``dyhead.``, and its head without towers
+    has no GroupNorm)."""
+    dyhead = variables["params"].get("dyhead")
+    out = _dense(variables, ("atss_cls", "atss_reg", "atss_centerness"),
+                 gn=dyhead is None)
+    if dyhead is not None:
+        w = _Writer()
+        _dyhead(w, dyhead)
+        out.update(w.out)
+    return out
 
 
 def gfl_state_dict_from_jax(variables: Dict[str, Any]
@@ -466,13 +497,95 @@ def gfl_state_dict_from_jax(variables: Dict[str, Any]
     return _dense(variables, ("gfl_cls", "gfl_reg"), gn=True)
 
 
+def _nasfcos(w: _Writer, neck, stats) -> None:
+    """JAX's NAS-FCOS neck ``adapt{i}`` / ``adapt_bn{i}``, the cells
+    ``<cell>`` (``in{1,2}_conv``, ``in{1,2}_gn``, ``out_bn``, ``out_conv``)
+    and ``extra_down{j}`` -> ``neck.adapt_convs.i`` (``.conv``, ``.bn``),
+    ``neck.fpn.<cell>.input{1,2}_conv`` (``.conv``, ``.gn``),
+    ``neck.fpn.<cell>.out_conv`` (``.bn``, ``.conv``) and
+    ``neck.extra_downsamples.j.conv``, the BatchNorms' running statistics
+    included. The grouped 1x1 ``out_conv`` kernel (1, 1, 2, C) becomes
+    (C, 2, 1, 1): output c reads the concat's channels 2c and 2c + 1."""
+    for name, p in neck.items():
+        m = re.fullmatch(r"(adapt|adapt_bn|extra_down)(\d+)", name)
+        if m:
+            kind, i = m.groups()
+            if kind == "adapt":
+                w.conv(f"neck.adapt_convs.{i}.conv", p)
+            elif kind == "adapt_bn":
+                w.bn(f"neck.adapt_convs.{i}.bn", p, stats[name])
+            else:
+                w.conv(f"neck.extra_downsamples.{i}.conv", p)
+            continue
+        dst = f"neck.fpn.{name}"
+        for k in ("1", "2"):
+            w.conv(f"{dst}.input{k}_conv.conv", p[f"in{k}_conv"])
+            w.norm(f"{dst}.input{k}_conv.gn", p[f"in{k}_gn"])
+        w.bn(f"{dst}.out_conv.bn", p["out_bn"], stats[name]["out_bn"])
+        w.conv(f"{dst}.out_conv.conv", p["out_conv"])
+
+
 def fcos_state_dict_from_jax(variables: Dict[str, Any]
                              ) -> Dict[str, torch.Tensor]:
-    """The JAX ``models/fcos.FCOS`` variables -> mmdet-keyed CPU tensors
-    for the port's ``models.fcos.FCOS`` (mmdet's ``fcos_head.py`` /
-    ``anchor_free_head.py`` names)."""
+    """The JAX ``models/fcos.FCOS`` variables (``fcos`` and ``nasfcos``)
+    -> mmdet-keyed CPU tensors for the port's ``models.fcos.FCOS``
+    (mmdet's ``fcos_head.py`` / ``anchor_free_head.py`` names; the
+    NAS-FCOS neck by its parameter names)."""
+    neck = _nasfcos if "adapt0" in variables["params"]["neck"] else _fpn
     return _dense(variables, ("conv_cls", "conv_reg", "conv_centerness"),
-                  gn=True)
+                  gn=True, neck=neck)
+
+
+def vfnet_state_dict_from_jax(variables: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/vfnet.VFNet`` variables -> CPU tensors for the
+    port's ``models.vfnet.VFNet`` (mmdet's ``vfnet_head.py`` names:
+    ``vfnet_reg_conv`` (``.conv``, ``.gn``), the deformable kernels
+    ``vfnet_reg_refine_dconv`` and ``vfnet_cls_dconv``, ``scales_refine``)."""
+    def extra(w, name, p):
+        if name == "vfnet_reg_conv":
+            w.conv("bbox_head.vfnet_reg_conv.conv", p)
+        elif name == "vfnet_reg_conv_gn":
+            w.norm("bbox_head.vfnet_reg_conv.gn", p)
+        elif name in ("reg_refine_dconv_kernel", "cls_dconv_kernel"):
+            dst = {"reg_refine_dconv_kernel": "vfnet_reg_refine_dconv",
+                   "cls_dconv_kernel": "vfnet_cls_dconv"}[name]
+            w.conv(f"bbox_head.{dst}", {"kernel": p})
+        elif re.fullmatch(r"scale_refine\d+", name):
+            w.put(f"bbox_head.scales_refine.{name[12:]}.scale", p["scale"])
+        else:
+            return False
+        return True
+
+    return _dense(variables, ("vfnet_reg", "vfnet_reg_refine", "vfnet_cls"),
+                  gn=True, extra=extra)
+
+
+def reppoints_state_dict_from_jax(variables: Dict[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/reppoints.RepPoints`` variables -> CPU tensors for
+    the port's ``models.reppoints.RepPoints`` (mmdet's
+    ``reppoints_head.py`` names: the towers ``cls_convs`` and
+    ``reg_convs`` (JAX's ``pts_conv{i}``), the deformable kernels
+    ``reppoints_cls_conv`` and ``reppoints_pts_refine_conv``; JAX's
+    top-level ``moment_transfer``)."""
+    def extra(w, name, p):
+        m = re.fullmatch(r"pts_conv(\d+)", name)
+        if m:
+            w.conv(f"bbox_head.reg_convs.{m[1]}.conv", p)
+        elif name.endswith("_conv_kernel"):
+            w.conv(f"bbox_head.{name[:-7]}", {"kernel": p})
+        else:
+            return False
+        return True
+
+    out = _dense(variables, ("reppoints_pts_init_conv",
+                             "reppoints_pts_init_out", "reppoints_cls_out",
+                             "reppoints_pts_refine_out"),
+                 gn=False, extra=extra)
+    w = _Writer()
+    w.put("moment_transfer", variables["params"]["moment_transfer"])
+    return {**out, **w.out}
 
 
 def paa_state_dict_from_jax(variables: Dict[str, Any]

@@ -240,7 +240,6 @@ def test_fpn_options_not_ported_raise(kw, name):
 
 
 def test_unported_options_raise_with_their_names():
-    from dskd_tpu_torch.models.atss import ATSS
     from dskd_tpu_torch.models.backbones import build_backbone
     from dskd_tpu_torch.models.fcos import FCOS
     from dskd_tpu_torch.models.retinanet import RetinaNet
@@ -253,10 +252,10 @@ def test_unported_options_raise_with_their_names():
             RetinaNet("cpu", depth=18, backbone=spec)
     with pytest.raises(ValueError, match="hrfpn"):
         RetinaNet("cpu", depth=18, neck="hrfpn")
-    with pytest.raises(NotImplementedError, match="dyhead"):
-        ATSS("cpu", depth=18, dyhead_blocks=6)
-    with pytest.raises(NotImplementedError, match="nas_fpn"):
-        FCOS("cpu", depth=18, nas_fpn=True)
-    for arch in ("nasfcos", "vfnet", "tood", "sabl_retina"):
+    for spec in ("hrnet_w18", "swin_tiny"):
+        # NAS-FCOS (ported) on a backbone that is not
+        with pytest.raises(NotImplementedError, match=repr(spec)):
+            FCOS("cpu", depth=18, backbone=spec, nas_fpn=True)
+    for arch in ("tood", "sabl_retina", "fsaf", "foveabox"):
         with pytest.raises(ValueError, match=repr(arch)):
             registry.get_family(arch)

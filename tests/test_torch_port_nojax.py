@@ -17,8 +17,9 @@ class-aware NMS on both of its paths, and reports which modules it
 loaded. A second fresh interpreter loads the three
 ``configs/deformable_detr_*.py``, cut to a tiny size, runs one family step
 of each, and the ``train_increment`` and ``test`` CLIs on the two-stage
-config. Further interpreters step the dense families, and LD with its
-ResNet-101 teacher and NAS-FPN from their configs. An import hook refuses
+config. Further interpreters step the dense families, LD with its
+ResNet-101 teacher and NAS-FPN from their configs, and the DCN families
+(ATSS-DyHead, NAS-FCOS, VFNet, RepPoints) with both CLIs on VFNet. An import hook refuses
 ``jax``, ``jaxlib``, ``flax`` and ``dskd_tpu`` throughout."""
 import json
 import os
@@ -380,6 +381,79 @@ print(json.dumps({
                                             "dskd_tpu"))}))
 """
 
+_DCN_SCRIPT = _REFUSE + r"""
+import glob, importlib, os, runpy, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+from dskd_tpu_torch import registry
+from dskd_tpu_torch.data.batch import Batch
+from dskd_tpu_torch.data.coco import COCO_CLASSES_ALPHA_ORDER
+from dskd_tpu_torch.eval.evaluator import make_eval_step
+from dskd_tpu_torch.tools import test as test_cli
+from dskd_tpu_torch.train.family import make_family_train_step
+from dskd_tpu_torch.train.optim import make_optimizer
+from dskd_tpu_torch.train.schedule import step_lr_schedule
+from dskd_tpu_torch.train.state import TrainState
+from dskd_tpu_torch.utils.config import load_config
+
+for name in ("ops.deform_conv", "models.dyhead", "models.nasfcos_fpn",
+             "models.vfnet", "models.reppoints", "utils.weights"):
+    importlib.import_module("dskd_tpu_torch." + name)
+rng = np.random.RandomState(0)
+images = torch.from_numpy(rng.randn(2, 64, 64, 3).astype(np.float32))
+img_hw = torch.tensor([[64, 64], [48, 60]], dtype=torch.int32)
+gt = torch.tensor([[[4., 6., 40., 50.], [30., 10., 60., 30.]],
+                   [[2., 2., 20., 30.], [0., 0., 0., 0.]]])
+batch = Batch(images, img_hw, gt, torch.tensor([[1, 3], [2, 0]]),
+              torch.tensor([[True, True], [True, False]]))
+report = {}
+for config in ("atss_r50_dyhead_1x", "nasfcos_r50_1x", "vfnet_r50_1x",
+               "reppoints_moment_r50_1x"):
+    cfg = load_config(f"configs/{config}.py")
+    cfg.model = dataclasses.replace(cfg.model, num_classes=5, depth=18)
+    spec = registry.get_family(cfg.model.arch)
+    model = spec["build"](cfg.model, "cpu")
+    spec["init_weights"](model, 0)
+    state = TrainState.create(model, make_optimizer(
+        model, step_lr_schedule(1e-4)), seed=0)
+    step = make_family_train_step(cfg.model.arch, model, cfg, num_prev=0,
+                                  has_teacher=False)
+    state, losses = step(state, batch)
+    det = make_eval_step(model.eval(), cfg.model.reg_max, 0.0, 20,
+                         cfg.model.arch)(images, img_hw, torch.ones(2, 4))
+    report[config] = [cfg.model.arch, cfg.model.dyhead_blocks,
+                      sorted(losses),
+                      all(bool(torch.isfinite(v)) for v in losses.values()),
+                      list(det.bboxes.shape)]
+root = tempfile.mkdtemp()
+cats = [c for _, c in COCO_CLASSES_ALPHA_ORDER]
+ann, img_dir = chip_smoke.write_coco(root, "train", ((48, 64), (64, 48)) * 6,
+                                     cats[:8], seed=0)
+sets = ["model.depth=18", "data.bucket=(64,64)", "data.img_scale=(64,64)",
+        "data.aspect_buckets=((64,48),(48,64))", "data.catsplit=(4,4)",
+        "model.num_classes=8", "data.num_workers=0",
+        "data.samples_per_device=2", f"data.train_ann={ann}",
+        f"data.val_ann={ann}", f"data.train_img_prefix={img_dir}",
+        f"data.val_img_prefix={img_dir}", "train.max_iters_per_task=2",
+        "train.log_interval=1"]
+work = os.path.join(root, "vfnet")
+sys.argv = ["train_increment", "configs/vfnet_r50_1x.py", "--work-dir", work,
+            "--seed", "1", "--device", "cpu", "--set", *sets]
+runpy.run_module("dskd_tpu_torch.tools.train_increment", run_name="__main__")
+stats = test_cli.main(["configs/vfnet_r50_1x.py", "--work-dir", work,
+                       "--device", "cpu", "--set", *sets])
+report["cli"] = [sorted(os.path.basename(p) for p in
+                        glob.glob(os.path.join(work, "task_*"))),
+                 0.0 <= stats["bbox_mAP"] <= 1.0]
+print(json.dumps({
+    "dcn": report,
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                            "dskd_tpu"))}))
+"""
+
 
 def _run(script, tmp_path):
     """Runs ``script`` in a fresh interpreter from the repo's root and
@@ -463,3 +537,22 @@ def test_ld_teacher_and_nasfpn_import_no_jax(tmp_path):
                         "loss_ld"], True],
         "retinanet_nasfpn": [18, None, ["loss", "loss_bbox", "loss_cls"],
                              True]}
+
+
+def test_dcn_families_import_no_jax(tmp_path):
+    """A fifth interpreter: ATSS-DyHead (six blocks), NAS-FCOS, VFNet and
+    RepPoints from their configs at R18 on 64x64, a step and an eval step
+    each, then the ``train_increment`` CLI for two tasks and the ``test``
+    CLI on VFNet."""
+    report = _run(_DCN_SCRIPT, tmp_path)
+    assert report["loaded"] == []
+    det = ["loss", "loss_bbox", "loss_centerness", "loss_cls"]
+    assert report["dcn"] == {
+        "atss_r50_dyhead_1x": ["atss", 6, det, True, [2, 20, 4]],
+        "nasfcos_r50_1x": ["nasfcos", 0, det, True, [2, 20, 4]],
+        "vfnet_r50_1x": ["vfnet", 0, ["loss", "loss_bbox", "loss_bbox_rf",
+                                      "loss_cls"], True, [2, 20, 4]],
+        "reppoints_moment_r50_1x": [
+            "reppoints", 0, ["loss", "loss_cls", "loss_pts_init",
+                             "loss_pts_refine"], True, [2, 20, 4]],
+        "cli": [["task_1_epoch_1", "task_2_epoch_1"], True]}
