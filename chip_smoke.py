@@ -169,9 +169,19 @@ Phases; the first failure raises and the script exits non-zero:
      share of the forward + backward's device time, a step against the CPU
      on 384x640 (ATSS-DyHead's also with its offset convs redrawn), and
      none of the port's kernels launched over the phase.
-Phases 10-16 take the CPU sides of their comparisons against the CPU (the
-serving heads and the steps) from one spawned worker process, queued at
-phase 10's start; it stops while the script times the card or the host.
+ 17. heads: TOOD, FSAF, FoveaBox, AutoAssign, FreeAnchor and SABL-RetinaNet
+     (their 1x configs: ResNet-50, FPN-256 P3-P7, full heads, 80 classes,
+     seeded weights, f32) through the same family check on 800x1344 at
+     B=2, each with its own assignment or targets against the CPU (TOOD's
+     task-aligned positives and its per-corner sampling with gradients,
+     FreeAnchor's 50-anchor bags and P(anchor in A+), SABL's approx-max-IoU
+     assignment and bucket targets, FSAF's level per GT, FoveaBox's labels
+     per level, AutoAssign's negative weights and centre-prior
+     gradients), and none of the port's kernels launched over the phase.
+Phases 10-17 take the CPU sides of their comparisons against the CPU (the
+serving heads and the steps, GHM's and NAS-FPN's three steps of phase 15
+too) from one spawned worker process, queued at phase 10's start; it stops
+while the script times the card or the host.
 The last three lines are the card, the kernel report as JSON and the
 result as JSON.
 """
@@ -3039,7 +3049,7 @@ def family_step(fam, cfg, dtype, n, hw, dev, prepare=None):
              if k.endswith(("running_mean", "running_var"))})
 
 
-# --- the CPU worker: the CPU side of phases 10-16's comparisons --------------
+# --- the CPU worker: the CPU side of phases 10-17's comparisons --------------
 #
 # The families' checks against the CPU cost the host more than the card
 # costs them: one spawned process computes their CPU sides in turn, queued
@@ -3295,10 +3305,12 @@ def queue_family_cpu(key, config, sets=(), hw=CANVAS_HW, full=True):
     if key == "atss_dyhead":
         cpu_queue(cpu_family_step, key, cfg, torch.float32, 2,
                   tuple(DENSE_CMP_HW), "redraw_dyhead_offsets")
+    if key in STEPS_VS_CPU:
+        cpu_queue(cpu_family_steps, key, cfg, *STEPS_VS_CPU[key])
 
 
 def queue_phase_cpu():
-    """Queue the CPU sides of phases 10-16's family checks, in their
+    """Queue the CPU sides of phases 10-17's family checks, in their
     order."""
     from dskd_tpu_torch.utils.config import load_config
 
@@ -3316,6 +3328,8 @@ def queue_phase_cpu():
         queue_family_cpu(key, config, VARIANT_SETS)
     for key, config in DCN_CONFIGS.items():
         queue_family_cpu(key, config, DCN_SETS)
+    for key, config in HEAD_CONFIGS.items():
+        queue_family_cpu(key, config, HEAD_SETS)
 
 
 def check_family_card_vs_cpu(fam, cfg, card, dtype, n=2, hw=CANVAS_HW,
@@ -3816,34 +3830,54 @@ def check_pisa(fam, cfg, card, student, teacher, batch):
         raise AssertionError(f"pisa: {bad} ISR-P weights differ card vs CPU")
 
 
-def steps_vs_cpu(fam, cfg, n_steps=3, record=None, base_lr=None):
-    """``n_steps`` family steps from the seeded init on B=2 batches of
-    DENSE_CMP_HW (one batch, or with ``base_lr`` a batch of its own seed
-    each step and that learning rate) on the card and on the CPU, cfg's
-    optimizer; returns {device: (the running buffers after them, the last
-    losses)}. ``record(device)`` is a context manager run around each
-    device's steps."""
+def family_steps(key, cfg, dev, n_steps=3, base_lr=None, ghm=False):
+    """``n_steps`` steps of FAMILIES[key] from the seeded init on ``dev``
+    on B=2 batches of DENSE_CMP_HW (one batch, or with ``base_lr`` a batch
+    of its own seed each step and that learning rate), cfg's optimizer:
+    (the running buffers after them, the last losses, and with ``ghm``
+    each GHM loss call's bin indices (ghm_bins), else None), moved to the
+    CPU."""
     from dskd_tpu_torch.train.family import make_family_train_step
 
+    fam = FAMILIES[key]
     if base_lr is not None:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, base_lr=base_lr))
-    out = {}
-    for dev in (DEVICE, "cpu"):
-        student, teacher = fam["models"](cfg, dev)
-        state = train_state(cfg, student)
-        step = make_family_train_step(cfg.model.arch, student, cfg,
-                                      num_prev=0, has_teacher=True)
-        with record(dev) if record else contextlib.nullcontext():
-            for i in range(n_steps):
-                batch = family_batch(dev, 2, DENSE_CMP_HW, fam["max_gt"](
-                    cfg), seed=7 if base_lr is None else 7 + i)
-                state, losses = step(state, batch, teacher)
-        out[dev] = ({k: v.cpu() for k, v in student.state_dict().items()
-                     if k.endswith(("running_mean", "running_var"))
-                     or k.startswith("ghm_acc_")},
-                    {k: v.cpu() for k, v in losses.items()})
-    return out
+    student, teacher = fam["models"](cfg, dev)
+    state = train_state(cfg, student)
+    step = make_family_train_step(cfg.model.arch, student, cfg, num_prev=0,
+                                  has_teacher=True)
+    calls = [] if ghm else None
+    with ghm_bins(calls) if ghm else contextlib.nullcontext():
+        for i in range(n_steps):
+            batch = family_batch(dev, 2, DENSE_CMP_HW, fam["max_gt"](cfg),
+                                 seed=7 if base_lr is None else 7 + i)
+            state, losses = step(state, batch, teacher)
+    return ({k: v.cpu() for k, v in student.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))
+             or k.startswith("ghm_acc_")},
+            {k: v.cpu() for k, v in losses.items()}, calls)
+
+
+def cpu_family_steps(key, cfg, n_steps=3, base_lr=None, ghm=False):
+    """family_steps on the CPU, with FPG's and NAS-FPN's stacks cut as
+    phase 15 cuts them: the CPU worker's job for GHM and NAS-FPN."""
+    with cut_stacks(key):
+        return family_steps(key, cfg, "cpu", n_steps, base_lr, ghm)
+
+
+# the arguments of each family's cpu_family_steps after (key, cfg)
+STEPS_VS_CPU = {"retinanet_ghm": (3, None, True),
+                "retinanet_nasfpn": (3, 0.0, False)}
+
+
+def steps_vs_cpu(fam, cfg):
+    """family_steps on the card and (from the CPU worker where one runs)
+    on the CPU, with the family's STEPS_VS_CPU arguments: {device: its
+    result}."""
+    args = STEPS_VS_CPU[fam["key"]]
+    return {DEVICE: family_steps(fam["key"], cfg, DEVICE, *args),
+            "cpu": cpu_result(cpu_family_steps, fam["key"], cfg, *args)}
 
 
 @contextlib.contextmanager
@@ -3874,12 +3908,11 @@ def check_ghm(fam, cfg, card, student, teacher, batch):
     within GHM_EMA_TOL, with the count of elements whose gradient norm fell
     in another bin on the card than on the CPU."""
     check_dense(fam, cfg, card, student, teacher, batch)
-    calls = {DEVICE: [], "cpu": []}
-    res = steps_vs_cpu(fam, cfg, record=lambda dev: ghm_bins(calls[dev]))
-    moved = [int((a != b).sum()) for a, b in zip(calls[DEVICE],
-                                                calls["cpu"])]
-    n_elem = sum(int((b >= 0).sum()) for b in calls["cpu"])
-    (bufs, losses), (c_bufs, c_losses) = res[DEVICE], res["cpu"]
+    res = steps_vs_cpu(fam, cfg)
+    (bufs, losses, calls), (c_bufs, c_losses, c_calls) = (res[DEVICE],
+                                                          res["cpu"])
+    moved = [int((a != b).sum()) for a, b in zip(calls, c_calls)]
+    n_elem = sum(int((b >= 0).sum()) for b in c_calls)
     for k in ("ghm_acc_c", "ghm_acc_r"):
         print(f"ghm {k} after 3 steps (B=2, {DENSE_CMP_HW[0]}x"
               f"{DENSE_CMP_HW[1]}): card {bufs[k].tolist()} max abs err "
@@ -3903,8 +3936,8 @@ def check_nasfpn(fam, cfg, card, student, teacher, batch):
     takes the two devices' weights apart by up to 2 lr on such elements,
     and the statistics of the steps after with them."""
     check_dense(fam, cfg, card, student, teacher, batch)
-    res = steps_vs_cpu(fam, cfg, base_lr=0.0)
-    (bufs, _), (c_bufs, _) = res[DEVICE], res["cpu"]
+    res = steps_vs_cpu(fam, cfg)
+    (bufs, _, _), (c_bufs, _, _) = res[DEVICE], res["cpu"]
     err = {k: float((bufs[k] - v).abs().max()) for k, v in c_bufs.items()}
     for k, v in c_bufs.items():
         torch.testing.assert_close(bufs[k], v, **BN_TOL, msg=k)
@@ -4418,6 +4451,392 @@ def check_dcn_families(card):
         raise AssertionError(f"phase 16 launched port kernels: {total}")
 
 
+# --- TOOD, FSAF, FoveaBox, AutoAssign, FreeAnchor, SABL (phase 17) ----------
+
+HEAD_CONFIGS = {key: os.path.join(ROOT, "configs", f"{name}.py")
+                for key, name in (("tood", "tood_r50_1x"),
+                                  ("fsaf", "fsaf_r50_1x"),
+                                  ("foveabox", "foveabox_r50_1x"),
+                                  ("autoassign", "autoassign_r50_1x"),
+                                  ("free_anchor",
+                                   "retinanet_free_anchor_r50_1x"),
+                                  ("sabl_retina", "sabl_retinanet_r50_1x"))}
+HEAD_SETS = ()            # the configs as they are (a rehearsal cuts them)
+# the head's gradients (the FPN lateral's, held loosely in phase 14, is
+# left out); AutoAssign's centre prior belongs to the detector
+_TOWERS = ("bbox_head.cls_convs.3.conv.weight",
+           "bbox_head.reg_convs.3.conv.weight")
+_CONV_OUT = ("bbox_head.conv_cls.weight", "bbox_head.conv_reg.weight")
+HEAD_GRAD_PARAMS = {
+    "tood": ("bbox_head.tood_cls.weight", "bbox_head.tood_reg.weight",
+             "bbox_head.cls_prob_module.2.weight",
+             "bbox_head.reg_offset_module.2.weight",
+             "bbox_head.cls_decomp.reduction_conv.conv.weight",
+             "bbox_head.inter_convs.5.conv.weight"),
+    "fsaf": _TOWERS + _CONV_OUT,
+    "foveabox": _TOWERS + _CONV_OUT,
+    "autoassign": _TOWERS + _CONV_OUT + (
+        "bbox_head.conv_objectness.weight", "center_prior_mean",
+        "center_prior_sigma"),
+    "free_anchor": _TOWERS + _RETINA_OUT,
+    "sabl_retina": _TOWERS + ("bbox_head.retina_cls.weight",
+                              "bbox_head.retina_bbox_cls.weight",
+                              "bbox_head.retina_bbox_reg.weight")}
+SIDES_REL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+BOX_PROB_ATOL = 1e-3      # FreeAnchor's P(anchor in A+), card vs CPU
+NEG_W_ATOL = 1e-3         # AutoAssign's negative weights, card vs CPU
+BUCKET_TOL = dict(rtol=1e-5, atol=1e-4)   # SABL's bucket offsets
+
+
+def head_outputs(student, batch, device):
+    """The student's head outputs of the training batch (computed on the
+    card, once) moved to ``device``, and the batch's GT there."""
+    with torch.no_grad():
+        out = student(batch.images, batch.img_hw)
+    head = type(out.head)(*(tuple(t.to(device) for t in f)
+                            for f in out.head))
+    gt = (batch.gt_bboxes.to(device), batch.gt_labels.to(device),
+          batch.gt_valid.to(device))
+    return out, head, gt
+
+
+def check_sample_sides(card, gen):
+    """TOOD's per-corner sampling (``_sample_sides``) on the card against
+    the CPU at P3's shape (B=2, 100x168) with offsets 2e-3 at most from
+    the integers -2..2, as the init's normal(0.001) convs put them, so
+    that ``floor`` picks the neighbour: the values and the gradients of
+    the corner maps and of the offsets within SIDES_REL_TOL relative L2,
+    in f32 and f64, with the count of floors that differ."""
+    from dskd_tpu_torch.models.tood import _sample_sides
+
+    B, H, W = 2, 100, 168
+    corners = torch.randn(B, H, W, 4, generator=gen) * 20 + 80
+    off = (torch.randint(-2, 3, (B, H, W, 8), generator=gen).float()
+           + (torch.rand(B, H, W, 8, generator=gen) * 2 - 1) * 2e-3)
+    cot = torch.randn(B, H, W, 4, generator=gen)
+    for dtype in (torch.float32, torch.float64):
+        res = {}
+        for dev in (DEVICE, "cpu"):
+            # detach: .to() of a CPU tensor in its own dtype is the tensor
+            c = corners.to(dev, dtype).detach().requires_grad_()
+            o = off.to(dev, dtype).detach().requires_grad_()
+            v = _sample_sides(c, o)
+            (v * cot.to(dev, dtype)).sum().backward()
+            grid = torch.arange(H, dtype=dtype, device=dev)[:, None, None]
+            floors = torch.floor(grid + o.detach()[..., 0::2])
+            res[dev] = [t.cpu() for t in (v.detach(), c.grad, o.grad,
+                                          floors)]
+        rels = [rel_l2(g, w) for g, w in zip(res[DEVICE][:3],
+                                             res["cpu"][:3])]
+        n_floor = int((res[DEVICE][3] != res["cpu"][3]).sum())
+        print(f"tood _sample_sides, card vs CPU (B={B}, {H}x{W}, {dtype}, "
+              f"offsets within 2e-3 of -2..2): values / corner-map grad / "
+              f"offset grad relative L2 "
+              f"{' / '.join(f'{r:.3e}' for r in rels)} (tolerance "
+              f"{SIDES_REL_TOL[dtype]}); {n_floor} of "
+              f"{res['cpu'][3].numel()} row floors differ [{card}]")
+        if n_floor or not all(r <= SIDES_REL_TOL[dtype] for r in rels):
+            raise AssertionError(f"tood: _sample_sides differs card vs CPU "
+                                 f"in {dtype}: {rels}, {n_floor} floors")
+
+
+def check_tood(fam, cfg, card, student, batch):
+    """TOOD's task-aligned positives and labels on the training batch,
+    from the card's head outputs, card against CPU: a candidate that only
+    one device takes must stand within twice the devices' largest
+    alignment difference of its GT's k-th value (or of the 1e-12 floor),
+    and a positive that moves to another GT must have its two best IoUs
+    that close; then check_sample_sides."""
+    from dskd_tpu_torch.models import tood as T
+    from dskd_tpu_torch.models.gfl_head import cat_levels
+
+    C = cfg.model.num_classes
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        _, h, gt = head_outputs(student, batch, dev)
+        points = T.tood_points([c.shape[1:3] for c in h.cls_scores], dev)[0]
+        args = (cat_levels(h.cls_scores, C), cat_levels(h.bbox_preds, 4),
+                points, *gt, C)
+        cand = T.tal_candidates(*args)
+        r = T.task_aligned_assign(*args)
+        res[dev] = [t.cpu() for t in (*cand, r.pos, r.labels,
+                                      r.assigned_gt)]
+    ious, align, kth, is_pos, pos, labels, a = res[DEVICE]
+    c_ious, c_align, c_kth, c_is_pos, c_pos, c_labels, c_a = res["cpu"]
+    valid = batch.gt_valid.cpu()[:, None].expand_as(align)
+    gap = float((align - c_align)[valid].abs().max())
+    iou_gap = float((ious - c_ious)[valid].abs().max())
+    one_side = is_pos != c_is_pos
+    near = (c_align - c_kth.clamp(min=1e-12)).abs() <= 2 * gap
+    best2 = torch.where(c_is_pos, c_ious, torch.full_like(c_ious, -1.0)) \
+        .topk(2, dim=2).values
+    tie = (best2[..., 0] - best2[..., 1]).abs() <= 2 * iou_gap
+    moved = (pos != c_pos) | (labels != c_labels) | (c_pos & (a != c_a))
+    bad = int((one_side & ~near).sum()) + int(
+        (moved & ~(one_side.any(2) | tie)).sum())
+    print(f"tood task-aligned assignment, card vs CPU on the training batch "
+          f"(B={batch.images.shape[0]}, {tuple(batch.images.shape[1:3])}, "
+          f"{pos.shape[1]} points, GT padded to {batch.gt_valid.shape[1]} "
+          f"of which {batch.gt_valid.sum(1).tolist()} valid): positives per "
+          f"image card {pos.sum(1).tolist()} CPU {c_pos.sum(1).tolist()}, "
+          f"candidates per GT above 13: {int((c_is_pos.sum(1) > 13).sum())}"
+          f"; {int(one_side.sum())} candidates taken by one device only "
+          f"and {int(moved.sum())} points moved, {bad} of them standing "
+          f"apart (> 2 x {gap:.3e} alignment, {iou_gap:.3e} IoU) [{card}]")
+    if bad or not bool(c_pos.any(1).all()):
+        raise AssertionError("tood: the card's task-aligned assignment "
+                             "differs from the CPU's (or has no positive)")
+    check_sample_sides(card, torch.Generator().manual_seed(17))
+
+
+def check_free_anchor(fam, cfg, card, student, batch):
+    """FreeAnchor's 50-anchor bags of the training batch's GT and its
+    P(anchor in A+) from the card's deltas, card against CPU: a bag that
+    differs must have its 50th and 51st IoU within twice the devices'
+    largest IoU difference; P(anchor in A+) within BOX_PROB_ATOL."""
+    from dskd_tpu_torch.models import free_anchor as FA
+    from dskd_tpu_torch.models.gfl_head import cat_levels
+    from dskd_tpu_torch.models.retinanet import retina_anchors
+
+    C, K = cfg.model.num_classes, FA.PRE_ANCHOR_TOPK
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        _, h, gt = head_outputs(student, batch, dev)
+        anchors = retina_anchors([c.shape[1:3] for c in h.cls_scores], dev)
+        with torch.no_grad():
+            q = FA.bag_quality(anchors, gt[0], gt[2])
+            vals, idx = torch.sort(q, dim=2, descending=True, stable=True)
+            prob = FA.positive_probs(anchors, cat_levels(h.bbox_preds, 4),
+                                     *gt, C)
+        res[dev] = [t.cpu() for t in (q, vals[..., :K + 1],
+                                      idx[..., :K].sort(2)[0], prob)]
+    (q, _, bags, prob), (c_q, c_vals, c_bags, c_prob) = (res[DEVICE],
+                                                         res["cpu"])
+    gv = batch.gt_valid.cpu()
+    gap = float((q - c_q)[gv].abs().max())
+    differ = (bags != c_bags).any(2) & gv
+    near = (c_vals[..., K - 1] - c_vals[..., K]).abs() <= 2 * gap
+    bad = int((differ & ~near).sum())
+    ties = int((c_vals[..., K - 1] == c_vals[..., K])[gv].sum())
+    err = float((prob - c_prob).abs().max())
+    print(f"free_anchor bags, card vs CPU on the training batch (B="
+          f"{batch.images.shape[0]}, {q.shape[2]} anchors, GT padded to "
+          f"{q.shape[1]} of which {gv.sum(1).tolist()} valid): "
+          f"{int(differ.sum())} of {int(gv.sum())} bags differ, {bad} "
+          f"standing apart (50th vs 51st IoU > 2 x {gap:.3e}); bags whose "
+          f"50th IoU ties the 51st on the CPU: {ties}; "
+          f"P(anchor in A+) max abs err {err:.3e} (tolerance "
+          f"{BOX_PROB_ATOL}), {int((c_prob > 0).sum())} of "
+          f"{c_prob.numel()} entries above 0 [{card}]")
+    if bad or not err <= BOX_PROB_ATOL:
+        raise AssertionError("free_anchor: the card's bags or P(anchor in "
+                             "A+) differ from the CPU's")
+
+
+def check_sabl(fam, cfg, card, student, batch):
+    """SABL's approx-max-IoU assignment of the training batch, card
+    against CPU exactly, and its bucket targets: the positives' offsets
+    within BUCKET_TOL; a positive whose bucket labels or weights differ
+    must have a side whose two nearest buckets, or a bucket's distance
+    and 1, stand within twice the devices' largest offset difference."""
+    from dskd_tpu_torch.models import sabl_retina as S
+
+    C = cfg.model.num_classes
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        _, h, gt = head_outputs(student, batch, dev)
+        squares, approxs = S.sabl_anchors(
+            [c.shape[1:3] for c in h.cls_scores], dev)
+        with torch.no_grad():
+            a, pos, labels, buckets = S.sabl_targets(squares, approxs, *gt,
+                                                     C)
+        res[dev] = [t.cpu() for t in (a, labels, *buckets)]
+    (a, labels, offs, ow, blab, bw), (c_a, c_labels, c_offs, c_ow, c_blab,
+                                      c_bw) = res[DEVICE], res["cpu"]
+    exact = torch.equal(a, c_a) and torch.equal(labels, c_labels)
+    pos = c_a >= 0
+    gap = float((offs - c_offs)[pos].abs().max())
+    d = c_offs.abs().reshape(*c_offs.shape[:2], 4, S.SIDE)
+    two = d.sort(-1)[0][..., :2]
+    near = (((two[..., 1] - two[..., 0]) <= 2 * gap).any(-1)
+            | ((d - 1).abs() <= 2 * gap).flatten(2).any(-1))
+    differ = ((blab != c_blab) | (ow != c_ow) | (bw != c_bw)).any(-1) & pos
+    bad = int((differ & ~near).sum())
+    ok = torch.allclose(offs[pos], c_offs[pos], **BUCKET_TOL)
+    print(f"sabl approx-max-IoU assignment, card vs CPU on the training "
+          f"batch (B={batch.images.shape[0]}, {a.shape[1]} positions x 9 "
+          f"approxes, GT padded to {batch.gt_valid.shape[1]}): positives "
+          f"per image {pos.sum(1).tolist()}, ignored "
+          f"{(c_a == -2).sum(1).tolist()}; equal {exact}; bucket offsets of "
+          f"the positives max abs err {gap:.3e} (tolerance {BUCKET_TOL}), "
+          f"{int(differ.sum())} positives with another bucket label or "
+          f"weight, {bad} standing apart [{card}]")
+    if not exact or bad or not ok or not bool(pos.any(1).all()):
+        raise AssertionError("sabl: the card's assignment or bucket targets "
+                             "differ from the CPU's (or have no positive)")
+
+
+def check_fsaf(fam, cfg, card, student, batch):
+    """FSAF's online feature selection of the training batch from the
+    card's head outputs, card against CPU: the GTs with a level equal, and
+    a GT whose level differs must have its two least candidate losses
+    within twice the devices' largest candidate-loss difference."""
+    from dskd_tpu_torch.models import fsaf as FS
+
+    lcfg = FS.FSAFLossConfig(num_classes=cfg.model.num_classes)
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        _, h, gt = head_outputs(student, batch, dev)
+        cand, sel, has, _ = FS.fsaf_select_levels(h, *gt, lcfg)
+        res[dev] = [t.cpu() for t in (cand, sel, has)]
+    (cand, sel, has), (c_cand, c_sel, c_has) = res[DEVICE], res["cpu"]
+    fin = torch.isfinite(c_cand)
+    same_fin = torch.equal(torch.isfinite(cand), fin)
+    gap = float((cand - c_cand)[fin].abs().max())
+    two = c_cand.sort(0)[0][:2]
+    near = (two[1] - two[0]).abs() <= 2 * gap
+    differ = (sel != c_sel) & c_has
+    bad = int((differ & ~near).sum())
+    per_level = [int(((c_sel == lvl) & c_has).sum())
+                 for lvl in range(c_cand.shape[0])]
+    print(f"fsaf level selection, card vs CPU on the training batch (B="
+          f"{batch.images.shape[0]}, GT padded to {c_has.shape[1]}): GTs "
+          f"with a level {c_has.sum(1).tolist()}, per level P3-P7 "
+          f"{per_level}; levels without an effective cell equal "
+          f"{same_fin and torch.equal(has, c_has)}; {int(differ.sum())} GTs "
+          f"on another level, {bad} standing apart (> 2 x {gap:.3e}) "
+          f"[{card}]")
+    if not same_fin or not torch.equal(has, c_has) or bad:
+        raise AssertionError("fsaf: the card's level selection differs "
+                             "from the CPU's")
+
+
+def check_foveabox(fam, cfg, card, student, batch):
+    """FoveaBox's labels and positives per level of the training batch
+    (geometry alone), card against CPU exactly; the positives' log
+    targets within HEAD_TOL."""
+    from dskd_tpu_torch.models import foveabox as FV
+    from dskd_tpu_torch.models.gfl_head import level_sizes
+
+    C = cfg.model.num_classes
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        _, h, gt = head_outputs(student, batch, dev)
+        res[dev] = [t.cpu() for t in FV.fovea_targets(h, *gt, C)]
+        sizes = level_sizes(h.cls_scores, C)
+    (labels, t, pos), (c_labels, c_t, c_pos) = res[DEVICE], res["cpu"]
+    exact = torch.equal(labels, c_labels) and torch.equal(pos, c_pos)
+    per_level = [int(p.sum()) for p in c_pos.split(sizes, 1)]
+    err = float((t - c_t)[c_pos].abs().max())
+    print(f"foveabox targets, card vs CPU on the training batch (B="
+          f"{batch.images.shape[0]}, GT padded to {batch.gt_valid.shape[1]}"
+          f"): positives per level P3-P7 {per_level}; labels and positives "
+          f"equal {exact}; log targets max abs err {err:.3e} [{card}]")
+    if not exact or not bool(c_pos.any(1).all()):
+        raise AssertionError("foveabox: the card's targets differ from the "
+                             "CPU's (or an image has no positive)")
+    torch.testing.assert_close(t[c_pos], c_t[c_pos], **HEAD_TOL)
+
+
+def check_autoassign(fam, cfg, card, student, batch):
+    """AutoAssign's negative weights of the training batch from the card's
+    head outputs, card against CPU within NEG_W_ATOL (the inside masks
+    exactly), and the loss's gradients of the centre prior's mean and
+    sigma within GRAD_REL_TOL relative L2."""
+    from dskd_tpu_torch.core.boxes import bbox_overlaps, distance2bbox
+    from dskd_tpu_torch.models import autoassign as AA
+    from dskd_tpu_torch.models.gfl_head import cat_levels
+
+    C = cfg.model.num_classes
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        out, h, gt = head_outputs(student, batch, dev)
+        points, _ = AA.autoassign_points([c.shape[1:3] for c in
+                                          h.cls_scores], dev)
+        with torch.no_grad():
+            boxes = distance2bbox(points[None], cat_levels(h.bbox_preds, 4))
+            inside = AA.inside_gt(points, gt[0], gt[2])
+            ious = bbox_overlaps(boxes, gt[0])
+            ious = torch.where(gt[2][:, None], ious, torch.zeros_like(ious))
+            w_neg = AA.negative_weights(ious, inside, gt[1].long().clamp(
+                0, C - 1), C)
+        mean, sigma = (p.detach().to(dev).requires_grad_()
+                       for p in (out.prior_mean, out.prior_sigma))
+        losses = AA.autoassign_loss(h, mean, sigma, *gt,
+                                    AA.AutoAssignLossConfig(num_classes=C))
+        sum(losses.values()).backward()
+        res[dev] = [t.cpu() for t in (inside, w_neg, mean.grad, sigma.grad)]
+    (inside, w_neg, gm, gs), (c_inside, c_w, c_gm, c_gs) = (res[DEVICE],
+                                                            res["cpu"])
+    err = float((w_neg - c_w).abs().max())
+    n_moved = int(((w_neg - c_w).abs() > 1e-6).sum())
+    rels = [rel_l2(gm, c_gm), rel_l2(gs, c_gs)]
+    print(f"autoassign negative weights, card vs CPU on the training batch "
+          f"(B={batch.images.shape[0]}, {c_w.shape[1]} points x "
+          f"{c_w.shape[2]} classes, GT padded to {c_inside.shape[2]}): "
+          f"inside masks equal {torch.equal(inside, c_inside)}, "
+          f"{int((c_w < 1).sum())} weights below 1, max abs err {err:.3e} "
+          f"(tolerance {NEG_W_ATOL}), {n_moved} moved by > 1e-6; centre "
+          f"prior mean / sigma gradient relative L2 {rels[0]:.3e} / "
+          f"{rels[1]:.3e} (tolerance {GRAD_REL_TOL}) "
+          f"[{card}]")
+    if (not torch.equal(inside, c_inside) or not err <= NEG_W_ATOL
+            or not all(r <= GRAD_REL_TOL for r in rels)
+            or not bool((c_w < 1).any())):
+        raise AssertionError("autoassign: the card's negative weights or "
+                             "centre prior gradients differ from the CPU's")
+
+
+HEAD_CHECKS = {"tood": check_tood, "free_anchor": check_free_anchor,
+               "sabl_retina": check_sabl, "fsaf": check_fsaf,
+               "foveabox": check_foveabox, "autoassign": check_autoassign}
+
+
+def check_head_family(fam, cfg, card, student, teacher, batch):
+    """Phase 17's family check (HEAD_CHECKS): the family's own assignment
+    or targets card against CPU, counting what moved."""
+    HEAD_CHECKS[fam["key"]](fam, cfg, card, student, batch)
+
+
+for _key, _desc in (
+        ("tood", "FPN-256 P3-P7, 6 inter convs, two task decompositions, "
+                 "per-corner offset sampling"),
+        ("fsaf", "FPN-256 P3-P7, 4-conv towers, anchor-free distances"),
+        ("foveabox", "FPN-256 P3-P7, 4-conv GN towers, log distances"),
+        ("autoassign", "FPN-256 P3-P7, 4-conv GN towers, objectness, "
+                       "learnable centre prior"),
+        ("free_anchor", "RetinaNet head, 9 anchors per position, bag "
+                        "losses"),
+        ("sabl_retina", "FPN-256 P3-P7, 4-conv towers, 4 x 7 bucket logits "
+                        "and offsets")):
+    FAMILIES[_key] = dict(
+        FAMILIES["atss"], tag=_key, key=_key,
+        grad_params=HEAD_GRAD_PARAMS[_key],
+        describe=(lambda m, d=_desc: f"ResNet-{m.depth}, {d}"),
+        thread_spread_params=(), train_checks=check_head_family)
+
+
+def check_head_families(card):
+    """Phase 17: TOOD, FSAF, FoveaBox, AutoAssign, FreeAnchor and
+    SABL-RetinaNet through check_family at their configs' 800x1344 canvas
+    and full width and depth, f32, seeded weights, B=2 with GT padded to
+    the config's max_gt, with check_head_family as their own checks.
+    Every port kernel's count stays 0 over the phase."""
+    from dskd_tpu_torch.utils.config import apply_overrides, load_config
+
+    with summed_counts() as total:
+        for key, config in HEAD_CONFIGS.items():
+            t0 = time.perf_counter()
+            cfg = apply_overrides(load_config(config), list(HEAD_SETS))
+            check_family(card, cfg.model.arch, config, HEAD_SETS, n_train=2,
+                         hw=tuple(cfg.data.bucket), incremental=False,
+                         family=key)
+            print(f"{key}: {time.perf_counter() - t0:.1f} s of phase 17")
+    print(f"phase 17: port kernel launches over the phase {total}")
+    if any(total.values()):
+        raise AssertionError(f"phase 17 launched port kernels: {total}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; "
@@ -4467,7 +4886,7 @@ def main() -> int:
 
 
 def check_phases(card, kind, t_start, ab) -> int:
-    """Phases 1-16 after the build, then the kernel report and the result
+    """Phases 1-17 after the build, then the kernel report and the result
     line; ``ab`` the forgetting A/B's children (start_ab_seeds)."""
     from dskd_tpu_torch.apis.inference import prepare_batch
 
@@ -4577,6 +4996,9 @@ def check_phases(card, kind, t_start, ab) -> int:
         t0 = time.perf_counter()
         check_dcn_families(card)
         print(f"dcn: phase 16 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        check_head_families(card)
+        print(f"heads: phase 17 took {time.perf_counter() - t0:.1f} s")
 
     bwd_key = f"gather_weighted_bwd f32 Q={Q_TRAIN} 640x480"
     gw_key = f"gather_weighted f32 Q={Q_ENC}"

@@ -244,10 +244,11 @@ def retina_detection_loss(out: RetinaHeadOutputs, anchors, gt_bboxes,
 def retina_get_bboxes(out: RetinaHeadOutputs, anchors, img_hw,
                       scale_factor=None, score_thr: float = 0.05,
                       nms_iou: float = 0.5, nms_pre: int = 1000,
-                      max_per_img: int = 100, rescale: bool = False
-                      ) -> Detections:
+                      max_per_img: int = 100, rescale: bool = False,
+                      delta_stds=(1.0, 1.0, 1.0, 1.0)) -> Detections:
     """Fixed-size detections per image (``keep_qid`` each survivor's
-    anchor)."""
+    anchor); the deltas decode at ``delta_stds`` (FreeAnchor's coder
+    takes (0.1, 0.1, 0.2, 0.2))."""
     C = out.cls_scores[0].shape[-1] // NUM_ANCHORS
     probs = torch.sigmoid(cat_levels(out.cls_scores, C))
     top = filter_scores_and_topk_mlvl(probs, score_thr, nms_pre,
@@ -255,7 +256,7 @@ def retina_get_bboxes(out: RetinaHeadOutputs, anchors, img_hw,
     idx = top.keep_idxs.long()
     deltas = torch.gather(cat_levels(out.bbox_preds, 4), 1,
                           idx[..., None].expand(-1, -1, 4))
-    boxes = delta2bbox(anchors[idx], deltas)
+    boxes = delta2bbox(anchors[idx], deltas, stds=delta_stds)
     return nms_detections(boxes, top, img_hw, scale_factor, rescale,
                           nms_iou, max_per_img)
 

@@ -54,6 +54,12 @@ _LAZY = {
     "retinanet_ghm": "dskd_tpu_torch.models.retinanet",
     "retinanet_fpg": "dskd_tpu_torch.models.retinanet",
     "retinanet_nasfpn": "dskd_tpu_torch.models.retinanet",
+    "tood": "dskd_tpu_torch.models.tood",
+    "fsaf": "dskd_tpu_torch.models.fsaf",
+    "foveabox": "dskd_tpu_torch.models.foveabox",
+    "autoassign": "dskd_tpu_torch.models.autoassign",
+    "free_anchor": "dskd_tpu_torch.models.free_anchor",
+    "sabl_retina": "dskd_tpu_torch.models.sabl_retina",
 }
 
 

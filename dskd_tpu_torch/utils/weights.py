@@ -4,8 +4,10 @@ dskd_tpu/utils/torch_weights.py ``convert_mmdet_gfl_ddetr``,
 ``convert_mmdet_retinanet`` and ``convert_mmdet_gfl``, and
 ``deformable_detr_state_dict_from_jax``, ``atss_state_dict_from_jax``,
 ``fcos_state_dict_from_jax``, ``paa_state_dict_from_jax``,
-``vfnet_state_dict_from_jax`` and ``reppoints_state_dict_from_jax`` under
-mmdet's names).
+``vfnet_state_dict_from_jax``, ``reppoints_state_dict_from_jax``,
+``fsaf_state_dict_from_jax``, ``foveabox_state_dict_from_jax``,
+``sabl_state_dict_from_jax``, ``autoassign_state_dict_from_jax`` and
+``tood_state_dict_from_jax`` under mmdet's names).
 
 The port names its parameters after the mmdet checkpoint keys that those
 converters read, so ``state_dict_from_jax`` (the flagship),
@@ -594,3 +596,79 @@ def paa_state_dict_from_jax(variables: Dict[str, Any]
     CPU tensors for the port's ``models.paa.PAA`` (JAX's head names
     ``paa_cls``, ``paa_reg``, ``paa_iou``; mmdet's elsewhere)."""
     return _dense(variables, ("paa_cls", "paa_reg", "paa_iou"), gn=True)
+
+
+def fsaf_state_dict_from_jax(variables: Dict[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/fsaf.FSAF`` variables -> CPU tensors for the port's
+    ``models.fsaf.FSAF`` (mmdet's ``fsaf_head.py`` names: towers with
+    biases and no norm, ``conv_cls``, ``conv_reg``)."""
+    return _dense(variables, ("conv_cls", "conv_reg"), gn=False)
+
+
+def foveabox_state_dict_from_jax(variables: Dict[str, Any]
+                                 ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/foveabox.FoveaBox`` variables -> CPU tensors for
+    the port's ``models.foveabox.FoveaBox`` (mmdet's ``fovea_head.py``
+    names: GroupNorm towers, ``conv_cls``, ``conv_reg``)."""
+    return _dense(variables, ("conv_cls", "conv_reg"), gn=True)
+
+
+def sabl_state_dict_from_jax(variables: Dict[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/sabl_retina.SABLRetinaNet`` variables -> CPU
+    tensors for the port's ``models.sabl_retina.SABLRetinaNet`` (mmdet's
+    ``sabl_retina_head.py`` names: ``retina_cls``, ``retina_bbox_cls``,
+    ``retina_bbox_reg``)."""
+    return _dense(variables, ("retina_cls", "retina_bbox_cls",
+                              "retina_bbox_reg"), gn=False)
+
+
+def autoassign_state_dict_from_jax(variables: Dict[str, Any]
+                                   ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/autoassign.AutoAssign`` variables -> CPU tensors
+    for the port's ``models.autoassign.AutoAssign``: the FCOS-style head
+    (``conv_cls``, ``conv_reg``, ``conv_objectness``, ``scales``) and the
+    detector's own ``center_prior_mean`` and ``center_prior_sigma``."""
+    out = _dense(variables, ("conv_cls", "conv_reg", "conv_objectness"),
+                 gn=True)
+    w = _Writer()
+    for name in ("center_prior_mean", "center_prior_sigma"):
+        w.put(name, variables["params"][name])
+    return {**out, **w.out}
+
+
+_TOOD_SEQ = {"la_conv1": "layer_attention.0", "la_conv2": "layer_attention.2",
+             "cls_prob_conv1": "cls_prob_module.0",
+             "cls_prob_conv2": "cls_prob_module.2",
+             "reg_offset_conv1": "reg_offset_module.0",
+             "reg_offset_conv2": "reg_offset_module.2"}
+
+
+def tood_state_dict_from_jax(variables: Dict[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/tood.TOOD`` variables -> CPU tensors for the port's
+    ``models.tood.TOOD`` (mmdet's ``tood_head.py`` names: ``inter_conv{i}``
+    / ``inter_gn{i}`` -> ``inter_convs.i.conv`` / ``.gn``, each
+    TaskDecomposition's ``la_conv{1,2}`` -> ``layer_attention.{0,2}`` and
+    ``reduction`` / ``reduction_gn`` -> ``reduction_conv.conv`` / ``.gn``,
+    ``cls_prob_conv{1,2}`` and ``reg_offset_conv{1,2}`` -> the two convs of
+    ``cls_prob_module`` and ``reg_offset_module``)."""
+    def extra(w, name, p):
+        m = re.fullmatch(r"inter_(conv|gn)(\d+)", name)
+        if m:
+            dst = f"bbox_head.inter_convs.{m[2]}.{m[1]}"
+            (w.conv if m[1] == "conv" else w.norm)(dst, p)
+        elif name in ("cls_decomp", "reg_decomp"):
+            dst = f"bbox_head.{name}"
+            for k in ("la_conv1", "la_conv2"):
+                w.conv(f"{dst}.{_TOOD_SEQ[k]}", p[k])
+            w.conv(f"{dst}.reduction_conv.conv", p["reduction"])
+            w.norm(f"{dst}.reduction_conv.gn", p["reduction_gn"])
+        elif name in _TOOD_SEQ:
+            w.conv(f"bbox_head.{_TOOD_SEQ[name]}", p)
+        else:
+            return False
+        return True
+
+    return _dense(variables, ("tood_cls", "tood_reg"), gn=True, extra=extra)

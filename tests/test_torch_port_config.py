@@ -100,3 +100,33 @@ def test_load_config_resolves_the_config_module(tmp_path):
     cfg = port_config.load_config(str(path))
     assert isinstance(cfg, port_config.ExperimentConfig)
     assert cfg.model.depth == 18 and cfg.train.base_lr == 1e-3
+
+
+@pytest.mark.parametrize("name,arch", [
+    ("tood_r50_1x", "tood"), ("fsaf_r50_1x", "fsaf"),
+    ("foveabox_r50_1x", "foveabox"), ("autoassign_r50_1x", "autoassign"),
+    ("retinanet_free_anchor_r50_1x", "free_anchor"),
+    ("sabl_retinanet_r50_1x", "sabl_retina")])
+def test_head_family_configs_build(name, arch):
+    """TOOD's, FSAF's, FoveaBox's, AutoAssign's, FreeAnchor's and SABL's
+    configs load unedited through the port and build through
+    ``init_detector`` at full width and depth, on the CPU with seeded
+    weights and on the meta device, where a forward at the config's
+    800x1344 canvas gives P3-P7 of 100x168 down to 7x11."""
+    import torch
+    from dskd_tpu_torch import registry
+    from dskd_tpu_torch.apis.inference import init_detector
+
+    cfg = port_config.load_config(os.path.join(ROOT, "configs",
+                                               f"{name}.py"))
+    assert cfg.model.arch == arch and arch in registry.archs()
+    assert cfg.model.depth == 50 and tuple(cfg.data.bucket) == (800, 1344)
+    model, _ = init_detector(cfg, device="cpu", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    assert 30e6 < n_params < 45e6, n_params
+    meta, _ = init_detector(cfg, device="meta", seed=0)
+    with torch.no_grad():
+        out = meta(torch.empty(1, 800, 1344, 3, device="meta"),
+                   torch.empty(1, 2, dtype=torch.int32, device="meta"))
+    assert [tuple(c.shape[1:3]) for c in out.head.cls_scores] == [
+        (100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]

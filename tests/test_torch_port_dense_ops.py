@@ -256,6 +256,7 @@ def test_unported_options_raise_with_their_names():
         # NAS-FCOS (ported) on a backbone that is not
         with pytest.raises(NotImplementedError, match=repr(spec)):
             FCOS("cpu", depth=18, backbone=spec, nas_fpn=True)
-    for arch in ("tood", "sabl_retina", "fsaf", "foveabox"):
+    # one-stage archs the JAX package registers and the port does not yet
+    for arch in ("ssd", "yolov3", "centernet", "yolox"):
         with pytest.raises(ValueError, match=repr(arch)):
             registry.get_family(arch)

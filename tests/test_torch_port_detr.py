@@ -465,13 +465,15 @@ def test_inference_detector_refuses_another_family():
 # --- the registry ------------------------------------------------------------
 
 def test_registry_lists_the_ported_archs():
-    assert registry.archs() == ("atss", "deformable_detr",
-                                "deformable_detr_il", "detr", "fcos", "gfl",
+    assert registry.archs() == ("atss", "autoassign", "deformable_detr",
+                                "deformable_detr_il", "detr", "fcos",
+                                "foveabox", "free_anchor", "fsaf", "gfl",
                                 "gfl_deformable_detr", "lad", "ld",
                                 "nasfcos", "paa", "pisa_retinanet",
                                 "reppoints", "retinanet", "retinanet_fpg",
                                 "retinanet_ghm", "retinanet_nasfpn",
-                                "vfnet", "yolof", "yoloy")
+                                "sabl_retina", "tood", "vfnet", "yolof",
+                                "yoloy")
     for arch in registry.archs():
         spec = registry.get_family(arch)
         for key in ("build", "init_weights", "from_jax", "eval_step"):
@@ -480,7 +482,9 @@ def test_registry_lists_the_ported_archs():
     for arch in ("deformable_detr", "detr", "yolof", "yoloy", "atss",
                  "fcos", "gfl", "retinanet", "ld", "paa", "lad",
                  "pisa_retinanet", "retinanet_ghm", "retinanet_fpg",
-                 "retinanet_nasfpn", "nasfcos", "vfnet", "reppoints"):
+                 "retinanet_nasfpn", "nasfcos", "vfnet", "reppoints",
+                 "tood", "fsaf", "foveabox", "autoassign", "free_anchor",
+                 "sabl_retina"):
         assert registry.get_family(arch)["losses"] is not None
     for arch in ("yolox", "no_such_arch"):
         with pytest.raises(ValueError, match=repr(arch)):

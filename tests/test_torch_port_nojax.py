@@ -19,7 +19,9 @@ loaded. A second fresh interpreter loads the three
 of each, and the ``train_increment`` and ``test`` CLIs on the two-stage
 config. Further interpreters step the dense families, LD with its
 ResNet-101 teacher and NAS-FPN from their configs, and the DCN families
-(ATSS-DyHead, NAS-FCOS, VFNet, RepPoints) with both CLIs on VFNet. An import hook refuses
+(ATSS-DyHead, NAS-FCOS, VFNet, RepPoints) with both CLIs on VFNet, and the
+dense heads TOOD, FSAF, FoveaBox, AutoAssign, FreeAnchor and SABL-RetinaNet
+from their configs. An import hook refuses
 ``jax``, ``jaxlib``, ``flax`` and ``dskd_tpu`` throughout."""
 import json
 import os
@@ -454,6 +456,57 @@ print(json.dumps({
                                             "dskd_tpu"))}))
 """
 
+_HEADS_SCRIPT = _REFUSE + r"""
+import importlib
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from dskd_tpu_torch import registry
+from dskd_tpu_torch.data.batch import Batch
+from dskd_tpu_torch.eval.evaluator import make_eval_step
+from dskd_tpu_torch.train.family import make_family_train_step
+from dskd_tpu_torch.train.optim import make_optimizer
+from dskd_tpu_torch.train.schedule import step_lr_schedule
+from dskd_tpu_torch.train.state import TrainState
+from dskd_tpu_torch.utils.config import load_config
+
+for name in ("core.coders", "models.tood", "models.fsaf", "models.foveabox",
+             "models.autoassign", "models.free_anchor", "models.sabl_retina",
+             "utils.weights"):
+    importlib.import_module("dskd_tpu_torch." + name)
+rng = np.random.RandomState(0)
+images = torch.from_numpy(rng.randn(2, 64, 64, 3).astype(np.float32))
+img_hw = torch.tensor([[64, 64], [48, 60]], dtype=torch.int32)
+gt = torch.tensor([[[4., 6., 40., 50.], [30., 10., 60., 30.]],
+                   [[2., 2., 20., 30.], [0., 0., 0., 0.]]])
+batch = Batch(images, img_hw, gt, torch.tensor([[1, 3], [2, 0]]),
+              torch.tensor([[True, True], [True, False]]))
+report = {}
+for config in ("tood_r50_1x", "fsaf_r50_1x", "foveabox_r50_1x",
+               "autoassign_r50_1x", "retinanet_free_anchor_r50_1x",
+               "sabl_retinanet_r50_1x"):
+    cfg = load_config(f"configs/{config}.py")
+    cfg.model = dataclasses.replace(cfg.model, num_classes=5, depth=18)
+    spec = registry.get_family(cfg.model.arch)
+    model = spec["build"](cfg.model, "cpu")
+    spec["init_weights"](model, 0)
+    state = TrainState.create(model, make_optimizer(
+        model, step_lr_schedule(1e-4)), seed=0)
+    step = make_family_train_step(cfg.model.arch, model, cfg, num_prev=0,
+                                  has_teacher=False)
+    state, losses = step(state, batch)
+    det = make_eval_step(model.eval(), cfg.model.reg_max, 0.0, 20,
+                         cfg.model.arch)(images, img_hw, torch.ones(2, 4))
+    report[config] = [cfg.model.arch, sorted(losses),
+                      all(bool(torch.isfinite(v)) for v in losses.values()),
+                      list(det.bboxes.shape)]
+print(json.dumps({
+    "heads": report,
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                            "dskd_tpu"))}))
+"""
+
 
 def _run(script, tmp_path):
     """Runs ``script`` in a fresh interpreter from the repo's root and
@@ -556,3 +609,25 @@ def test_dcn_families_import_no_jax(tmp_path):
             "reppoints", 0, ["loss", "loss_cls", "loss_pts_init",
                              "loss_pts_refine"], True, [2, 20, 4]],
         "cli": [["task_1_epoch_1", "task_2_epoch_1"], True]}
+
+
+def test_head_families_import_no_jax(tmp_path):
+    """A sixth interpreter: TOOD, FSAF, FoveaBox, AutoAssign, FreeAnchor and
+    SABL-RetinaNet from their configs at R18 on 64x64, a step and an eval
+    step each."""
+    report = _run(_HEADS_SCRIPT, tmp_path)
+    assert report["loaded"] == []
+    two = ["loss", "loss_bbox", "loss_cls"]
+    assert report["heads"] == {
+        "tood_r50_1x": ["tood", two, True, [2, 20, 4]],
+        "fsaf_r50_1x": ["fsaf", two, True, [2, 20, 4]],
+        "foveabox_r50_1x": ["foveabox", two, True, [2, 20, 4]],
+        "autoassign_r50_1x": ["autoassign", ["loss", "loss_center",
+                                             "loss_neg", "loss_pos"], True,
+                              [2, 20, 4]],
+        "retinanet_free_anchor_r50_1x": [
+            "free_anchor", ["loss", "negative_bag_loss",
+                            "positive_bag_loss"], True, [2, 20, 4]],
+        "sabl_retinanet_r50_1x": [
+            "sabl_retina", ["loss", "loss_bbox_cls", "loss_bbox_reg",
+                            "loss_cls"], True, [2, 20, 4]]}

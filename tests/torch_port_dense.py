@@ -354,10 +354,12 @@ def check_get_bboxes(arch, nms_pre, seed=3):
     return got
 
 
-def check_init_weights(arch, head_convs, prior_conv, prior_bias):
+def check_init_weights(arch, head_convs, prior_conv, prior_bias,
+                       other_biases=None):
     """init_weights at JAX's scales: normal(0.01) head convs, xavier FPN,
-    lecun backbone, the class prior bias, identity norms, unit scales; a
-    seed gives the same weights."""
+    lecun backbone, the class prior bias, the family's ``other_biases``
+    ({bias key: value}), identity norms, unit scales, every other bias 0;
+    a seed gives the same weights."""
     from dskd_tpu_torch.utils.config import ModelConfig
 
     spec = registry.get_family(arch)
@@ -377,7 +379,12 @@ def check_init_weights(arch, head_convs, prior_conv, prior_bias):
     assert abs(float(stem.std()) * 147 ** 0.5 - 1) < 0.1
     np.testing.assert_allclose(sd[prior_conv + ".bias"].numpy(), prior_bias,
                                rtol=1e-6)
+    other_biases = other_biases or {}
+    for k, v in other_biases.items():
+        np.testing.assert_allclose(sd[k].numpy(), v, rtol=1e-6, err_msg=k)
     for k, t in sd.items():
+        if k in other_biases:
+            continue
         if k.endswith(".gn.weight") or k.endswith(".scale"):
             assert torch.equal(t, torch.ones_like(t)), k
         if k.endswith(".gn.bias") or (k.endswith(".bias") and k.startswith(

@@ -1,5 +1,7 @@
-"""Shared fixtures of the CPU tests of LD, PAA, LAD and the RetinaNet
-variants (PISA, GHM, FPG, NAS-FPN) on the port against dskd_tpu.models.
+"""Shared fixtures of the CPU tests of LD, PAA, LAD, the RetinaNet
+variants (PISA, GHM, FPG, NAS-FPN) and the dense heads TOOD, FSAF,
+FoveaBox, AutoAssign, FreeAnchor and SABL (``HEAD_FAMILIES``) on the port
+against dskd_tpu.models.
 
 The tiny configuration is tests/torch_port_dense.py's: ResNet-18, the
 full 256-wide necks and 4-conv towers, 10 classes, B=2 on 72x88 (one image
@@ -11,6 +13,7 @@ included), carried to the port by the registry's ``from_jax``.
 """
 import contextlib
 import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -41,10 +44,30 @@ def batch_arrays(arch, seed=0):
     return images, IMG_HW_64, gt, labels, valid
 
 
+# arch -> (module name in both packages, JAX module class, port head
+# outputs class); FreeAnchor is JAX's RetinaNet
+HEAD_FAMILIES = {
+    "tood": ("tood", "TOOD", "TOODHeadOutputs"),
+    "fsaf": ("fsaf", "FSAF", "FSAFHeadOutputs"),
+    "foveabox": ("foveabox", "FoveaBox", "FoveaHeadOutputs"),
+    "autoassign": ("autoassign", "AutoAssign", "AutoAssignHeadOutputs"),
+    "free_anchor": ("free_anchor", None, None),
+    "sabl_retina": ("sabl_retina", "SABLRetinaNet", "SABLHeadOutputs")}
+F64_RTOL = 1e-8          # the head families' f64 losses and gradients
+
+
+def head_module(pkg, arch):
+    """The family's module of ``pkg`` ("dskd_tpu" or "dskd_tpu_torch")."""
+    return importlib.import_module(f"{pkg}.models.{HEAD_FAMILIES[arch][0]}")
+
+
 def jax_model(arch, depth=18):
     from dskd_tpu.models.gfl import GFL
     from dskd_tpu.models.paa import PAA
     from dskd_tpu.models.retinanet import RetinaNet
+    if arch in HEAD_FAMILIES and HEAD_FAMILIES[arch][1]:
+        return getattr(head_module("dskd_tpu", arch),
+                       HEAD_FAMILIES[arch][1])(num_classes=NC, depth=depth)
     if arch == "ld":
         return GFL(num_classes=NC, depth=depth)
     if arch in ("paa", "lad"):
@@ -102,6 +125,10 @@ def _fill(path, shape, rng):
     leaf = str(getattr(path[-1], "key", path[-1]))
     if leaf.startswith("ghm_acc"):
         return rng.rand(*shape) * 50.0
+    if leaf == "center_prior_mean":          # AutoAssign's, stride units
+        return 0.3 * rng.randn(*shape)
+    if leaf == "center_prior_sigma":
+        return 1.0 + 0.2 * rng.rand(*shape)
     return D._fill(path, shape, rng)
 
 
@@ -158,6 +185,11 @@ def assert_forward_matches(arch, v, images, img_hw, depth=18):
 def port_head(arch, jhead):
     """JAX head outputs (arrays) -> the port's head NamedTuple."""
     from dskd_tpu_torch.models import gfl_head, paa, retinanet
+    if arch in HEAD_FAMILIES and HEAD_FAMILIES[arch][2]:
+        cls = getattr(head_module("dskd_tpu_torch", arch),
+                      HEAD_FAMILIES[arch][2])
+        return cls(*(tuple(torch.from_numpy(np.array(x)) for x in field)
+                     for field in jhead))
     cls = (gfl_head.GFLHeadOutputs if arch == "ld" else
            paa.PAAHeadOutputs if arch in ("paa", "lad") else
            retinanet.RetinaHeadOutputs)
@@ -169,10 +201,91 @@ def _sizes(head):
     return [tuple(int(s) for s in c.shape[1:3]) for c in head.cls_scores]
 
 
+def head_losses(pkg, arch, head, gt, labels, valid, priors=None,
+                use_tal=True):
+    """The losses of a head family of ``pkg`` on head outputs ``head``
+    (AutoAssign's with its centre ``priors`` (mean, sigma); TOOD's TAL
+    or, ``use_tal=False``, the first epochs' ATSS path)."""
+    M = head_module(pkg, arch)
+    dev = () if pkg == "dskd_tpu" else ("cpu",)
+    sizes = _sizes(head)
+    if arch == "tood":
+        points, anchors, counts = M.tood_points(sizes, *dev)
+        return M.tood_loss(head, points, anchors, counts, gt, labels, valid,
+                           M.TOODLossConfig(num_classes=NC), use_tal=use_tal)
+    if arch == "fsaf":
+        return M.fsaf_loss(head, gt, labels, valid,
+                           M.FSAFLossConfig(num_classes=NC))
+    if arch == "foveabox":
+        return M.fovea_loss(head, gt, labels, valid,
+                            M.FoveaLossConfig(num_classes=NC))
+    if arch == "autoassign":
+        return M.autoassign_loss(head, *priors, gt, labels, valid,
+                                 M.AutoAssignLossConfig(num_classes=NC))
+    if arch == "free_anchor":
+        return M.free_anchor_loss(head, M.retina_anchors(sizes, *dev), gt,
+                                  labels, valid,
+                                  M.FreeAnchorLossConfig(num_classes=NC))
+    squares, approxs = M.sabl_anchors(sizes, *dev)
+    return M.sabl_loss(head, squares, approxs, gt, labels, valid,
+                       M.SABLLossConfig(num_classes=NC))
+
+
+def head_get_bboxes(pkg, arch, head, img_hw, **kw):
+    """The decode of a head family of ``pkg`` on head outputs ``head``."""
+    M = head_module(pkg, arch)
+    dev = () if pkg == "dskd_tpu" else ("cpu",)
+    sizes = _sizes(head)
+    if arch == "tood":
+        # JAX's takes the points and reads none of them
+        points = (M.tood_points(sizes)[0],) if pkg == "dskd_tpu" else ()
+        return M.tood_get_bboxes(head, *points, img_hw, **kw)
+    if arch == "fsaf":
+        return M.fsaf_get_bboxes(head, img_hw, **kw)
+    if arch == "foveabox":
+        return M.fovea_get_bboxes(head, img_hw, **kw)
+    if arch == "autoassign":
+        return M.autoassign_get_bboxes(head, img_hw, **kw)
+    if arch == "free_anchor":
+        return M.retina_get_bboxes(head, M.retina_anchors(sizes, *dev),
+                                   img_hw, delta_stds=M.DELTA_STDS, **kw)
+    return M.sabl_get_bboxes(head, M.sabl_anchors(sizes, *dev)[0], img_hw,
+                             **kw)
+
+
+@contextlib.contextmanager
+def f64_anchors():
+    """SABL's square and approx anchors in f64 in both packages while the
+    block runs, for the f64 comparisons: from f32 anchors the bucket
+    centres (side + (i + 0.5) x bucket width) that XLA computes in one
+    fused kernel part from eager torch's by an f32 rounding (6e-8 of
+    loss_bbox_reg)."""
+    mods = [head_module(pkg, "sabl_retina")
+            for pkg in ("dskd_tpu", "dskd_tpu_torch")]
+    saved = [m.sabl_anchors for m in mods]
+
+    def f64(fn):
+        return lambda *a: tuple(x.astype(np.float64) if isinstance(
+            x, jnp.ndarray) else x.double() for x in fn(*a))
+
+    for m, fn in zip(mods, saved):
+        m.sabl_anchors = f64(fn)
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, saved):
+            m.sabl_anchors = fn
+
+
 def jax_losses(arch, head, gt, labels, valid, teacher_head=None,
                ghm_state=None):
     """JAX's losses of head outputs ``head`` (LD's and LAD's with the
-    teacher's ``teacher_head``; GHM's -> (losses, new state))."""
+    teacher's ``teacher_head``; GHM's -> (losses, new state); a head
+    family's with ``teacher_head`` its extra inputs, AutoAssign's
+    priors)."""
+    if arch in HEAD_FAMILIES:
+        return head_losses("dskd_tpu", arch, head, gt, labels, valid,
+                           teacher_head)
     if arch == "ld":
         from dskd_tpu.models import ld
         from dskd_tpu.models.gfl_head import GFLLossConfig
@@ -195,6 +308,9 @@ def jax_losses(arch, head, gt, labels, valid, teacher_head=None,
 
 def port_losses(arch, head, gt, labels, valid, teacher_head=None,
                 ghm_state=None):
+    if arch in HEAD_FAMILIES:
+        return head_losses("dskd_tpu_torch", arch, head, gt, labels, valid,
+                           teacher_head)
     if arch == "ld":
         from dskd_tpu_torch.models import ld
         from dskd_tpu_torch.models.gfl_head import GFLLossConfig
@@ -220,18 +336,25 @@ def jax_head_f64(arch, v, images, img_hw, depth=18):
                                         jnp.asarray(img_hw)).head)
 
 
-def check_losses_f64(arch, seed=1, teacher_depth=None):
+def check_losses_f64(arch, seed=1, teacher_depth=None, rtol=1e-6):
     """The losses of the JAX model's head outputs on batch ``seed`` in f64
-    in both packages (1e-6 relative; LD and LAD with a teacher of
-    ``teacher_depth``, GHM with its EMAs, which must match too); every loss
-    finite and not 0. Returns the losses."""
+    in both packages (``rtol`` relative; LD and LAD with a teacher of
+    ``teacher_depth``, GHM with its EMAs, which must match too, AutoAssign
+    with its centre priors); every loss finite and not 0. Returns the
+    losses."""
     images, img_hw, gt, labels, valid = batch_arrays(arch, seed)
     v = jax_variables(arch)
     jhead = jax_head_f64(arch, v, images, img_hw)
-    thead = None
+    thead = pthead = None
     if teacher_depth:
         tv = jax_variables(arch, teacher_depth, seed=1)
         thead = jax_head_f64(arch, tv, images, img_hw, teacher_depth)
+        pthead = port_head(arch, thead)
+    if arch == "autoassign":
+        p = v["params"]
+        thead = tuple(np.asarray(p[k], np.float64) for k in (
+            "center_prior_mean", "center_prior_sigma"))
+        pthead = tuple(torch.from_numpy(a) for a in thead)
     ghm = None
     if arch == "retinanet_ghm":
         ghm = {k: np.asarray(v["batch_stats"][f"ghm_{k}"], np.float64)
@@ -243,8 +366,7 @@ def check_losses_f64(arch, seed=1, teacher_depth=None):
         want = jax.tree.map(np.asarray, want)
     got = port_losses(
         arch, port_head(arch, jhead), *(torch.from_numpy(a) for a in (
-            gt, labels, valid)),
-        None if thead is None else port_head(arch, thead),
+            gt, labels, valid)), pthead,
         None if ghm is None else {k: torch.from_numpy(a)
                                   for k, a in ghm.items()})
     if ghm is not None:
@@ -256,17 +378,19 @@ def check_losses_f64(arch, seed=1, teacher_depth=None):
     for k, x in want.items():
         assert got[k].dtype == torch.float64, k
         assert np.isfinite(x) and x != 0, (k, x)
-        np.testing.assert_allclose(float(got[k]), float(x), rtol=1e-6,
+        np.testing.assert_allclose(float(got[k]), float(x), rtol=rtol,
                                    atol=0, err_msg=k)
     return got
 
 
-def check_family_step_f64(arch, grad_names, seed=2, teacher_depth=None):
+def check_family_step_f64(arch, grad_names, seed=2, teacher_depth=None,
+                          rtol=None):
     """One generic step of the port's family in f64 (weights from
     ``from_jax``; LD and LAD with a frozen teacher of ``teacher_depth``)
     against ``jax.value_and_grad`` of JAX's registry losses_fn in f64:
     every loss (1e-6 relative) and the gradients of ``grad_names`` that the
-    step's clip sees (1e-5 relative L2). Returns (the port's model after
+    step's clip sees (1e-5 relative L2), or both within ``rtol`` where it
+    is given, each gradient not 0. Returns (the port's model after
     the step, its state_dict before, JAX's new batch_stats or None)."""
     from dskd_tpu.registry import get_family as jget
     from dskd_tpu.train.step import parse_losses as jparse
@@ -331,12 +455,13 @@ def check_family_step_f64(arch, grad_names, seed=2, teacher_depth=None):
     assert set(got) == set(want) | {"loss"}
     for k, x in want.items():
         assert got[k].dtype == torch.float64, k
-        np.testing.assert_allclose(float(got[k]), x, rtol=1e-6, atol=0,
-                                   err_msg=k)
+        np.testing.assert_allclose(float(got[k]), x, rtol=rtol or 1e-6,
+                                   atol=0, err_msg=k)
     for n in grad_names:
         ref = jgrads[n].double()
+        assert rtol is None or float(ref.norm()) > 0, n
         rel = float((seen[n] - ref).norm() / ref.norm())
-        assert rel <= 1e-5, (n, rel)
+        assert rel <= (rtol or 1e-5), (n, rel)
     return model, before, new_bs
 
 
@@ -353,7 +478,14 @@ def check_get_bboxes(arch, nms_pre=1000, seed=3):
     kw = dict(score_thr=0.05, max_per_img=100, nms_pre=nms_pre,
               rescale=True)
     sizes = _sizes(jhead)
-    if arch == "ld":
+    if arch in HEAD_FAMILIES:
+        want = jax.jit(lambda h, hw, s: head_get_bboxes(
+            "dskd_tpu", arch, h, hw, scale_factor=s, **kw))(jhead, img_hw,
+                                                             sf)
+        got = head_get_bboxes("dskd_tpu_torch", arch, port_head(arch, jhead),
+                              torch.from_numpy(img_hw),
+                              scale_factor=torch.from_numpy(sf), **kw)
+    elif arch == "ld":
         from dskd_tpu.models import gfl_head as J
         from dskd_tpu_torch.models import gfl_head as P
         want = jax.jit(lambda h, hw, s: J.gfl_get_bboxes(
