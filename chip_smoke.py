@@ -2740,11 +2740,12 @@ def dense_models(cfg, device, **overrides):
     return student, frozen_copy(teacher)
 
 
-def dense_decode_model(cfg, device, bias=DENSE_DECODE_BIAS):
+def dense_decode_model(cfg, device, bias=DENSE_DECODE_BIAS, gain=1.0):
     """A dense model whose scores pass the decode's 0.05: seed 2, every
     head conv (the deformable ones too) redrawn lecun-normal (normal(0.01)
     leaves the towers' and outputs' spread ~1e-3) from a CPU generator, so
-    that each device gets the same weights, and the class bias ``bias``."""
+    that each device gets the same weights, the class conv's kernel times
+    ``gain`` and its bias ``bias``."""
     from dskd_tpu_torch.models.detector import lecun_
     from dskd_tpu_torch.ops.deform_conv import DeformConv
     from dskd_tpu_torch.registry import get_family
@@ -2757,8 +2758,10 @@ def dense_decode_model(cfg, device, bias=DENSE_DECODE_BIAS):
         for mod in model.bbox_head.modules():
             if isinstance(mod, (torch.nn.Conv2d, DeformConv)):
                 lecun_(mod.weight, g)
-        getattr(model.bbox_head, DENSE_CLS_CONV[dense_kind(
-            cfg.model.arch)]).bias.fill_(bias)
+        cls = getattr(model.bbox_head, DENSE_CLS_CONV[dense_kind(
+            cfg.model.arch)])
+        cls.weight.mul_(gain)
+        cls.bias.fill_(bias)
     return model.eval()
 
 
@@ -2799,8 +2802,10 @@ def dense_assign(arch, cfg, priors, batch):
     arch = dense_kind(arch)
     if arch == "retinanet":
         from dskd_tpu_torch.core.max_iou_assigner import max_iou_assign
+        # the EfficientNet recipe's negatives lie below IoU 0.5
+        neg = 0.5 if cfg.model.backbone.startswith("effb") else 0.4
         r = max_iou_assign(priors[0], *gt, C, pos_iou_thr=0.5,
-                           neg_iou_thr=0.4, min_pos_iou=0.0)
+                           neg_iou_thr=neg, min_pos_iou=0.0)
         return r.assigned_gt, r.labels, r.max_ious
     if arch == "fcos":
         from dskd_tpu_torch.models.fcos import _fcos_targets
@@ -2870,9 +2875,10 @@ def check_dense_decode(fam, cfg, card, n=2):
     candidate's."""
     arch = cfg.model.arch
     bias = fam.get("decode_bias", DENSE_DECODE_BIAS)
+    gain = fam.get("decode_gain", 1.0)
     got = {}
     for dev in (DEVICE, "cpu"):
-        model = dense_decode_model(cfg, dev, bias)
+        model = dense_decode_model(cfg, dev, bias, gain)
         batch = family_batch(dev, n, DENSE_CMP_HW, fam["max_gt"](cfg))
         with torch.inference_mode():
             out = model(batch.images, batch.img_hw)
@@ -3104,14 +3110,16 @@ def _to_torch(x):
     return torch.from_numpy(x) if isinstance(x, np.ndarray) else x
 
 
-def _cpu_worker_loop(jobs, results):
+def _cpu_worker_loop(jobs, results, threads):
     """The worker: (ticket, function name, args) from ``jobs`` in turn, each
     result (or the traceback) to ``results``; None ends it. A thread reads
-    the jobs, so that the main process never waits to queue one."""
+    the jobs, so that the main process never waits to queue one. Torch
+    uses ``threads`` threads."""
     import queue
     import threading
     import traceback
 
+    torch.set_num_threads(threads)
     todo = queue.Queue()
 
     def read():
@@ -3136,11 +3144,11 @@ def _cpu_worker_loop(jobs, results):
 
 
 class CpuWorker:
-    """One spawned process running _cpu_worker_loop; a thread of the main
-    process takes its results as they come, so that it never waits to send
-    one."""
+    """One spawned process running _cpu_worker_loop on ``threads`` threads;
+    a thread of the main process takes its results as they come, so that
+    it never waits to send one."""
 
-    def __init__(self):
+    def __init__(self, threads):
         import multiprocessing
         import threading
 
@@ -3148,7 +3156,8 @@ class CpuWorker:
         jobs_out, self._jobs = ctx.Pipe(duplex=False)
         self._results, results_in = ctx.Pipe(duplex=False)
         self.proc = ctx.Process(target=_cpu_worker_loop,
-                                args=(jobs_out, results_in), daemon=True)
+                                args=(jobs_out, results_in, threads),
+                                daemon=True)
         self.proc.start()
         _BACKGROUND[self.proc.pid] = self.proc.is_alive
         jobs_out.close()
@@ -3203,12 +3212,42 @@ class CpuWorker:
             self.proc.join()
 
 
+class CpuWorkers:
+    """CPU_WORKERS CpuWorker processes, each on its share of the host's
+    cores; jobs go to them in turn, so that each works through the phases
+    in their order beside the other."""
+
+    def __init__(self):
+        n = CPU_WORKERS
+        threads = max(1, (os.cpu_count() or n) // n)
+        self.workers = [CpuWorker(threads) for _ in range(n)]
+        self._next = 0
+
+    def submit(self, name, args):
+        i, self._next = self._next, (self._next + 1) % len(self.workers)
+        return i, self.workers[i].submit(name, args)
+
+    def result(self, ticket, name):
+        i, t = ticket
+        return self.workers[i].result(t, name)
+
+    def close(self):
+        for w in self.workers:
+            w.close()
+
+
+# the CPU worker processes of phases 10-18: two, each on half the host's
+# cores, take the CPU sides of the comparisons in parallel (one left
+# phase 15's steps_vs_cpu ~26.6 s behind its queue in PR 17's runs)
+CPU_WORKERS = 2
+
+
 @contextlib.contextmanager
 def cpu_worker():
-    """Run the CPU worker while the block runs; print how many of its jobs
-    were queued ahead and how many were asked for unqueued."""
+    """Run the CPU workers while the block runs; print how many of their
+    jobs were queued ahead and how many were asked for unqueued."""
     global _WORKER
-    _WORKER, stats = CpuWorker(), {"queued": 0, "used": 0, "unqueued": 0}
+    _WORKER, stats = CpuWorkers(), {"queued": 0, "used": 0, "unqueued": 0}
     _WORKER.stats = stats
     try:
         yield
@@ -3217,7 +3256,8 @@ def cpu_worker():
         unused = len(_QUEUED)
         _QUEUED.clear()
         worker.close()
-        print(f"cpu worker: {stats['queued']} jobs queued ahead, "
+        print(f"cpu workers: {len(worker.workers)}, "
+              f"{stats['queued']} jobs queued ahead, "
               f"{stats['used']} used, {unused} unused, "
               f"{stats['unqueued']} computed when asked")
 
@@ -3310,7 +3350,7 @@ def queue_family_cpu(key, config, sets=(), hw=CANVAS_HW, full=True):
 
 
 def queue_phase_cpu():
-    """Queue the CPU sides of phases 10-17's family checks, in their
+    """Queue the CPU sides of phases 10-18's family checks, in their
     order."""
     from dskd_tpu_torch.utils.config import load_config
 
@@ -3330,6 +3370,7 @@ def queue_phase_cpu():
         queue_family_cpu(key, config, DCN_SETS)
     for key, config in HEAD_CONFIGS.items():
         queue_family_cpu(key, config, HEAD_SETS)
+    queue_zoo_cpu()
 
 
 def check_family_card_vs_cpu(fam, cfg, card, dtype, n=2, hw=CANVAS_HW,
@@ -3375,9 +3416,13 @@ def check_family_card_vs_cpu(fam, cfg, card, dtype, n=2, hw=CANVAS_HW,
     buf_err = {k: float((bufs[k] - v).abs().max()) for k, v in c_bufs.items()}
     for k, v in c_bufs.items():
         torch.testing.assert_close(bufs[k], v, **BN_TOL, msg=k)
-    print(f"{tag} card vs CPU: {len(buf_err)} BatchNorm running buffers "
-          f"after the step within {BN_TOL}, largest abs err "
-          f"{max(buf_err.values()):.3e} ({max(buf_err, key=buf_err.get)})")
+    if buf_err:
+        print(f"{tag} card vs CPU: {len(buf_err)} BatchNorm running buffers "
+              f"after the step within {BN_TOL}, largest abs err "
+              f"{max(buf_err.values()):.3e} "
+              f"({max(buf_err, key=buf_err.get)})")
+    else:
+        print(f"{tag} card vs CPU: no BatchNorm running buffers")
 
 
 def check_family(card, arch, config, sets=(), n_train=None, hw=CANVAS_HW,
@@ -4837,6 +4882,383 @@ def check_head_families(card):
         raise AssertionError(f"phase 17 launched port kernels: {total}")
 
 
+# --- RegNetX, PVT, HRNet, EfficientNet, YOLOX, YOLOv3, CenterNet (phase 18) --
+
+ZOO_CONFIGS = {key: os.path.join(ROOT, "configs", f"{name}.py")
+               for key, name in (
+                   ("retinanet_regnetx", "retinanet_regnetx_3_2gf_1x"),
+                   ("retinanet_pvt", "retinanet_pvt_t_1x"),
+                   ("fcos_hrnet", "fcos_hrnetv2p_w18_1x"),
+                   ("retinanet_effb3", "retinanet_effb3_1x"),
+                   ("yolox", "yolox_s_300e"),
+                   ("yolov3", "yolov3_d53_coco"),
+                   ("yolov3_mbv2", "yolov3_mobilenetv2_416"),
+                   ("centernet", "centernet_r18_140e"))}
+ZOO_SETS = ()             # the configs as they are (a rehearsal cuts them)
+# each config's training batch (on its config's canvas)
+ZOO_TRAIN_B = {"retinanet_regnetx": 2, "retinanet_pvt": 2, "fcos_hrnet": 2,
+               "retinanet_effb3": 4, "yolox": 8, "yolov3": 8,
+               "yolov3_mbv2": 8, "centernet": 16}
+# the smaller canvas of the step and the decode against the CPU (the dense
+# configs: DENSE_CMP_HW)
+ZOO_CMP_HW = {"yolox": (320, 320), "yolov3": (320, 320),
+              "yolov3_mbv2": (320, 320), "centernet": (256, 256)}
+ZOO_GRAD_PARAMS = {
+    "retinanet_regnetx": _TOWERS + _RETINA_OUT + (
+        "backbone.layer3_block0.conv2.weight",),
+    "retinanet_pvt": _TOWERS + _RETINA_OUT + (
+        "backbone.stage3_block1.attn.kv.weight", "backbone.pos_embed2"),
+    "fcos_hrnet": _TOWERS + ("bbox_head.conv_cls.weight",
+                             "bbox_head.conv_reg.weight",
+                             "neck.reduction_conv.weight",
+                             "backbone.stage4_module2.fuse0_3_conv.weight"),
+    "retinanet_effb3": _TOWERS + _RETINA_OUT + (
+        "neck.fpn_convs.4.conv.weight",
+        "backbone.stage6_block0.project_conv.weight"),
+    "yolox": ("bbox_head.multi_level_conv_cls.0.weight",
+              "bbox_head.multi_level_conv_reg.0.weight",
+              "bbox_head.multi_level_conv_obj.1.weight",
+              "neck.out_convs.0.conv.weight",
+              "backbone.stage4_spp.conv2.conv.weight"),
+    "yolov3": ("pred0.weight", "pred2.weight", "head1_conv.weight",
+               "backbone.s4b3_2_conv.weight"),
+    "yolov3_mbv2": ("pred1.weight", "pred2.weight", "neck3_4_conv.weight",
+                    "backbone.stage7_block0.project.weight"),
+    "centernet": ("bbox_head.heatmap_out.weight", "bbox_head.wh_out.weight",
+                  "neck.deconv2.weight", "backbone.layer4.1.conv2.weight")}
+# gradients deep in a backbone at the init, which f32 decides only as
+# loosely as the CPU's own thread counts (THREAD_SPREAD_TOL)
+ZOO_SPREAD_PARAMS = {
+    "retinanet_regnetx": ("backbone.layer3_block0.conv2.weight",),
+    "retinanet_pvt": ("backbone.stage3_block1.attn.kv.weight",
+                      "backbone.pos_embed2"),
+    "fcos_hrnet": ("backbone.stage4_module2.fuse0_3_conv.weight",),
+    "retinanet_effb3": ("backbone.stage6_block0.project_conv.weight",),
+    "yolox": ("backbone.stage4_spp.conv2.conv.weight",),
+    "yolov3": ("backbone.s4b3_2_conv.weight",),
+    "yolov3_mbv2": ("backbone.stage7_block0.project.weight",),
+    "centernet": ("backbone.layer4.1.conv2.weight",)}
+HEATMAP_ATOL = 1e-6       # CenterNet's gaussian targets, card vs CPU
+ENCODE_TOL = dict(rtol=1e-5, atol=1e-5)   # YOLOv3's encoded targets
+
+
+def zoo_heads(cfg, out):
+    """The head outputs of a YOLOX, YOLOv3 or CenterNet forward, flattened
+    per image."""
+    arch = cfg.model.arch
+    if arch == "yolox":
+        return _yolo_heads(cfg, out)
+    if arch == "yolov3":
+        B = out.preds[0].shape[0]
+        return {"preds": torch.cat([p.reshape(B, -1) for p in out.preds], 1)}
+    return {k: getattr(out, k).flatten(1) for k in ("heatmap", "wh",
+                                                    "offset")}
+
+
+def zoo_decode_model(cfg, device):
+    """A YOLOX, YOLOv3 or CenterNet model whose scores pass its decode's
+    threshold: seed 2, the head's convs redrawn lecun-normal from a CPU
+    generator (each device gets the same weights), YOLOX's class and
+    objectness biases and YOLOv3's ``pred`` biases 0."""
+    from dskd_tpu_torch.models.detector import lecun_
+    from dskd_tpu_torch.registry import get_family
+
+    spec = get_family(cfg.model.arch)
+    model = spec["build"](cfg.model, torch.device(device))
+    spec["init_weights"](model, 2)
+    head = (model if cfg.model.arch == "yolov3" else model.bbox_head)
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for name, mod in head.named_modules():
+            if isinstance(mod, torch.nn.Conv2d) and (
+                    cfg.model.arch != "yolov3" or name.startswith("pred")):
+                lecun_(mod.weight, g)
+                if mod.bias is not None and cfg.model.arch != "centernet":
+                    mod.bias.zero_()
+    return model.eval()
+
+
+def zoo_decode(cfg, model, batch):
+    """The family's decode at its eval settings on ``batch``, on the model's
+    device: (scores (B, N, C), the top-k's scores, positions, classes and
+    validity, the detections' positions, classes and validity) on the
+    CPU."""
+    from dskd_tpu_torch.core.postprocess import filter_scores_and_topk, \
+        filter_scores_and_topk_mlvl
+    from dskd_tpu_torch.models import centernet, yolov3, yoloy_head
+
+    arch = cfg.model.arch
+    with torch.inference_mode():
+        out = model(batch.images, batch.img_hw)
+        if arch == "yolox":
+            cls, _, obj = yoloy_head.flatten_levels(out.head)
+            scores = torch.sigmoid(cls) * torch.sigmoid(obj)[..., None]
+            top = filter_scores_and_topk(scores, 0.01, 2000)
+            det = yoloy_head.yoloy_get_bboxes(out.head, batch.img_hw)
+        elif arch == "yolov3":
+            _, _, _, _, preds, rows = yolov3._flat(out, batch.images.device)
+            obj = torch.sigmoid(preds[..., 4:5])
+            obj = torch.where(obj >= 0.005, obj, torch.zeros_like(obj))
+            scores = torch.sigmoid(preds[..., 5:]) * obj
+            top = filter_scores_and_topk_mlvl(scores, 0.05, 1000, rows)
+            det = yolov3.yolov3_get_bboxes(out, batch.img_hw)
+        else:
+            B, H, W, C = out.heatmap.shape
+            scores = centernet.local_maxima(torch.sigmoid(out.heatmap))
+            det = centernet.centernet_get_bboxes(out, batch.img_hw,
+                                                 score_thr=0.05)
+            # NMS-free: the top-k are the detections
+            pix = det.keep_qid // C
+            return [t.cpu() for t in (scores.reshape(B, H * W, C),
+                                      det.scores, pix, det.labels, det.valid,
+                                      pix, det.labels, det.valid)]
+    return [t.cpu() for t in (scores, top.scores, top.keep_idxs, top.labels,
+                              top.valid, det.keep_qid, det.labels,
+                              det.valid)]
+
+
+def cpu_zoo_decode(key, cfg, n, hw):
+    """zoo_decode of zoo_decode_model on the CPU (a worker's job)."""
+    batch = family_batch("cpu", n, hw, FAMILIES[key]["max_gt"](cfg))
+    return zoo_decode(cfg, zoo_decode_model(cfg, "cpu"), batch)
+
+
+def compare_decodes(tag, got, want, card, note):
+    """The top-k and detections of zoo_decode on the card (``got``) against
+    the CPU's (``want``): every top-k entry whose CPU score stands more than
+    twice the devices' largest score difference from its sorted neighbours
+    holds the CPU's (position, class) on the card; so does every detection
+    that one device alone keeps unless its score stands that close to
+    another candidate's. Prints what moved."""
+    (sc, ts, ti, tl, tv, qid, dl, dv), (c_sc, c_ts, c_ti, c_tl, c_tv, c_qid,
+                                        c_dl, c_dv) = got, want
+    gap = float((sc - c_sc).abs().max())
+    far = apart(c_ts, gap) & c_tv
+    same = (ti == c_ti) & (tl == c_tl) & (tv == c_tv)
+    cands = c_ts[c_tv]
+    moved = bad = 0
+    for b in range(c_ts.shape[0]):
+        keep = [{(int(q), int(lb)) for q, lb, v in zip(*x) if v}
+                for x in ((qid[b], dl[b], dv[b]), (c_qid[b], c_dl[b],
+                                                   c_dv[b]))]
+        for q, lb in keep[0] ^ keep[1]:
+            moved += 1
+            s = float(c_sc[b, q, lb])
+            if not bool(((cands - s).abs() <= 2 * gap).sum() > 1):
+                bad += 1
+    print(f"{tag} decode, card vs CPU ({note}): {int(c_tv.sum())} top-k "
+          f"candidates, {int(far.sum())} stand > 2 x {gap:.3e} (the "
+          f"devices' largest score difference) apart and the card holds the "
+          f"CPU's (position, class) in {int(same[far].sum())} of them; "
+          f"{int((~same).sum())} of {same.numel()} slots moved; detections "
+          f"card {dv.sum(1).tolist()} CPU {c_dv.sum(1).tolist()}, {moved} "
+          f"kept by one device only, {bad} of them standing apart [{card}]")
+    if not far.any() or not bool(same[far].all()) or bad:
+        raise AssertionError(f"{tag}: the card's top-k or detections differ "
+                             f"from the CPU's")
+
+
+def check_zoo_decode(fam, cfg, card, n=2):
+    hw = fam["cmp_hw"]
+    batch = family_batch(DEVICE, n, hw, fam["max_gt"](cfg))
+    got = zoo_decode(cfg, zoo_decode_model(cfg, DEVICE), batch)
+    want = cpu_result(cpu_zoo_decode, fam["key"], cfg, n, tuple(hw))
+    compare_decodes(fam["tag"], got, want, card,
+                    f"B={n}, {hw[0]}x{hw[1]}, head convs lecun")
+
+
+def zoo_targets(cfg, out_sizes, batch):
+    """The batch-only targets of YOLOv3 (the grid assignment, negatives
+    and encoded targets over the anchors of ``out_sizes``) or CenterNet
+    (render_targets on the stride-4 map of ``out_sizes``), on the batch's
+    device, returned on the CPU."""
+    from dskd_tpu_torch.core.coders import yolo_encode
+    from dskd_tpu_torch.models import centernet, yolov3
+
+    dev = batch.images.device
+    if cfg.model.arch == "yolov3":
+        anchors, strides, cx, cy = yolov3.yolo_priors(out_sizes, dev)
+        assigned, neg = yolov3.grid_assign(anchors, strides, cx, cy,
+                                           batch.gt_bboxes, batch.gt_valid)
+        G = batch.gt_bboxes.shape[1]
+        tgt = torch.gather(batch.gt_bboxes, 1, assigned.clamp(0, G - 1)[
+            ..., None].expand(-1, -1, 4))
+        enc = yolo_encode(anchors[None], tgt, strides[None])
+        return [t.cpu() for t in (assigned, neg, enc)]
+    hm, wh, off, centers, valid = centernet.render_targets(
+        batch.gt_bboxes, batch.gt_labels, batch.gt_valid,
+        cfg.model.num_classes, out_sizes[0])
+    return [t.cpu() for t in (hm, wh, off, centers, valid)]
+
+
+def cpu_zoo_targets(key, cfg, n, hw, out_sizes):
+    """zoo_targets of the training batch on the CPU (a worker's job)."""
+    batch = family_batch("cpu", n, hw, FAMILIES[key]["max_gt"](cfg))
+    return zoo_targets(cfg, out_sizes, batch)
+
+
+def _zoo_out_sizes(arch, hw):
+    """The output maps' sizes of YOLOv3 (strides 32, 16, 8) or CenterNet
+    (stride 4) on the canvas ``hw``."""
+    strides = (32, 16, 8) if arch == "yolov3" else (4,)
+    return tuple((-(-hw[0] // s), -(-hw[1] // s)) for s in strides)
+
+
+def check_yolox(fam, cfg, card, student, batch):
+    """YOLOX's SimOTA on the student's head outputs of the training batch
+    (computed on the card) on the card and on the CPU: every output
+    equal."""
+    from dskd_tpu_torch.core.sim_ota import sim_ota_assign
+    from dskd_tpu_torch.models.yoloy_head import (featmap_sizes,
+                                                  flatten_levels,
+                                                  yoloy_decode, yoloy_priors)
+
+    out, head, gt = head_outputs(student, batch, DEVICE)
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        cls, reg, obj = (t.to(dev) for t in flatten_levels(head))
+        priors = yoloy_priors(featmap_sizes(head), dev)
+        offset = torch.cat([priors[:, :2] + priors[:, 2:] * 0.5,
+                            priors[:, 2:]], -1)
+        scores = torch.sigmoid(cls) * torch.sigmoid(obj)[..., None]
+        r = sim_ota_assign(scores, offset, yoloy_decode(priors[None], reg),
+                           *(t.to(dev) for t in gt), cfg.model.num_classes)
+        res[dev] = [t.cpu() for t in r]
+    equal = [torch.equal(a, b) for a, b in zip(res[DEVICE], res["cpu"])]
+    a, c_a = res[DEVICE][0], res["cpu"][0]
+    print(f"{fam['tag']} SimOTA, card vs CPU on the card's head outputs "
+          f"(B={batch.images.shape[0]}, {c_a.shape[1]} priors): positives "
+          f"per image {(c_a >= 0).sum(1).tolist()}, {int((a != c_a).sum())} "
+          f"priors moved; outputs equal {equal} [{card}]")
+    if not all(equal) or not bool((c_a >= 0).any(1).all()):
+        raise AssertionError(f"{fam['tag']}: the card's SimOTA differs from "
+                             f"the CPU's (or has no positive)")
+    check_zoo_decode(fam, cfg, card)
+
+
+def check_zoo_targets(fam, cfg, card, student, batch):
+    """YOLOv3's grid assignment (equal) and encoded targets (ENCODE_TOL),
+    or CenterNet's gaussian heatmaps (HEATMAP_ATOL; the peaks at 1 equal)
+    and size, offset and centre targets (equal), of the training batch on
+    the card against the CPU's (a worker's job); then the decode."""
+    arch = cfg.model.arch
+    n, hw = batch.images.shape[0], tuple(batch.images.shape[1:3])
+    sizes = _zoo_out_sizes(arch, hw)
+    got = zoo_targets(cfg, sizes, batch)
+    want = cpu_result(cpu_zoo_targets, fam["key"], cfg, n, hw, sizes)
+    if arch == "yolov3":
+        (a, neg, enc), (c_a, c_neg, c_enc) = got, want
+        pos = c_a >= 0
+        err = float((enc - c_enc)[pos].abs().max()) if pos.any() else 0.0
+        ok = (torch.equal(a, c_a) and torch.equal(neg, c_neg)
+              and torch.allclose(enc[pos], c_enc[pos], **ENCODE_TOL))
+        print(f"{fam['tag']} grid assignment, card vs CPU (B={n}, "
+              f"{c_a.shape[1]} anchors): positives per image "
+              f"{pos.sum(1).tolist()}, negatives {c_neg.sum(1).tolist()}, "
+              f"equal {torch.equal(a, c_a) and torch.equal(neg, c_neg)}; "
+              f"encoded targets max abs err {err:.3e} (tolerance "
+              f"{ENCODE_TOL}) [{card}]")
+    else:
+        (hm, *rest), (c_hm, *c_rest) = got, want
+        err = float((hm - c_hm).abs().max())
+        ok = (err <= HEATMAP_ATOL and torch.equal(hm == 1, c_hm == 1)
+              and all(torch.equal(x, y) for x, y in zip(rest, c_rest)))
+        print(f"{fam['tag']} targets, card vs CPU (B={n}, heatmap "
+              f"{tuple(c_hm.shape[1:])}): {int((c_hm == 1).sum())} peaks "
+              f"equal {torch.equal(hm == 1, c_hm == 1)}, heatmap max abs err "
+              f"{err:.3e} (tolerance {HEATMAP_ATOL}); size, offset and "
+              f"centre targets equal "
+              f"{all(torch.equal(x, y) for x, y in zip(rest, c_rest))} "
+              f"[{card}]")
+    if not ok:
+        raise AssertionError(f"{fam['tag']}: the card's targets differ from "
+                             f"the CPU's")
+    check_zoo_decode(fam, cfg, card)
+
+
+def check_zoo(fam, cfg, card, student, teacher, batch):
+    """Phase 18's family check: the dense configs' check_dense (their
+    assignment and decode); YOLOX's SimOTA; YOLOv3's and CenterNet's
+    targets; the decodes card against CPU."""
+    arch = cfg.model.arch
+    if arch in ("retinanet", "fcos"):
+        check_dense(fam, cfg, card, student, teacher, batch)
+    elif arch == "yolox":
+        check_yolox(fam, cfg, card, student, batch)
+    else:
+        check_zoo_targets(fam, cfg, card, student, batch)
+
+
+for _key, _base, _desc in (
+        ("retinanet_regnetx", "retinanet",
+         "RegNetX-3.2GF, FPN-256 P3-P7, RetinaNet head"),
+        ("retinanet_pvt", "retinanet",
+         "PVT-tiny, FPN-256 P3-P7, RetinaNet head"),
+        ("fcos_hrnet", "fcos", "HRNetV2p-W18, HRFPN-256, FCOS GN head"),
+        ("retinanet_effb3", "retinanet",
+         "EfficientNet-B3 (trained BN, drop path 0.2), BN-FPN-256, SepBN "
+         "head"),
+        ("yolox", "atss", "YOLOX-s CSPDarknet, PAFPN-128, decoupled head"),
+        ("yolov3", "atss", "Darknet-53, 3-scale neck, 3 anchors a cell"),
+        ("yolov3_mbv2", "atss",
+         "MobileNetV2 (LeakyReLU, trained BN), 96-channel neck"),
+        ("centernet", "atss", "ResNet-18, 3 deconvs, heatmap head")):
+    FAMILIES[_key] = dict(
+        FAMILIES[_base], tag=_key, key=_key,
+        grad_params=ZOO_GRAD_PARAMS[_key],
+        describe=(lambda m, d=_desc: d),
+        thread_spread_params=ZOO_SPREAD_PARAMS[_key], train_checks=check_zoo,
+        cmp_hw=ZOO_CMP_HW.get(_key, DENSE_CMP_HW))
+    if _key in ZOO_CMP_HW:
+        FAMILIES[_key]["heads"] = zoo_heads
+# the dense configs' decode models: class biases (and EfficientNet's
+# class-conv gain: its features at the init spread ~1e-4) that let
+# (position, class) pairs pass 0.05, most of them apart
+FAMILIES["retinanet_regnetx"]["decode_bias"] = -2.5
+FAMILIES["retinanet_pvt"]["decode_bias"] = -3.5
+FAMILIES["retinanet_effb3"].update(decode_bias=-2.5, decode_gain=2000.0)
+
+
+def queue_zoo_cpu():
+    """Queue phase 18's CPU sides: each config's serving heads and step
+    (queue_family_cpu), the decodes and the batch-only targets."""
+    from dskd_tpu_torch.utils.config import apply_overrides, load_config
+
+    for key, config in ZOO_CONFIGS.items():
+        queue_family_cpu(key, config, ZOO_SETS)
+        if key not in ZOO_CMP_HW:
+            continue
+        fam = FAMILIES[key]
+        cfg = apply_overrides(load_config(config), list(ZOO_SETS))
+        cpu_queue(cpu_zoo_decode, key, cfg, 2, tuple(fam["cmp_hw"]))
+        if cfg.model.arch in ("yolov3", "centernet"):
+            hw = tuple(cfg.data.bucket)
+            cpu_queue(cpu_zoo_targets, key, cfg, ZOO_TRAIN_B[key], hw,
+                      _zoo_out_sizes(cfg.model.arch, hw))
+
+
+def check_zoo_families(card):
+    """Phase 18: RetinaNet on RegNetX-3.2GF, PVT-tiny and EfficientNet-B3,
+    FCOS on HRNetV2p-W18 + HRFPN, YOLOX-s, YOLOv3 (Darknet-53 and
+    MobileNetV2) and CenterNet (ResNet-18) through check_family at their
+    configs' canvases and full width and depth, f32, seeded weights, at
+    ZOO_TRAIN_B, with check_zoo as their own checks. Every port kernel's
+    count stays 0 over the phase."""
+    from dskd_tpu_torch.utils.config import apply_overrides, load_config
+
+    with summed_counts() as total:
+        for key, config in ZOO_CONFIGS.items():
+            t0 = time.perf_counter()
+            cfg = apply_overrides(load_config(config), list(ZOO_SETS))
+            check_family(card, cfg.model.arch, config, ZOO_SETS,
+                         n_train=ZOO_TRAIN_B[key], hw=tuple(cfg.data.bucket),
+                         incremental=False, family=key)
+            print(f"{key}: {time.perf_counter() - t0:.1f} s of phase 18")
+    print(f"phase 18: port kernel launches over the phase {total}")
+    if any(total.values()):
+        raise AssertionError(f"phase 18 launched port kernels: {total}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; "
@@ -4886,7 +5308,7 @@ def main() -> int:
 
 
 def check_phases(card, kind, t_start, ab) -> int:
-    """Phases 1-17 after the build, then the kernel report and the result
+    """Phases 1-18 after the build, then the kernel report and the result
     line; ``ab`` the forgetting A/B's children (start_ab_seeds)."""
     from dskd_tpu_torch.apis.inference import prepare_batch
 
@@ -4999,6 +5421,9 @@ def check_phases(card, kind, t_start, ab) -> int:
         t0 = time.perf_counter()
         check_head_families(card)
         print(f"heads: phase 17 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        check_zoo_families(card)
+        print(f"zoo: phase 18 took {time.perf_counter() - t0:.1f} s")
 
     bwd_key = f"gather_weighted_bwd f32 Q={Q_TRAIN} 640x480"
     gw_key = f"gather_weighted f32 Q={Q_ENC}"

@@ -1,5 +1,6 @@
-"""SABL's bucketing box coder (port of dskd_tpu/core/coders.py
-``bbox_rescale``, ``_bucket_grid``, ``bbox2bucket`` and ``bucket2bbox``).
+"""SABL's bucketing box coder and YOLOv3's coder (port of
+dskd_tpu/core/coders.py ``bbox_rescale``, ``_bucket_grid``,
+``bbox2bucket``, ``bucket2bbox``, ``yolo_encode`` and ``yolo_decode``).
 
 Each side of a proposal, rescaled about its centre by ``scale_factor``, is
 cut into ``num_buckets`` buckets, of which the ceil(num_buckets / 2) nearest
@@ -11,8 +12,13 @@ classification. Decoding: each side takes its best bucket and subtracts
 that bucket's offset; the localisation confidence is the best bucket's
 score plus the second's where the two are adjacent, averaged over the
 sides. Where two buckets tie, the lower index goes first, as JAX's
-``top_k`` orders them: both functions rank with a stable sort. The JAX
-module's TBLR, YOLO and legacy delta coders are not ported.
+``top_k`` orders them: both functions rank with a stable sort.
+
+YOLOv3's coder: a GT's centre as the pre-sigmoid fraction of its anchor's
+cell (clamped to (eps, 1 - eps)) and its size as log(size / anchor size)
+(clamped below at eps); decoding takes post-sigmoid centre fractions and
+scales the anchor's half-extent by exp. The JAX module's TBLR and legacy
+delta coders are not ported.
 """
 from __future__ import annotations
 
@@ -107,3 +113,38 @@ def bucket2bbox(proposals: torch.Tensor, cls_preds: torch.Tensor,
     adjacent = ((idx2[..., 0] - idx2[..., 1]).abs() == 1).to(top2.dtype)
     conf = top2[..., 0] + top2[..., 1] * adjacent
     return boxes, conf.mean(dim=-1)
+
+
+def yolo_encode(anchors: torch.Tensor, gt_bboxes: torch.Tensor, stride,
+                eps: float = 1e-6) -> torch.Tensor:
+    """(..., 4) (x, y, log w, log h) targets of xyxy ``gt_bboxes`` against
+    xyxy ``anchors`` at their level's ``stride``."""
+    gcx = (gt_bboxes[..., 0] + gt_bboxes[..., 2]) * 0.5
+    gcy = (gt_bboxes[..., 1] + gt_bboxes[..., 3]) * 0.5
+    gw = gt_bboxes[..., 2] - gt_bboxes[..., 0]
+    gh = gt_bboxes[..., 3] - gt_bboxes[..., 1]
+    acx = (anchors[..., 0] + anchors[..., 2]) * 0.5
+    acy = (anchors[..., 1] + anchors[..., 3]) * 0.5
+    aw = anchors[..., 2] - anchors[..., 0]
+    ah = anchors[..., 3] - anchors[..., 1]
+    wt = torch.log(torch.clamp(gw / aw, min=eps))
+    ht = torch.log(torch.clamp(gh / ah, min=eps))
+    xt = torch.clamp((gcx - acx) / stride + 0.5, eps, 1 - eps)
+    yt = torch.clamp((gcy - acy) / stride + 0.5, eps, 1 - eps)
+    return torch.stack([xt, yt, wt, ht], dim=-1)
+
+
+def yolo_decode(anchors: torch.Tensor, pred: torch.Tensor,
+                stride) -> torch.Tensor:
+    """xyxy boxes of ``pred`` (..., 4): post-sigmoid centre fractions of the
+    cell and log sizes against the anchor."""
+    acx = (anchors[..., 0] + anchors[..., 2]) * 0.5
+    acy = (anchors[..., 1] + anchors[..., 3]) * 0.5
+    cx = acx + (pred[..., 0] - 0.5) * stride
+    cy = acy + (pred[..., 1] - 0.5) * stride
+    hw_half = (anchors[..., 2] - anchors[..., 0]) * 0.5 * torch.exp(
+        pred[..., 2])
+    hh_half = (anchors[..., 3] - anchors[..., 1]) * 0.5 * torch.exp(
+        pred[..., 3])
+    return torch.stack([cx - hw_half, cy - hh_half, cx + hw_half,
+                        cy + hh_half], dim=-1)

@@ -9,13 +9,18 @@ The index stream is JAX's, so the batches are the same:
     batches in training, and the batches are shuffled by
     ``RandomState(seed + epoch + 7)``;
   * each sample draws its augmentation from ``RandomState(base_seed + idx)``
-    with ``base_seed = (seed + 1) * 1000003 + epoch * 97``;
+    with ``base_seed = (seed + 1) * 1000003 + epoch * 97``: with Mosaic,
+    first three ``randint(n)`` for its other images and then Mosaic's own
+    draws; with MixUp, then the ``randint(n)`` of its image and MixUp's
+    draws; then the pipeline's (flip, scale);
   * with ``gt_buckets``, each batch's GT pad is trimmed to the smallest
     bucket that covers its last valid GT slot;
   * a short last batch (eval) is padded with its last sample.
 
-A batch sampler in the main process yields each batch's ``(index, seed)``
-pairs; the workers decode and preprocess (``pipeline.preprocess_sample``)
+A batch sampler in the main process yields each batch's ``(index, seed,
+mix)`` keys; the workers decode, mix (``mix_transforms``, where the
+pipeline asks for Mosaic or MixUp and ``mix`` is on) and preprocess
+(``pipeline.preprocess_sample``)
 and collate into a ``data.batch.Batch`` of CPU tensors, which reach the
 main process through shared memory, plus ``meta`` (``img_ids``,
 ``scale_factors``, ``ori_hw``). Workers start under the "spawn" context (a
@@ -24,9 +29,11 @@ thread each and persist across epochs; ``num_workers=0`` loads in the
 calling process, with the same batches. ``pin_memory`` pins them for a copy
 to the card.
 
-Not ported: mosaic/mixup and the other augmentations
-``pipeline.check_ported`` names (they raise NotImplementedError), and
-multi-host sharding.
+``set_mix(False)`` turns Mosaic and MixUp off from the next epoch on (YOLOX's
+no-aug phase), in running workers too, since the flag rides in the keys.
+
+Not ported: the augmentations ``pipeline.check_ported`` names (they raise
+NotImplementedError), and multi-host sharding.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ import torch.utils.data as tud
 
 from .batch import Batch
 from .coco import TaskCocoDataset
+from .mix_transforms import mixup, mosaic
 from .pipeline import PipelineConfig, check_ported, load_image, \
     preprocess_sample
 
@@ -62,8 +70,12 @@ class _Samples(tud.Dataset):
     def __len__(self):
         return len(self.dataset)
 
+    def _raw(self, idx):
+        path, _, boxes, labels, _ = self.dataset.get_raw(int(idx))
+        return load_image(path), boxes, labels
+
     def __getitem__(self, key):
-        idx, seed = key
+        idx, seed, mix = key
         path, _, boxes, labels, img_id = self.dataset.get_raw(int(idx))
         img = load_image(path)
         rng = np.random.RandomState(seed) if self.train else None
@@ -71,6 +83,19 @@ class _Samples(tud.Dataset):
         if self.flags is not None:
             bucket = self.aspect_buckets[self.flags[int(idx)]]
             pipe = dataclasses.replace(pipe, bucket=bucket, img_scale=bucket)
+        if rng is not None and mix and (pipe.mosaic or pipe.mixup):
+            n = len(self.dataset)
+            if pipe.mosaic:
+                others = [self._raw(rng.randint(n)) for _ in range(3)]
+                img, boxes, labels = mosaic(
+                    [(img, boxes, labels)] + others, pipe.img_scale, rng,
+                    center_ratio_range=pipe.mosaic_center_ratio)
+            if pipe.mixup:
+                r_img, r_boxes, r_labels = self._raw(rng.randint(n))
+                img, boxes, labels = mixup(
+                    img, boxes, labels, r_img, r_boxes, r_labels, rng,
+                    dynamic_scale=pipe.img_scale,
+                    ratio_range=pipe.mixup_ratio_range)
         out = preprocess_sample(img, boxes, labels, pipe, rng, self.train)
         out["img_id"] = img_id
         return out
@@ -138,6 +163,7 @@ class DataLoader:
         self.aspect_buckets = aspect_buckets
         self.gt_buckets = tuple(sorted(gt_buckets))
         self.epoch = 0
+        self.mix = True
         self._flags = None
         if aspect_buckets is not None:
             # flag 0 = portrait (h >= w), 1 = landscape
@@ -165,8 +191,14 @@ class DataLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def batch_keys(self) -> List[List[Tuple[int, int]]]:
-        """This epoch's batches as lists of (index, augmentation seed)."""
+    def set_mix(self, on: bool) -> None:
+        """Mosaic and MixUp (where the pipeline asks for them) on or off
+        for the epochs that start after the call."""
+        self.mix = bool(on)
+
+    def batch_keys(self) -> List[List[Tuple[int, int, bool]]]:
+        """This epoch's batches as lists of (index, augmentation seed,
+        mix)."""
         n = len(self.dataset)
         indices = (np.random.RandomState(self.seed + self.epoch).permutation(n)
                    if self.train else np.arange(n))
@@ -194,7 +226,7 @@ class DataLoader:
         bs = self.batch_size
         nb = len(indices) // bs if self.drop_last else -(-len(indices) // bs)
         base_seed = (self.seed + 1) * 1000003 + self.epoch * 97
-        return [[(int(i), base_seed + int(i))
+        return [[(int(i), base_seed + int(i), self.mix)
                  for i in indices[b * bs:(b + 1) * bs]] for b in range(nb)]
 
     def __iter__(self) -> Iterator[Tuple[Batch, dict]]:

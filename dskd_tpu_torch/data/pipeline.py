@@ -10,8 +10,10 @@ with the port's own copies of its ``PipelineConfig``, ``rescale_size`` and
   order as JAX's (flip, then the ``multi_scales`` choice), prepares the
   flipped image through ``preprocess`` on the CPU at the drawn scale,
   rescales the boxes, clips them to the valid size and pads the GT to
-  ``max_gt``. The flagship recipe's options are ported; every other
-  augmentation raises NotImplementedError, naming the option.
+  ``max_gt``. The flagship recipe's options are ported, and Mosaic and
+  MixUp, which the data loader applies before this (``mix_transforms``);
+  every other augmentation raises NotImplementedError, naming the
+  option.
 
 Rescale to ``img_scale`` keeping the aspect ratio (``rescale_size``),
 bilinear resize, normalize with the COCO mean/std, pad into the static
@@ -141,8 +143,8 @@ def preprocess(img: Union[np.ndarray, torch.Tensor], cfg: PipelineConfig,
 
 # PipelineConfig fields of augmentations the port lacks, with the value that
 # turns each off
-_UNPORTED = {"photo_metric_distortion": False, "mosaic": False,
-             "mixup": False, "expand": False, "min_iou_crop": False,
+_UNPORTED = {"photo_metric_distortion": False,
+             "expand": False, "min_iou_crop": False,
              "resize_ratio_range": None, "random_crop": None,
              "corruption": None, "auto_augment": False, "with_mask": False,
              "with_semantic": False}

@@ -51,6 +51,11 @@ class TrainableBatchNorm(nn.Module):
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        if x.numel() == x.shape[1]:
+            # one value per channel (a 1x1 map at B=1), which F.batch_norm
+            # refuses: flax's rule gives variance 0, the output the bias
+            return ((x - x) * torch.rsqrt(torch.full_like(x, self.eps))
+                    * self.weight[:, None, None] + self.bias[:, None, None])
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
 

@@ -13,8 +13,10 @@ distance falls in the level's regress range. Loss: focal loss, -log IoU
 weighted by the centerness target, BCE on the centerness. Decoding:
 sigmoid(cls) x sigmoid(centerness), per-level threshold and top-k, clipped,
 class-aware NMS at IoU 0.5. ``nasfcos`` swaps the FPN for the NAS-FCOS
-searched neck on C3-C5 (``models/nasfcos_fpn.py``); the JAX module's
-non-ResNet backbones are not ported.
+searched neck on C3-C5 (``models/nasfcos_fpn.py``). The other backbones
+of ``models/backbones.py`` feed the FPN as ResNet does; HRNet's branches
+go through HRFPN (``models/hrnet.py``), under ``nasfcos`` too, as the JAX
+module wires them.
 """
 from __future__ import annotations
 
@@ -29,10 +31,11 @@ from ..core import losses as L
 from ..core.boxes import distance2bbox
 from ..core.postprocess import filter_scores_and_topk_mlvl
 from .atss import PRIOR_BIAS
-from .backbones import build_backbone
+from .backbones import apply_backbone, build_backbone, init_backbone
 from .fpn import FPN
 from .gfl import dense_init_of, init_dense
 from .gfl_head import ConvGN, Scale, cat_levels, level_sizes, nhwc, tower
+from .hrnet import HRFPN
 from .nasfcos_fpn import NASFCOSFPN
 from .yolof_head import Detections, nms_detections
 
@@ -86,11 +89,14 @@ class FCOS(nn.Module):
                  frozen_stages: int = 1, backbone: str = "",
                  nas_fpn: bool = False):
         super().__init__()
+        self.backbone_spec = backbone
         self.backbone, kind = build_backbone(backbone, depth, device,
                                              frozen_stages)
         start = 1 if kind == "c2345" else 0
-        self.neck_start = start if nas_fpn else 0
-        if nas_fpn:
+        self.neck_start = start if nas_fpn and kind != "hr" else 0
+        if kind == "hr":
+            self.neck = HRFPN(self.backbone.out_channels, device)
+        elif nas_fpn:
             self.neck = NASFCOSFPN(self.backbone.out_channels[start:],
                                    device)
         else:
@@ -99,10 +105,12 @@ class FCOS(nn.Module):
                             relu_before_extra_convs=True)
         self.bbox_head = FCOSHead(device, num_classes)
 
-    def forward(self, images, img_hw) -> FCOSOutputs:
+    def forward(self, images, img_hw, generator=None) -> FCOSOutputs:
         """images (B, H, W, 3) normalised NHWC; img_hw is unused by the
-        forward."""
-        feats = self.backbone(images.permute(0, 3, 1, 2))
+        forward; ``generator`` draws a stochastic-depth backbone's masks in
+        training."""
+        feats = apply_backbone(self.backbone, self.backbone_spec,
+                               images.permute(0, 3, 1, 2), generator)
         neck = self.neck(feats[self.neck_start:])
         return FCOSOutputs(self.bbox_head(neck), neck)
 
@@ -219,14 +227,16 @@ def build_fcos(model_cfg, device="cuda") -> FCOS:
 
 
 def _nasfcos_init_of(name: str) -> str:
-    """flax's default lecun-normal for the NAS-FCOS neck's convs."""
+    """flax's default lecun-normal for the NAS-FCOS and HRFPN necks'
+    convs."""
     return "lecun" if name.startswith("neck.") else dense_init_of(name)
 
 
 def init_fcos(model: FCOS, seed: int = 0) -> None:
     init_dense(model, seed, "conv_cls", PRIOR_BIAS,
-               _nasfcos_init_of if isinstance(model.neck, NASFCOSFPN)
+               _nasfcos_init_of if isinstance(model.neck, (NASFCOSFPN, HRFPN))
                else dense_init_of)
+    init_backbone(model.backbone, seed)
 
 
 def _register():
@@ -236,9 +246,11 @@ def _register():
     def losses(model, cfg, *, num_prev, has_teacher, use_dropout):
         det_cfg = FCOSLossConfig(num_classes=cfg.model.num_classes)
 
-        # JAX's FCOS losses read no teacher
+        # JAX's FCOS losses read no teacher; a stochastic-depth backbone
+        # draws its masks where the step asks for dropout
         def losses_fn(model, batch, teacher, generator):
-            out = model(batch.images, batch.img_hw)
+            out = model(batch.images, batch.img_hw,
+                        generator if use_dropout else None)
             points, meta = fcos_points(
                 [c.shape[1:3] for c in out.head.cls_scores],
                 batch.images.device)

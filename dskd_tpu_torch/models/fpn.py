@@ -7,11 +7,14 @@ output. Extra levels up to ``num_outs``: with ``add_extra_convs`` ""
 every one is the last output subsampled 2x (max-pool of kernel 1); with
 "on_input" (the last used input) or "on_output" (the last output) a
 stride-2 3x3 conv, a ReLU before every extra conv but the first when
-``relu_before_extra_convs``. Convs are NCHW and take their input widths
-from ``in_channels``. Module names are mmdet's: ``lateral_convs.i.conv``
-and ``fpn_convs.i.conv``, the extra convs continuing ``fpn_convs``.
-The JAX module's ``norm``, ``ws`` and non-nearest ``upsample`` options are
-not ported.
+``relu_before_extra_convs``. ``norm="bn"`` (the EfficientNet RetinaNet
+recipe) puts a BatchNorm (flax's rule, momentum 0.9: on the batch in
+training) after every output and extra conv, which then has no bias, and,
+unless ``no_norm_on_lateral``, after every lateral conv. Convs are NCHW
+and take their input widths from ``in_channels``. Module names are
+mmdet's: ``lateral_convs.i.conv`` and ``fpn_convs.i.conv`` (``.bn``), the
+extra convs continuing ``fpn_convs``. The JAX module's GroupNorm, ``ws``
+and non-nearest ``upsample`` options are not ported.
 """
 from __future__ import annotations
 
@@ -21,19 +24,24 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .dilated_encoder import TrainableBatchNorm
+
 
 class ConvWrap(nn.Module):
-    """A conv under mmdet's ConvModule name ``conv`` (no norm, no
-    activation)."""
+    """A conv under mmdet's ConvModule name ``conv``, no activation;
+    ``bn``: a BatchNorm after it, under ``bn``, and no conv bias."""
 
     def __init__(self, cin: int, cout: int, k: int, device, stride: int = 1,
-                 bias: bool = True):
+                 bias: bool = True, bn: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2,
-                              bias=bias, device=device)
+                              bias=bias and not bn, device=device)
+        if bn:
+            self.bn = TrainableBatchNorm(cout, device)
 
     def forward(self, x):
-        return self.conv(x)
+        x = self.conv(x)
+        return self.bn(x) if hasattr(self, "bn") else x
 
 
 def upsample_nearest_2x(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
@@ -48,13 +56,15 @@ class FPN(nn.Module):
                  start_level: int = 1, add_extra_convs: str = "on_output",
                  relu_before_extra_convs: bool = True,
                  upsample: str = "nearest", norm: str = "",
-                 ws: bool = False):
+                 ws: bool = False, no_norm_on_lateral: bool = False):
         super().__init__()
-        for name, value, plain in (("upsample", upsample, "nearest"),
-                                   ("norm", norm, ""), ("ws", ws, False)):
-            if value != plain:
+        for name, value, ported in (("upsample", upsample, ("nearest",)),
+                                    ("norm", norm, ("", "bn")),
+                                    ("ws", ws, (False,))):
+            if value not in ported:
                 raise NotImplementedError(f"FPN {name}={value!r} is not "
                                           f"ported")
+        bn = norm == "bn"
         if add_extra_convs not in ("", "on_input", "on_output"):
             raise ValueError(f"FPN add_extra_convs={add_extra_convs!r}")
         used = list(in_channels[start_level:])
@@ -63,14 +73,16 @@ class FPN(nn.Module):
         self.add_extra_convs = add_extra_convs
         self.relu_before_extra_convs = relu_before_extra_convs
         self.lateral_convs = nn.ModuleList(
-            ConvWrap(c, out_channels, 1, device) for c in used)
-        convs = [ConvWrap(out_channels, out_channels, 3, device)
+            ConvWrap(c, out_channels, 1, device,
+                     bn=bn and not no_norm_on_lateral) for c in used)
+        convs = [ConvWrap(out_channels, out_channels, 3, device, bn=bn)
                  for _ in used]
         if add_extra_convs:
             for j in range(num_outs - len(used)):
                 cin = (used[-1] if j == 0 and add_extra_convs == "on_input"
                        else out_channels)
-                convs.append(ConvWrap(cin, out_channels, 3, device, stride=2))
+                convs.append(ConvWrap(cin, out_channels, 3, device, stride=2,
+                                      bn=bn))
         self.fpn_convs = nn.ModuleList(convs)
 
     def forward(self, inputs: Sequence[torch.Tensor]

@@ -24,8 +24,17 @@ four ResNet stages (C2-C5, strides 4-32) and add one level, as the JAX
 module wires them, while the anchors stay at strides 8-128; NAS-FPN pairs
 with RetinaSepBNHead (``sepbn``): the towers' convs, without bias, shared
 across the levels, and a BatchNorm of each level's own after each, on the
-batch's statistics in training. The JAX module's non-ResNet backbones are
-not ported.
+batch's statistics in training.
+
+Backbones (``models/backbones.py``): RegNetX and PVT feed the FPN from C3
+as ResNet does; HRNet's branches go through HRFPN; EfficientNet's C3-C5
+take the reference's EfficientNet recipe: nothing frozen in the backbone,
+stochastic depth 0.2, every BatchNorm trained (backbone, FPN and head),
+the FPN with BatchNorm after its output and extra convs and a ReLU before
+the second extra conv, the SepBN head, and negatives below IoU 0.5. The
+stochastic-depth backbones (EfficientNet, PVT) draw their masks from the
+step's generator in training where the step asks for dropout
+(``use_dropout``); JAX's losses draw them whatever ``use_dropout`` says.
 """
 from __future__ import annotations
 
@@ -40,12 +49,13 @@ from ..core.anchors import base_anchors, bbox2delta, delta2bbox, grid_anchors
 from ..core.max_iou_assigner import max_iou_assign
 from ..core.postprocess import filter_scores_and_topk_mlvl
 from .atss import PRIOR_BIAS
-from .backbones import build_backbone
+from .backbones import apply_backbone, build_backbone, init_backbone
 from .dilated_encoder import TrainableBatchNorm
 from .fpg import FPG
 from .fpn import FPN, ConvWrap
 from .gfl import dense_init_of, init_dense
 from .gfl_head import cat_levels, level_sizes, nhwc
+from .hrnet import HRFPN
 from .nas_fpn import NASFPN
 from .pisa import carl_loss, isr_p_weights
 from .yolof_head import Detections, nms_detections
@@ -111,29 +121,39 @@ class RetinaNet(nn.Module):
         super().__init__()
         if neck not in ("fpn", "fpg", "nasfpn"):
             raise ValueError(f"RetinaNet neck={neck!r}")
-        self.backbone, kind = build_backbone(backbone, depth, device,
-                                             frozen_stages)
+        effb = backbone.startswith("effb")
+        self.backbone_spec = backbone
+        self.backbone, kind = build_backbone(
+            backbone, depth, device, 0 if effb else frozen_stages,
+            drop_path_rate=0.2 if effb else 0.0)
         if neck == "fpg":
             self.neck = FPG(self.backbone.out_channels, device)
         elif neck == "nasfpn":
             self.neck = NASFPN(self.backbone.out_channels, device)
+        elif kind == "hr":
+            self.neck = HRFPN(self.backbone.out_channels, device)
         else:
             self.neck = FPN(self.backbone.out_channels, device,
                             start_level=1 if kind == "c2345" else 0,
                             add_extra_convs="on_input",
-                            relu_before_extra_convs=False)
+                            relu_before_extra_convs=effb,
+                            norm="bn" if effb else "",
+                            no_norm_on_lateral=effb)
         self.bbox_head = RetinaHead(device, num_classes,
-                                    sepbn=neck == "nasfpn")
+                                    sepbn=neck == "nasfpn" or effb)
         if ghm:
             # the EMAs of GHM-C's 30 and GHM-R's 10 bin counts
             # (RetinaLossConfig)
             self.register_buffer("ghm_acc_c", torch.zeros(30, device=device))
             self.register_buffer("ghm_acc_r", torch.zeros(10, device=device))
 
-    def forward(self, images, img_hw) -> RetinaNetOutputs:
+    def forward(self, images, img_hw, generator=None) -> RetinaNetOutputs:
         """images (B, H, W, 3) normalised NHWC; img_hw is unused by the
-        forward."""
-        neck = self.neck(self.backbone(images.permute(0, 3, 1, 2)))
+        forward; ``generator`` draws a stochastic-depth backbone's masks in
+        training."""
+        neck = self.neck(apply_backbone(self.backbone, self.backbone_spec,
+                                        images.permute(0, 3, 1, 2),
+                                        generator))
         return RetinaNetOutputs(self.bbox_head(neck), neck)
 
 
@@ -287,18 +307,22 @@ def init_retinanet(model: RetinaNet, seed: int = 0) -> None:
     init_of = (dense_init_of if isinstance(model.neck, FPN)
                else _retina_init_of)
     init_dense(model, seed, "retina_cls", PRIOR_BIAS, init_of)
+    init_backbone(model.backbone, seed)
     for name, buf in model.named_buffers():
         if name.startswith("ghm_acc_"):
             buf.zero_()
 
 
-def retina_losses_fn(arch: str, det_cfg: RetinaLossConfig):
+def retina_losses_fn(arch: str, det_cfg: RetinaLossConfig,
+                     use_dropout: bool = True):
     """``losses_fn(model, batch, teacher, generator)`` of a RetinaNet
     variant; JAX's read no teacher. GHM's loss writes the new EMAs into the
     model's buffers in place, as a train-mode BatchNorm carries JAX's
-    ``new_batch_stats``."""
+    ``new_batch_stats``. With ``use_dropout`` the generator draws a
+    stochastic-depth backbone's masks."""
     def losses_fn(model, batch, teacher, generator):
-        out = model(batch.images, batch.img_hw)
+        out = model(batch.images, batch.img_hw,
+                    generator if use_dropout else None)
         anchors = retina_anchors([c.shape[1:3] for c in out.head.cls_scores],
                                  batch.images.device)
         args = (out.head, anchors, batch.gt_bboxes, batch.gt_labels,
@@ -322,11 +346,13 @@ def _register():
 
     def losses(model, cfg, *, num_prev, has_teacher, use_dropout):
         ghm = cfg.model.arch == "retinanet_ghm"
-        # the GHM recipe's GHM-R weighs 10
-        det_cfg = RetinaLossConfig(num_classes=cfg.model.num_classes,
-                                   ghm=ghm,
-                                   loss_bbox_weight=10.0 if ghm else 1.0)
-        return retina_losses_fn(cfg.model.arch, det_cfg)
+        # the GHM recipe's GHM-R weighs 10; the EfficientNet recipe's
+        # assigner takes negatives below IoU 0.5
+        det_cfg = RetinaLossConfig(
+            num_classes=cfg.model.num_classes, ghm=ghm,
+            neg_iou_thr=0.5 if cfg.model.backbone.startswith("effb")
+            else 0.4, loss_bbox_weight=10.0 if ghm else 1.0)
+        return retina_losses_fn(cfg.model.arch, det_cfg, use_dropout)
 
     def eval_step(model, *, score_thr, max_per_img, reg_max=None):
         @torch.inference_mode()

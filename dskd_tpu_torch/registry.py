@@ -60,6 +60,9 @@ _LAZY = {
     "autoassign": "dskd_tpu_torch.models.autoassign",
     "free_anchor": "dskd_tpu_torch.models.free_anchor",
     "sabl_retina": "dskd_tpu_torch.models.sabl_retina",
+    "yolox": "dskd_tpu_torch.models.yolox",
+    "yolov3": "dskd_tpu_torch.models.yolov3",
+    "centernet": "dskd_tpu_torch.models.centernet",
 }
 
 

@@ -30,9 +30,11 @@ def model_dropout(model: nn.Module) -> float:
 def make_family_train_step(arch: str, model: nn.Module,
                            cfg: ExperimentConfig, num_prev: int,
                            has_teacher: bool, use_dropout: bool = True,
-                           compute_dtype: torch.dtype = torch.float32):
+                           compute_dtype: torch.dtype = torch.float32,
+                           use_l1: bool = False):
     """Returns ``train_step(state, batch, teacher=None) -> (state, losses)``
-    for ``model``."""
+    for ``model``. ``use_l1`` is YOLOX's no-aug extra (its L1 branch); the
+    other families take none."""
     try:
         spec = get_family(arch)
     except ValueError:
@@ -47,6 +49,7 @@ def make_family_train_step(arch: str, model: nn.Module,
     if compute_dtype != torch.float32:
         raise ValueError(f"the {arch} family trains in f32 only (its generic "
                          f"step has no {compute_dtype} path)")
+    extra = {"use_l1": True} if use_l1 else {}
     return make_generic_step(spec["losses"](
         model, cfg, num_prev=num_prev, has_teacher=has_teacher,
-        use_dropout=use_dropout))
+        use_dropout=use_dropout, **extra))

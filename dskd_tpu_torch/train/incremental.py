@@ -10,8 +10,14 @@ Task loop:
     with its own BatchNorm buffers) and trains the student with the
     distillation recipe on that task's classes, ``num_prev =
     sum(catsplit[:tid - 1])``;
-  * per-task optimizer and ``step_lr_schedule``; ``max_iters_per_task``
-    slices an endless reshuffled stream into epochs of ``len(loader)``;
+  * per-task optimizer and ``step_lr_schedule``, or with ``lr_policy``
+    "yolox_cosine" ``yolox_cosine_schedule`` over the task's epochs (from
+    ``max_iters_per_task`` where it is set), its last ``no_aug_epochs``
+    at the floor; ``max_iters_per_task`` slices an endless reshuffled
+    stream into epochs of ``len(loader)``;
+  * YOLOX's no-aug phase: with ``no_aug_epochs`` and Mosaic or MixUp on,
+    the last ``no_aug_epochs`` epochs load without them, and YOLOX's step
+    is rebuilt with its L1 branch (``use_l1``);
   * train rows every ``log_interval`` steps, ``task_{t}_epoch_{e}``
     checkpoints every ``ckpt_interval`` epochs, COCO bbox eval every
     ``eval_interval`` epochs (``val`` rows), EMA weights with ``use_ema``;
@@ -27,8 +33,9 @@ The JAX package evaluates on a background thread while the next epoch
 trains; the port evaluates synchronously at the end of the epoch. One
 process drives one device (``device``, the card unless the caller asks for
 the CPU). Not ported (raise NotImplementedError, naming the option):
-non-COCO dataset types, ``yolox_cosine``, FSDP, ResNet weights from a file
-and mmdet ``.pth`` checkpoints.
+non-COCO dataset types, learning-rate policies other than "step" and
+"yolox_cosine", FSDP, ResNet weights from a file and mmdet ``.pth``
+checkpoints.
 """
 from __future__ import annotations
 
@@ -56,7 +63,7 @@ from .checkpoint import find_latest_checkpoint, load_weights, \
 from .hooks import assert_loss_keys_consistent, check_invalid_loss, \
     ema_update
 from .optim import make_optimizer
-from .schedule import step_lr_schedule
+from .schedule import step_lr_schedule, yolox_cosine_schedule
 from .state import TrainState, frozen_copy
 
 log = logging.getLogger("dskd_tpu")
@@ -175,7 +182,7 @@ def train_one_task(model: nn.Module, cfg: ExperimentConfig, tid: int,
     distillation recipe); returns it, holding the EMA weights with
     ``use_ema``."""
     device = resolve_device(device)
-    if cfg.train.lr_policy != "step":
+    if cfg.train.lr_policy not in ("step", "yolox_cosine"):
         raise NotImplementedError(f"train.lr_policy={cfg.train.lr_policy!r} "
                                   "is not ported")
     if cfg.train.fsdp:
@@ -192,9 +199,19 @@ def train_one_task(model: nn.Module, cfg: ExperimentConfig, tid: int,
                         gt_buckets=cfg.data.gt_buckets, pin_memory=pin)
     val_loader = None
     iters_per_epoch = max(len(loader), 1)
-    sched = step_lr_schedule(cfg.train.base_lr, cfg.train.warmup_iters,
-                             cfg.train.warmup_ratio, cfg.train.step_epochs,
-                             iters_per_epoch)
+    if cfg.train.lr_policy == "yolox_cosine":
+        ep = (cfg.train.epochs_per_task
+              if cfg.train.max_iters_per_task <= 0 else
+              -(-cfg.train.max_iters_per_task // iters_per_epoch))
+        sched = yolox_cosine_schedule(
+            cfg.train.base_lr, cfg.train.warmup_iters,
+            total_iters=ep * iters_per_epoch,
+            last_iters=cfg.train.no_aug_epochs * iters_per_epoch,
+            min_lr_ratio=cfg.train.min_lr_ratio)
+    else:
+        sched = step_lr_schedule(cfg.train.base_lr, cfg.train.warmup_iters,
+                                 cfg.train.warmup_ratio,
+                                 cfg.train.step_epochs, iters_per_epoch)
     opt = make_optimizer(model, sched, weight_decay=cfg.train.weight_decay,
                          max_norm=cfg.train.grad_clip,
                          frozen_stages=cfg.model.frozen_stages)
@@ -226,8 +243,23 @@ def train_one_task(model: nn.Module, cfg: ExperimentConfig, tid: int,
         def epoch_batches(e):
             return iter(loader)
 
+    no_aug_switched = False
     try:
         for epoch in range(1, n_epochs + 1):
+            # YOLOXModeSwitchHook: the last no_aug_epochs train without
+            # Mosaic and MixUp, and YOLOX's with its L1 branch
+            if (cfg.train.no_aug_epochs and not no_aug_switched
+                    and (pipe.mosaic or pipe.mixup)
+                    and epoch > n_epochs - cfg.train.no_aug_epochs):
+                no_aug_switched = True
+                loader.set_mix(False)
+                log.info("task %d epoch %d: mosaic/mixup OFF (no-aug phase)",
+                         tid, epoch)
+                if cfg.model.arch == "yolox":
+                    step_fn = family.make_family_train_step(
+                        cfg.model.arch, model, cfg, num_prev,
+                        has_teacher=teacher is not None,
+                        use_dropout=cfg.train.use_dropout, use_l1=True)
             t0, n_img = time.time(), 0
             for it, (batch, _meta) in enumerate(epoch_batches(epoch)):
                 batch = batch.to(device, non_blocking=pin)

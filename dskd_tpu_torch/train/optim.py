@@ -20,24 +20,31 @@ from typing import Callable, Dict
 import torch
 import torch.nn as nn
 
-_BACKBONE_BN = re.compile(r"\.(bn\d+|downsample\.1)\.(weight|bias)$")
+# a backbone BatchNorm's affine: torchvision's ``bn1``/``downsample.1`` and
+# the names of the backbones that keep JAX's (``stem_bn``, ``expand_bn``,
+# ``fuse0_1_bn2``, CSPDarknet's ``...conv.bn``)
+_BACKBONE_BN = re.compile(r"\.(\w*bn\d*|downsample\.1)\.(weight|bias)$")
 
 
 def default_param_labels(frozen_stages: int = 1) -> Callable[[str], str]:
     """Label each parameter name 'frozen' | 'lr01' (0.1x lr) | 'base'.
 
-    frozen: the stem (``backbone.conv1``, ``backbone.bn1``), the stages up
-    to ``frozen_stages`` and every backbone BatchNorm affine; lr01: the rest
-    of the backbone, ``sampling_offsets`` and ``reference_points``; base:
-    everything else.
+    frozen: the stem (``backbone.conv1``, ``backbone.bn1``, or
+    ``backbone.stem_*`` where a backbone keeps JAX's names), the stages up
+    to ``frozen_stages`` (``backbone.layer{s}.`` or ``layer{s}_``) and every
+    backbone BatchNorm affine; lr01: the rest of the backbone,
+    ``sampling_offsets`` and ``reference_points``; base: everything else.
+    These are JAX's labels of the same parameters.
     """
 
     def label(name: str) -> str:
         if name.startswith("backbone."):
-            if name.startswith(("backbone.conv1.", "backbone.bn1.")):
+            if name.startswith(("backbone.conv1.", "backbone.bn1.",
+                                "backbone.stem_")):
                 return "frozen" if frozen_stages >= 0 else "lr01"
             for stage in range(1, frozen_stages + 1):
-                if name.startswith(f"backbone.layer{stage}."):
+                if name.startswith((f"backbone.layer{stage}.",
+                                    f"backbone.layer{stage}_")):
                     return "frozen"
             if _BACKBONE_BN.search(name):
                 return "frozen"

@@ -7,7 +7,10 @@ dskd_tpu/utils/torch_weights.py ``convert_mmdet_gfl_ddetr``,
 ``vfnet_state_dict_from_jax``, ``reppoints_state_dict_from_jax``,
 ``fsaf_state_dict_from_jax``, ``foveabox_state_dict_from_jax``,
 ``sabl_state_dict_from_jax``, ``autoassign_state_dict_from_jax`` and
-``tood_state_dict_from_jax`` under mmdet's names).
+``tood_state_dict_from_jax`` under mmdet's names; ``yolox_``, ``yolov3_``
+and ``centernet_state_dict_from_jax`` and the RegNetX, EfficientNet, PVT,
+HRNet and MobileNetV2 backbones under JAX's own names, which
+``_Writer.tree`` writes).
 
 The port names its parameters after the mmdet checkpoint keys that those
 converters read, so ``state_dict_from_jax`` (the flagship),
@@ -120,6 +123,40 @@ class _Writer:
             self.ffn(f"{dst}.ffns.0", p["ffn"])
             for k in range(n_norms):
                 self.norm(f"{dst}.norms.{k}", p[f"norm{k + 1}"])
+
+    def tree(self, prefix, params, stats=None, renames=()):
+        """Every leaf of a JAX module's ``params`` and ``stats`` subtrees
+        under the port's name for it: the module path joined by ``.``
+        after ``prefix``, a TrainableBatchNorm's inner ``bn`` folded into
+        its parent (``x_bn/bn/scale`` -> ``x_bn.weight``), kernels ->
+        ``weight`` (conv HWIO -> OIHW, dense (in, out) -> (out, in)),
+        ``scale`` -> ``weight``, ``mean`` / ``var`` -> ``running_mean`` /
+        ``running_var``, any other leaf (a positional embedding) as it is;
+        then each ``(pattern, replacement)`` of ``renames`` in turn."""
+        leaves = {"kernel": "weight", "scale": "weight",
+                  "mean": "running_mean", "var": "running_var"}
+
+        def walk(path, node):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(path + (k,), v)
+                    continue
+                mods = list(path)
+                if (len(mods) >= 2 and mods[-1] == "bn"
+                        and re.search(r"bn\d*$", mods[-2])):
+                    mods.pop()
+                arr = np.asarray(v)
+                if k == "kernel":
+                    arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 \
+                        else arr.T
+                key = ".".join(([prefix] if prefix else []) + mods
+                               + [leaves.get(k, k)])
+                for pattern, repl in renames:
+                    key = re.sub(pattern, repl, key)
+                self.put(key, arr)
+
+        walk((), params)
+        walk((), stats or {})
 
     def backbone(self, bp, bs):
         self.conv("backbone.conv1", bp["stem_conv"])
@@ -289,6 +326,13 @@ def yoloy_state_dict_from_jax(variables: Dict[str, Any]
     params, stats = variables["params"], variables["batch_stats"]
     w = _Writer()
     w.backbone(params["backbone"], stats["backbone"])
+    _yoloy_neck_head(w, params, stats)
+    return w.out
+
+
+def _yoloy_neck_head(w: _Writer, params, stats) -> None:
+    """YOLOY's (and YOLOX's) PAFPN and decoupled head, as
+    ``yoloy_state_dict_from_jax`` names them."""
     neck, nstats = params["neck"], stats["neck"]
     top = max(int(n[len("reduce"):]) for n in neck if n.startswith("reduce"))
 
@@ -328,22 +372,92 @@ def yoloy_state_dict_from_jax(variables: Dict[str, Any]
         m = re.fullmatch(r"conv_(cls|reg|obj)(\d+)", name)
         w.conv(f"bbox_head.multi_level_conv_{m.group(1)}.{m.group(2)}",
                head[name])
+
+
+def yolox_state_dict_from_jax(variables: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/yolox.YOLOX`` variables -> CPU tensors for the
+    port's ``models.yolox.YOLOX``: CSPDarknet under JAX's names (a CSP
+    layer's ``block{j}`` as ``blocks.{j}``), the PAFPN and head as
+    YOLOY's."""
+    params, stats = variables["params"], variables["batch_stats"]
+    w = _Writer()
+    w.tree("backbone", params["backbone"], stats["backbone"],
+           ((r"\.block(\d+)\.", r".blocks.\1."),))
+    _yoloy_neck_head(w, params, stats)
     return w.out
+
+
+def yolov3_state_dict_from_jax(variables: Dict[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/yolov3.YOLOV3`` variables (Darknet-53 or
+    MobileNetV2) -> CPU tensors for the port's ``models.yolov3.YOLOV3``,
+    which keeps JAX's names throughout."""
+    w = _Writer()
+    w.tree("", variables["params"], variables["batch_stats"])
+    return w.out
+
+
+def centernet_state_dict_from_jax(variables: Dict[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX ``models/centernet.CenterNet`` variables -> CPU tensors for
+    the port's ``models.centernet.CenterNet``: the ResNet under
+    torchvision's names, the neck and head under JAX's. flax's
+    ``ConvTranspose`` does not flip its (kh, kw, in, out) kernel, which
+    ``nn.ConvTranspose2d`` does: its weight (in, out, kh, kw) is the
+    kernel flipped in both spatial axes."""
+    params, stats = variables["params"], variables["batch_stats"]
+    w = _Writer()
+    w.backbone(params["backbone"], stats["backbone"])
+    w.tree("neck", params["neck"], stats["neck"])
+    w.tree("bbox_head", params["bbox_head"])
+    for name, p in params["neck"].items():
+        if name.startswith("deconv") and "kernel" in p:
+            k = np.asarray(p["kernel"])
+            w.put(f"neck.{name}.weight", k[::-1, ::-1].transpose(2, 3, 0, 1))
+    return w.out
+
+
+# HRNet's bottlenecks are the port's ResNet blocks
+_HRNET_RENAMES = ((r"\.downsample_conv\.", ".downsample.0."),
+                  (r"\.downsample_bn\.", ".downsample.1."))
+
+
+def write_backbone(w: _Writer, bp, bs) -> None:
+    """A JAX backbone's variables -> ``backbone.*``: ResNet's (a 7x7 stem)
+    under torchvision's names (``_Writer.backbone``), the others under
+    JAX's own (``_Writer.tree``), HRNet's bottleneck projections as
+    ``downsample.0/1``."""
+    stem = bp.get("stem_conv", {}).get("kernel")
+    if stem is not None and np.asarray(stem).shape[0] == 7:
+        w.backbone(bp, bs)
+    else:
+        w.tree("backbone", bp, bs,
+               _HRNET_RENAMES if "stem_conv1" in bp else ())
 
 
 def _fpn(w: _Writer, neck, stats=None) -> None:
     """JAX's FPN ``lateral{i}``, ``fpn_conv{i}`` and ``extra_conv{j}`` ->
     ``neck.lateral_convs.i.conv`` and ``neck.fpn_convs.k.conv``, the extra
-    convs after the outputs' (mmdet's ``fpn_convs.{3,4}`` at P3-P7)."""
+    convs after the outputs' (mmdet's ``fpn_convs.{3,4}`` at P3-P7); the
+    BatchNorms of ``norm="bn"`` (``lateral_gn{i}``, ``fpn_gn{i}``,
+    ``extra_gn{j}``) -> the same ConvModules' ``.bn``."""
     n = sum(bool(re.fullmatch(r"lateral\d+", k)) for k in neck)
     for name, p in neck.items():
-        m = re.fullmatch(r"(lateral|fpn_conv|extra_conv)(\d+)", name)
-        kind, i = m.group(1), int(m.group(2))
-        if kind == "lateral":
-            w.conv(f"neck.lateral_convs.{i}.conv", p)
+        m = re.fullmatch(r"(lateral|fpn|extra)(_conv|_gn|)(\d+)", name)
+        kind, part, i = m.group(1), m.group(2), int(m.group(3))
+        dst = (f"neck.lateral_convs.{i}" if kind == "lateral" else
+               f"neck.fpn_convs.{i + n * (kind == 'extra')}")
+        if part == "_gn":
+            w.bn(f"{dst}.bn", p, stats[name])
         else:
-            w.conv(f"neck.fpn_convs.{i + n * (kind == 'extra_conv')}.conv",
-                   p)
+            w.conv(f"{dst}.conv", p)
+
+
+def _hrfpn(w: _Writer, neck, stats=None) -> None:
+    """JAX's HRFPN (``reduction_conv``, ``fpn_conv{i}``) under its own
+    names."""
+    w.tree("neck", neck)
 
 
 _FPG_TRANSITIONS = {"same_up": "same_up", "lateral": "across_lateral",
@@ -408,9 +522,9 @@ def _dense(variables, outputs, gn: bool, neck=_fpn, extra=None
     ``bbox_head.scales.l.scale``; GHM's EMAs in ``batch_stats`` ->
     ``ghm_acc_c`` / ``ghm_acc_r``. ``extra(w, name, p)`` writes a head
     parameter of the family's own and says whether it did."""
-    params, stats = variables["params"], variables["batch_stats"]
+    params, stats = variables["params"], variables.get("batch_stats", {})
     w = _Writer()
-    w.backbone(params["backbone"], stats["backbone"])
+    write_backbone(w, params["backbone"], stats.get("backbone", {}))
     neck(w, params["neck"], stats.get("neck", {}))
     head, hstats = params["bbox_head"], stats.get("bbox_head", {})
     for name, p in head.items():
@@ -454,7 +568,8 @@ def retinanet_state_dict_from_jax(variables: Dict[str, Any]
     BatchNorms and GHM's EMAs."""
     neck = variables["params"]["neck"]
     writer = (_fpg if "extra_down0" in neck else
-              _nasfpn if "lateral_bn0" in neck else _fpn)
+              _nasfpn if "lateral_bn0" in neck else
+              _hrfpn if "reduction_conv" in neck else _fpn)
     return _dense(variables, ("retina_cls", "retina_reg"), gn=False,
                   neck=writer)
 
@@ -533,7 +648,9 @@ def fcos_state_dict_from_jax(variables: Dict[str, Any]
     -> mmdet-keyed CPU tensors for the port's ``models.fcos.FCOS``
     (mmdet's ``fcos_head.py`` / ``anchor_free_head.py`` names; the
     NAS-FCOS neck by its parameter names)."""
-    neck = _nasfcos if "adapt0" in variables["params"]["neck"] else _fpn
+    neck = variables["params"]["neck"]
+    neck = (_nasfcos if "adapt0" in neck else
+            _hrfpn if "reduction_conv" in neck else _fpn)
     return _dense(variables, ("conv_cls", "conv_reg", "conv_centerness"),
                   gn=True, neck=neck)
 

@@ -465,15 +465,15 @@ def test_inference_detector_refuses_another_family():
 # --- the registry ------------------------------------------------------------
 
 def test_registry_lists_the_ported_archs():
-    assert registry.archs() == ("atss", "autoassign", "deformable_detr",
-                                "deformable_detr_il", "detr", "fcos",
-                                "foveabox", "free_anchor", "fsaf", "gfl",
-                                "gfl_deformable_detr", "lad", "ld",
-                                "nasfcos", "paa", "pisa_retinanet",
+    assert registry.archs() == ("atss", "autoassign", "centernet",
+                                "deformable_detr", "deformable_detr_il",
+                                "detr", "fcos", "foveabox", "free_anchor",
+                                "fsaf", "gfl", "gfl_deformable_detr", "lad",
+                                "ld", "nasfcos", "paa", "pisa_retinanet",
                                 "reppoints", "retinanet", "retinanet_fpg",
                                 "retinanet_ghm", "retinanet_nasfpn",
                                 "sabl_retina", "tood", "vfnet", "yolof",
-                                "yoloy")
+                                "yolov3", "yolox", "yoloy")
     for arch in registry.archs():
         spec = registry.get_family(arch)
         for key in ("build", "init_weights", "from_jax", "eval_step"):
@@ -484,9 +484,9 @@ def test_registry_lists_the_ported_archs():
                  "pisa_retinanet", "retinanet_ghm", "retinanet_fpg",
                  "retinanet_nasfpn", "nasfcos", "vfnet", "reppoints",
                  "tood", "fsaf", "foveabox", "autoassign", "free_anchor",
-                 "sabl_retina"):
+                 "sabl_retina", "yolox", "yolov3", "centernet"):
         assert registry.get_family(arch)["losses"] is not None
-    for arch in ("yolox", "no_such_arch"):
+    for arch in ("ssd", "no_such_arch"):
         with pytest.raises(ValueError, match=repr(arch)):
             registry.get_family(arch)
 

@@ -345,7 +345,7 @@ def test_family_step_refuses_what_the_port_lacks():
         make_family_train_step(cfg.model.arch, model, cfg, 5, True,
                                use_dropout=False)
     with pytest.raises(ValueError, match="no train step"):
-        make_family_train_step("yolox", model, cfg, 5, True)
+        make_family_train_step("ssd", model, cfg, 5, True)
     # fix_fg_grad_direction is ported now: the step builds
     cfg.distill.fix_fg_grad_direction = True
     assert callable(make_family_train_step(cfg.model.arch, model, cfg, 5,

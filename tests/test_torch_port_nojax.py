@@ -21,7 +21,9 @@ config. Further interpreters step the dense families, LD with its
 ResNet-101 teacher and NAS-FPN from their configs, and the DCN families
 (ATSS-DyHead, NAS-FCOS, VFNet, RepPoints) with both CLIs on VFNet, and the
 dense heads TOOD, FSAF, FoveaBox, AutoAssign, FreeAnchor and SABL-RetinaNet
-from their configs. An import hook refuses
+from their configs, and the RegNetX, EfficientNet, PVT and HRNet configs,
+YOLOX (with both CLIs through its no-aug switch), YOLOv3 and CenterNet
+from theirs. An import hook refuses
 ``jax``, ``jaxlib``, ``flax`` and ``dskd_tpu`` throughout."""
 import json
 import os
@@ -507,6 +509,87 @@ print(json.dumps({
                                             "dskd_tpu"))}))
 """
 
+_ZOO_SCRIPT = _REFUSE + r"""
+import glob, importlib, os, runpy, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+from dskd_tpu_torch import registry
+from dskd_tpu_torch.data.batch import Batch
+from dskd_tpu_torch.data.coco import COCO_CLASSES_ALPHA_ORDER
+from dskd_tpu_torch.eval.evaluator import make_eval_step
+from dskd_tpu_torch.tools import test as test_cli
+from dskd_tpu_torch.train.family import make_family_train_step
+from dskd_tpu_torch.train.optim import make_optimizer
+from dskd_tpu_torch.train.schedule import step_lr_schedule
+from dskd_tpu_torch.train.state import TrainState
+from dskd_tpu_torch.utils.config import load_config
+
+for name in ("models.regnet", "models.efficientnet", "models.pvt",
+             "models.hrnet", "models.mobilenet_v2", "models.csp_darknet",
+             "models.yolox", "models.yolov3", "models.cornernet",
+             "models.centernet", "data.mix_transforms", "train.schedule",
+             "core.coders", "utils.weights"):
+    importlib.import_module("dskd_tpu_torch." + name)
+rng = np.random.RandomState(0)
+images = torch.from_numpy(rng.randn(2, 64, 64, 3).astype(np.float32))
+img_hw = torch.tensor([[64, 64], [48, 60]], dtype=torch.int32)
+gt = torch.tensor([[[4., 6., 40., 50.], [30., 10., 60., 30.]],
+                   [[2., 2., 20., 30.], [0., 0., 0., 0.]]])
+batch = Batch(images, img_hw, gt, torch.tensor([[1, 3], [2, 0]]),
+              torch.tensor([[True, True], [True, False]]))
+report = {}
+for config in ("retinanet_regnetx_3_2gf_1x", "retinanet_effb3_1x",
+               "retinanet_pvt_t_1x", "fcos_hrnetv2p_w18_1x", "yolox_s_300e",
+               "yolov3_d53_coco", "yolov3_mobilenetv2_416",
+               "centernet_r18_140e"):
+    cfg = load_config(f"configs/{config}.py")
+    cfg.model = dataclasses.replace(cfg.model, num_classes=5)
+    spec = registry.get_family(cfg.model.arch)
+    model = spec["build"](cfg.model, "cpu")
+    spec["init_weights"](model, 0)
+    state = TrainState.create(model, make_optimizer(
+        model, step_lr_schedule(1e-4)), seed=0)
+    step = make_family_train_step(cfg.model.arch, model, cfg, num_prev=0,
+                                  has_teacher=False)
+    state, losses = step(state, batch)
+    det = make_eval_step(model.eval(), cfg.model.reg_max, 0.0, 20,
+                         cfg.model.arch)(images, img_hw, torch.ones(2, 4))
+    report[config] = [cfg.model.arch, cfg.model.backbone, sorted(losses),
+                      all(bool(torch.isfinite(v)) for v in losses.values()),
+                      list(det.bboxes.shape)]
+root = tempfile.mkdtemp()
+cats = [c for _, c in COCO_CLASSES_ALPHA_ORDER]
+ann, img_dir = chip_smoke.write_coco(root, "train", ((48, 64), (64, 48)) * 2,
+                                     cats[:8], seed=0)
+work = os.path.join(root, "yolox")
+sets = ["data.bucket=(64,64)", "data.img_scale=(64,64)",
+        "data.catsplit=(8,)", "model.num_classes=8", "data.num_workers=0",
+        "data.samples_per_device=2", f"data.train_ann={ann}",
+        f"data.val_ann={ann}", f"data.train_img_prefix={img_dir}",
+        f"data.val_img_prefix={img_dir}", "train.epochs_per_task=2",
+        "train.no_aug_epochs=1", "train.warmup_iters=1",
+        "train.log_interval=1"]
+sys.argv = ["train_increment", "configs/yolox_s_300e.py", "--work-dir", work,
+            "--seed", "1", "--device", "cpu", "--set", *sets]
+runpy.run_module("dskd_tpu_torch.tools.train_increment", run_name="__main__")
+stats = test_cli.main(["configs/yolox_s_300e.py", "--work-dir", work,
+                       "--device", "cpu", "--set", *sets])
+rows = [json.loads(line) for p in glob.glob(os.path.join(work, "*.log.json"))
+        for line in open(p)]
+report["cli"] = [sorted(os.path.basename(p) for p in
+                        glob.glob(os.path.join(work, "task_*"))),
+                 0.0 <= stats["bbox_mAP"] <= 1.0,
+                 sorted({(r["epoch"], "loss_l1" in r) for r in rows
+                         if r["mode"] == "train"})]
+print(json.dumps({
+    "zoo": report,
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                            "dskd_tpu"))}))
+"""
+
 
 def _run(script, tmp_path):
     """Runs ``script`` in a fresh interpreter from the repo's root and
@@ -631,3 +714,36 @@ def test_head_families_import_no_jax(tmp_path):
         "sabl_retinanet_r50_1x": [
             "sabl_retina", ["loss", "loss_bbox_cls", "loss_bbox_reg",
                             "loss_cls"], True, [2, 20, 4]]}
+
+
+def test_zoo_families_import_no_jax(tmp_path):
+    """A seventh interpreter: the RegNetX, EfficientNet, PVT and HRNet
+    configs, YOLOX, YOLOv3 (Darknet-53 and MobileNetV2) and CenterNet from
+    their configs at full width on 64x64, a step and an eval step each,
+    then the ``train_increment`` CLI on YOLOX for two epochs with Mosaic
+    and MixUp, the second without them and with the L1 branch, and the
+    ``test`` CLI on its checkpoint."""
+    report = _run(_ZOO_SCRIPT, tmp_path)
+    assert report["loaded"] == []
+    retina = ["loss", "loss_bbox", "loss_cls"]
+    yolov3 = ["loss", "loss_cls", "loss_conf", "loss_wh", "loss_xy"]
+    assert report["zoo"] == {
+        "retinanet_regnetx_3_2gf_1x": ["retinanet", "regnetx_3.2gf", retina,
+                                       True, [2, 20, 4]],
+        "retinanet_effb3_1x": ["retinanet", "effb3", retina, True,
+                               [2, 20, 4]],
+        "retinanet_pvt_t_1x": ["retinanet", "pvt_tiny", retina, True,
+                               [2, 20, 4]],
+        "fcos_hrnetv2p_w18_1x": ["fcos", "hrnet_w18", [
+            "loss", "loss_bbox", "loss_centerness", "loss_cls"], True,
+            [2, 20, 4]],
+        "yolox_s_300e": ["yolox", "", ["loss", "loss_bbox", "loss_cls",
+                                       "loss_obj"], True, [2, 20, 4]],
+        "yolov3_d53_coco": ["yolov3", "", yolov3, True, [2, 20, 4]],
+        "yolov3_mobilenetv2_416": ["yolov3", "mobilenet_v2", yolov3, True,
+                                   [2, 20, 4]],
+        "centernet_r18_140e": ["centernet", "", [
+            "loss", "loss_center_heatmap", "loss_offset", "loss_wh"], True,
+            [2, 20, 4]],
+        "cli": [["task_1_epoch_1", "task_1_epoch_2"], True,
+                [[1, False], [2, True]]]}
