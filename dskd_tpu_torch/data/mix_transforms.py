@@ -14,34 +14,23 @@ linear resize.
 
 Both draw from the numpy ``RandomState`` the same values in the same order
 as the JAX module, so that the same seed gives the same output. The resize
-is OpenCV's ``INTER_LINEAR`` where ``cv2`` imports (the JAX module's, bit
-for bit); without it, the pipeline's half-pixel bilinear map
-(``pipeline.resize_bilinear``), rounded to whole grey levels, which is
-within one grey level of OpenCV's fixed-point result.
+is OpenCV's ``INTER_LINEAR``, the JAX module's, so the outputs are equal bit
+for bit; without OpenCV both transforms raise.
 """
 from __future__ import annotations
 
 from typing import List, Tuple
 
 import numpy as np
-import torch
-
-from .pipeline import resize_bilinear
 
 PAD_VAL = 114
 
 
 def resize_linear(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
     """uint8 (h, w, 3) ``img`` resized to (w, h) = ``size_wh``."""
-    w, h = size_wh
-    try:
-        import cv2
-    except ImportError:
-        cv2 = None
-    if cv2 is not None:
-        return cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)
-    out = resize_bilinear(torch.from_numpy(np.ascontiguousarray(img)), h, w)
-    return out.numpy().astype(np.uint8)
+    import cv2
+
+    return cv2.resize(img, size_wh, interpolation=cv2.INTER_LINEAR)
 
 
 def _keep_ratio_resize(img: np.ndarray, scale_hw: Tuple[int, int]):

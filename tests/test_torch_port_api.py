@@ -10,7 +10,8 @@ library yardsticks that ``chip_smoke.py`` times beside the kernels.
   or keyword, raises NotImplementedError, and ``variables=`` loads the
   weights of ``test_torch_port_slice.py``;
 * the ``F.embedding_bag`` mappings of ``chip_smoke.py`` compute
-  ``gather_weighted_plain`` and ``fused_msda_sample_plain``.
+  ``gather_weighted_plain`` and ``fused_msda_sample_plain``;
+* ``chip_smoke.device_busy_us`` counts overlapping device intervals once.
 """
 import dataclasses
 import sys
@@ -170,3 +171,35 @@ def test_embedding_bag_computes_fused_sample():
         value, start, (h, w), c00, wts), (B, Q, H, D))
     want = fused_msda_sample_plain(value[:, start:start + h * w], c00, wts, w)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_device_busy_counts_overlaps_once():
+    """The profile's busy time is the union of its device intervals: two
+    kernels at once on two streams, one nested in another and one apart
+    (ns), with a host op and a user annotation that do not count."""
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    class Event:
+        def __init__(self, lo, hi, dev=cuda, note=False):
+            self.lo, self.hi, self.dev, self.note = lo, hi, dev, note
+
+        def start_ns(self):
+            return self.lo
+
+        def end_ns(self):
+            return self.hi
+
+        def device_type(self):
+            return self.dev
+
+        def is_user_annotation(self):
+            return self.note
+
+    events = [Event(0, 4000), Event(3000, 9000), Event(5000, 6000),
+              Event(20000, 21000), Event(0, 50000, cpu),
+              Event(9000, 19000, note=True)]
+    prof = type("Prof", (), {})()
+    prof.profiler = type("P", (), {})()
+    prof.profiler.kineto_results = type("K", (), {
+        "events": lambda self: events})()
+    assert chip_smoke.device_busy_us(prof) == 10.0

@@ -7,9 +7,9 @@ on the CPU (tests/torch_port_zoo.py):
   boxes 1e-4) and the seeded init;
 - ``yolox_cosine_schedule`` over 50 steps (1e-6 relative: JAX's is f32);
 - ``mosaic`` and ``mixup`` equal to JAX's ``mix_transforms`` bit for bit
-  on the same seeds (with OpenCV; without it, within one grey level and
-  the same boxes), and the loader's Mosaic + MixUp batches against JAX's
-  loader (the same GT; images within one grey level, as the pipeline's);
+  on the same seeds (both raise without OpenCV), and the loader's Mosaic
+  + MixUp batches against JAX's loader (the same GT; images within one
+  grey level, as the pipeline's);
 - a port-only YOLOX ``train_one_task`` at tiny size: Mosaic and MixUp off
   and ``loss_l1`` on from the first no-aug epoch, not before.
 """
@@ -69,14 +69,11 @@ def _samples(seed, n=5, empty=(3,)):
     return out
 
 
-def _assert_mixed_equal(got, want, exact=True):
+def _assert_mixed_equal(got, want):
     gi, gb, gl = got
     wi, wb, wl = want
     assert gi.dtype == wi.dtype == np.uint8 and gi.shape == wi.shape
-    if exact:
-        np.testing.assert_array_equal(gi, wi)
-    else:
-        assert np.abs(gi.astype(int) - wi.astype(int)).max() <= 1
+    np.testing.assert_array_equal(gi, wi)
     np.testing.assert_array_equal(gb, wb)
     np.testing.assert_array_equal(gl, wl)
 
@@ -103,9 +100,10 @@ def test_mosaic_and_mixup_match_jax_bit_for_bit(seed):
 
 
 def test_mosaic_and_mixup_without_opencv(monkeypatch):
+    """The resize is OpenCV's, as JAX's: without cv2 both transforms raise
+    rather than resize another way."""
     import builtins
 
-    from dskd_tpu.data import mix_transforms as J
     from dskd_tpu_torch.data import mix_transforms as P
     real_import = builtins.__import__
 
@@ -115,12 +113,12 @@ def test_mosaic_and_mixup_without_opencv(monkeypatch):
         return real_import(name, *a, **kw)
 
     s = _samples(7, empty=())
-    want = J.mixup(*J.mosaic(s[:4], (48, 64), np.random.RandomState(5)),
-                   *s[4], np.random.RandomState(6), dynamic_scale=(48, 64))
+    m = P.mosaic(s[:4], (48, 64), np.random.RandomState(5))
     monkeypatch.setattr(builtins, "__import__", no_cv2)
-    got = P.mixup(*P.mosaic(s[:4], (48, 64), np.random.RandomState(5)),
-                  *s[4], np.random.RandomState(6), dynamic_scale=(48, 64))
-    _assert_mixed_equal(got, want, exact=False)
+    with pytest.raises(ImportError, match="cv2"):
+        P.mosaic(s[:4], (48, 64), np.random.RandomState(5))
+    with pytest.raises(ImportError, match="cv2"):
+        P.mixup(*m, *s[4], np.random.RandomState(6), dynamic_scale=(48, 64))
 
 
 LOADER_SHAPES = ((48, 64), (64, 48), (40, 56), (56, 40), (48, 64)) * 2

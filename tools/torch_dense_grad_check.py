@@ -10,7 +10,7 @@ For each arch (default: gfl, atss; phase 15's archs too), the step that
 archs their kind's whole set, ``chip_smoke.VARIANT_GRAD_PARAMS``), run on
 one CUDA card and on the CPU twice: in f64, where every named gradient
 (the FPN lateral's, FPG's and NAS-FPN's tower convs' included) is held to
-``GRAD_REL_TOL``; then in f32 with cuDNN off (PyTorch's native
+``F64_GRAD_REL_TOL``; then in f32 with cuDNN off (PyTorch's native
 convolutions), so that a gap can be read without cuDNN's algorithm
 choice. TF32 stays off. Prints the card's name and power limit and each
 gradient's relative L2 error; a gradient past its tolerance raises.
