@@ -160,12 +160,15 @@ def centernet_loss(out: CenterNetOutputs, gt_bboxes, gt_labels, gt_valid,
             avg_factor=2 * num_pos))
 
 
+PLATEAU_TOL = 1e-6
+
+
 def local_maxima(heat: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) scores where they equal their 3x3 max-pool (padded
-    with -inf) within 1e-6, else 0."""
+    with -inf) within PLATEAU_TOL, else 0."""
     pooled = F.max_pool2d(heat.permute(0, 3, 1, 2), 3, 1, 1).permute(
         0, 2, 3, 1)
-    return torch.where((pooled - heat).abs() < 1e-6, heat,
+    return torch.where((pooled - heat).abs() < PLATEAU_TOL, heat,
                        torch.zeros_like(heat))
 
 
